@@ -32,29 +32,55 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile `csrc/<source>` once (cached by content hash) and load it."""
-    if source in _LOADED:
-        return _LOADED[source]
+def _paths(source: str):
     src_path = os.path.join(_PKG, "csrc", source)
     with open(src_path, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     name = os.path.splitext(source)[0]
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # Build under a temporary name and rename: concurrent first uses never
-        # load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path], capture_output=True, text=True)
+    return src_path, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_libraries(*sources: str) -> None:
+    """Compile every source of `sources` that is not built yet, one nvcc
+    process each, all at once (cached by content hash)."""
+    todo = [(src, lib) for src, lib in map(_paths, sources) if not os.path.exists(lib)]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs, tmps = [], []
+    try:
+        for src_path, lib_path in todo:
+            # Build under a temporary name and rename: concurrent first uses
+            # never load a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            tmps.append(tmp)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src_path], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs.append((src_path, lib_path, tmp, proc))
+        failures = []
+        for src_path, lib_path, tmp, proc in jobs:
+            out, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src_path}:\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
+                failures.append(f"nvcc failed on {src_path}:\n{out}\n{err}")
+            else:
+                os.replace(tmp, lib_path)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    finally:
+        for _, _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    lib = ctypes.CDLL(lib_path)
-    _LOADED[source] = lib
-    return lib
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile `csrc/<source>` once (cached by content hash) and load it."""
+    if source not in _LOADED:
+        build_libraries(source)
+        _LOADED[source] = ctypes.CDLL(_paths(source)[1])
+    return _LOADED[source]

@@ -21,6 +21,7 @@ from dd3d_tpu_torch.models.fcos2d import FCOS2DHead, decode_fcos2d_level, stable
 from dd3d_tpu_torch.models.fcos3d import FCOS3DHead, decode_fcos3d_candidates
 from dd3d_tpu_torch.ops.locations import compute_feature_locations
 from dd3d_tpu_torch.ops.nms import batched_nms_padded
+from dd3d_tpu_torch.utils.convert_checkpoint import assign_quant_paths
 
 HEAD_KEYS_2D = ("logits", "box2d_reg", "centerness")
 HEAD_KEYS_3D = ("quat", "proj_ctr", "depth", "size", "conf")
@@ -59,7 +60,6 @@ class DD3D(nn.Module):
 def _check_ported(cfg):
     """Config keys whose behaviour the port does not have yet."""
     unported = {
-        "TPU.QUANT_INT8": bool(cfg.TPU.get("QUANT_INT8", False)),
         "DD3D.FCOS2D._VERSION": cfg.DD3D.FCOS2D.get("_VERSION", "v2") != "v2",
         "DD3D.FCOS3D.PER_LEVEL_PREDICTORS": bool(cfg.DD3D.FCOS3D.PER_LEVEL_PREDICTORS),
         "DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D": bool(cfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D),
@@ -92,8 +92,10 @@ def build_dd3d(cfg) -> DD3D:
             depth_scale_init_factor=c3.DEPTH_SCALE_INIT_FACTOR,
             proj_ctr_scale_init_factor=c3.PROJ_CTR_SCALE_INIT_FACTOR,
         )
-    return DD3D(backbone, strides, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, fcos2d, fcos3d,
-                getattr(torch, cfg.TPU.COMPUTE_DTYPE))
+    model = DD3D(backbone, strides, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, fcos2d, fcos3d,
+                 getattr(torch, cfg.TPU.COMPUTE_DTYPE))
+    assign_quant_paths(model)  # int8 scales are keyed by the JAX package's scope paths
+    return model
 
 
 def _gather_fields(d: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,13 +1,15 @@
 """Feature Pyramid Network, counterpart of dd3d_tpu/models/fpn.py: 1x1
 laterals + 3x3 outputs, nearest-neighbour top-down upsampling, sum fusion
 (the only FE.FPN.FUSE_TYPE any config uses), and the RetinaNet-style P6P7
-top on the P5 output (P7 reads relu(P6))."""
+top on the P5 output (P7 reads relu(P6)). P6 and P7 are plain convs in the
+JAX package (flax nn.Conv, dd3d_tpu/models/fpn.py:110-117), so they never
+quantize under TPU.QUANT_INT8: the port builds them as `PlainConv`."""
 from typing import Dict, Sequence
 
 import torch.nn.functional as F
 from torch import nn
 
-from dd3d_tpu_torch.models.layers import INIT_UNIFORM_FAN_IN, ConvNorm, FoldableConv
+from dd3d_tpu_torch.models.layers import INIT_UNIFORM_FAN_IN, ConvNorm, PlainConv
 
 
 def _upsample_nearest_2x(x):
@@ -15,12 +17,13 @@ def _upsample_nearest_2x(x):
 
 
 class LastLevelP6P7(nn.Module):
-    """P6 = conv3x3/s2(P5), P7 = conv3x3/s2(relu(P6)); both with bias."""
+    """P6 = conv3x3/s2(P5), P7 = conv3x3/s2(relu(P6)); both with bias, never
+    quantized."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.p6 = FoldableConv(channels, channels, 3, stride=2, bias=True, init=INIT_UNIFORM_FAN_IN)
-        self.p7 = FoldableConv(channels, channels, 3, stride=2, bias=True, init=INIT_UNIFORM_FAN_IN)
+        self.p6 = PlainConv(channels, channels, 3, stride=2, bias=True, init=INIT_UNIFORM_FAN_IN)
+        self.p7 = PlainConv(channels, channels, 3, stride=2, bias=True, init=INIT_UNIFORM_FAN_IN)
 
     def forward(self, p5):
         p6 = self.p6(p5)

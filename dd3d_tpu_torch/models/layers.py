@@ -12,12 +12,120 @@ Counterpart of dd3d_tpu/models/layers.py, for inference:
   norm's per-channel `mul` in fp32 and only then cast to the compute dtype
   (dd3d_tpu/models/layers.py:307-309). Folding after the cast gives other
   bf16 weights.
+- int8 post-training quantization (TPU.QUANT_INT8, :134-243, :311-353,
+  :474-499): a `QuantSpec` holds the settings of ONE call, entered with
+  `quant_scope` (a contextvars.ContextVar, never a module global), so two
+  inference functions built from one model with different configs never
+  see each other's settings. Eligible convs run through
+  ops/int8_conv.int8_conv_dequant.
 """
-from typing import Optional
+import contextlib
+import contextvars
+import json
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dd3d_tpu_torch.ops.int8_conv import int8_conv_dequant
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class QuantSpec:
+    """The int8 settings of one call, and what the call records.
+
+    A conv is eligible when quantization is `enabled`, its module is
+    `quantizable` and it has a folded norm, or any conv when `unfolded`. An
+    eligible conv quantizes when its input has at least `min_ch` channels;
+    the fused predictors under `unfolded` ignore `min_ch`, as the JAX
+    package does (dd3d_tpu/models/layers.py:474). `scales` maps the flax
+    scope path of a conv to {"HxWxC" input-shape tag: calibrated amax}; a
+    (path, tag) that is missing falls back to the dynamic scale and is
+    appended to `misses`. With `capture` a list, every eligible call
+    appends (path, tag, max|x| as an f32 tensor), whatever `min_ch` is, like
+    JAX's `sow`. `plain` runs the kernels' plain versions, on any device."""
+
+    enabled: bool = False
+    min_ch: int = 256
+    unfolded: bool = False
+    scales: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    plain: bool = False
+    capture: Optional[List[Tuple[str, str, torch.Tensor]]] = None
+    misses: List[Tuple[str, str]] = field(default_factory=list)
+
+
+_QUANT = contextvars.ContextVar("dd3d_tpu_torch_quant", default=QuantSpec())
+
+
+@contextlib.contextmanager
+def quant_scope(spec: QuantSpec):
+    """Run the enclosed forward under `spec`."""
+    token = _QUANT.set(spec)
+    try:
+        yield spec
+    finally:
+        _QUANT.reset(token)
+
+
+def load_quant_scales(path: str) -> Dict[str, Dict[str, float]]:
+    """A calibration JSON {conv_path: {shape_tag: amax}}, the schema of
+    dd3d_tpu/models/layers.py::load_quant_scales. Legacy files
+    ({conv_path: [amax per call]} + "__tags__") convert; a legacy file
+    without tags cannot be keyed safely and is rejected."""
+    with open(path) as f:
+        raw = json.load(f)
+    tags = raw.pop("__tags__", None)
+    scales = {}
+    for k, v in raw.items():
+        if isinstance(v, dict):
+            scales[str(k)] = {str(t): float(a) for t, a in v.items()}
+            continue
+        if tags is None or k not in tags:
+            raise ValueError(f"{path}: legacy per-call scales for {k!r} without shape tags cannot be used "
+                             "safely; recalibrate with python -m dd3d_tpu_torch.calibrate_int8")
+        ent = {}
+        for t, a in zip(tags[k], v if isinstance(v, (list, tuple)) else [v]):
+            ent[str(t)] = max(float(a), ent.get(str(t), 0.0))
+        scales[str(k)] = ent
+    return scales
+
+
+def quant_spec_from_cfg(cfg, plain: bool = False) -> QuantSpec:
+    """The spec of TPU.QUANT_INT8 / QUANT_MIN_CH / QUANT_UNFOLDED /
+    QUANT_SCALES_PATH (the keys of set_quant_from_cfg, :230-243)."""
+    tpu = cfg.get("TPU", {})
+    scales_path = tpu.get("QUANT_SCALES_PATH", "") or ""
+    return QuantSpec(
+        enabled=bool(tpu.get("QUANT_INT8", False)),
+        min_ch=int(tpu.get("QUANT_MIN_CH", 256)),
+        unfolded=bool(tpu.get("QUANT_UNFOLDED", False)),
+        scales=load_quant_scales(scales_path) if scales_path else {},
+        plain=plain,
+    )
+
+
+def _observe(spec: QuantSpec, path: Optional[str], x: torch.Tensor) -> Optional[float]:
+    """Capture and static-scale lookup of one eligible conv call (:320-338);
+    returns the static amax, or None for the dynamic scale."""
+    if path is None:
+        raise ValueError("a quantizing conv needs its flax scope path (quant_path); build the model with "
+                         "build_model, or set it")
+    tag = f"{x.shape[2]}x{x.shape[3]}x{x.shape[1]}"  # the JAX tag is of the NHWC shape
+    if spec.capture is not None:
+        spec.capture.append((path, tag, x.detach().abs().amax().float()))
+    if not spec.scales:
+        return None
+    amax = spec.scales.get(path, {}).get(tag)
+    if amax is None:
+        spec.misses.append((path, tag))
+        logger.warning("static int8 scales: no calibrated scale for %s at shape %s - falling back to a dynamic "
+                       "scale (recalibrate for this canvas)", path, tag)
+    return amax
 
 
 class _NormStats(nn.Module):
@@ -99,7 +207,12 @@ def _init_weight(weight: torch.Tensor, init: str, generator: Optional[torch.Gene
 
 class FoldableConv(nn.Module):
     """Conv whose kernel/bias can absorb a following norm's per-channel affine:
-    norm(conv(x) + b) == conv_{W*mul}(x) + (b*mul + add)."""
+    norm(conv(x) + b) == conv_{W*mul}(x) + (b*mul + add). Under an enabled
+    QuantSpec it is an int8 conv where the eligibility rule says so;
+    `quant_path` is its flax scope path (utils/convert_checkpoint.py)."""
+
+    quantizable = True
+    quant_path: Optional[str] = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
                  bias: bool = False, init: str = INIT_NORMAL_FAN_OUT):
@@ -119,8 +232,21 @@ class FoldableConv(nn.Module):
         if mul is not None:
             weight = weight * mul[:, None, None, None]  # fp32, before the cast
             bias = bias * mul + add if bias is not None else add
-        return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
-                        self.stride, (self.kernel_size - 1) // 2)
+        pad = (self.kernel_size - 1) // 2
+        spec = _QUANT.get()
+        if spec.enabled and self.quantizable and (mul is not None or spec.unfolded):
+            act_amax = _observe(spec, self.quant_path, x)
+            if x.shape[1] >= spec.min_ch:
+                return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain)
+        return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad)
+
+
+class PlainConv(FoldableConv):
+    """A conv that never quantizes: the counterpart of flax's plain nn.Conv
+    (the FPN's P6/P7, dd3d_tpu/models/fpn.py:110-117), which the JAX
+    package's int8 rule never reaches, even under TPU.QUANT_UNFOLDED."""
+
+    quantizable = False
 
 
 class ConvNorm(FoldableConv):
@@ -171,6 +297,8 @@ class PredictorConv(nn.Module):
     """A head's 3x3 predictor conv (weight + optional bias); siblings reading
     the same map run as one conv through `fused_predictor_apply`."""
 
+    quant_path: Optional[str] = None
+
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, bias: bool = True):
         super().__init__()
         self.kernel_size, self.out_channels = kernel_size, out_channels
@@ -190,7 +318,9 @@ class PredictorConv(nn.Module):
 def fused_predictor_apply(x, preds):
     """Run sibling PredictorConvs as ONE conv over output-channel-concatenated
     kernels, then split. Exact: each output channel is computed as by its own
-    conv; a bias-free predictor gets a zero bias slice (dd3d_tpu :457-515)."""
+    conv; a bias-free predictor gets a zero bias slice (dd3d_tpu :457-515).
+    Under TPU.QUANT_UNFOLDED the group is one int8 conv, keyed by the first
+    sibling's scope path, whatever QUANT_MIN_CH is (:474-499)."""
     k = preds[0].kernel_size
     if any(m.kernel_size != k for m in preds):
         raise ValueError("fused predictors need one kernel size")
@@ -199,7 +329,12 @@ def fused_predictor_apply(x, preds):
     if any(m.bias is not None for m in preds):
         bias = torch.cat([m.bias if m.bias is not None else m.weight.new_zeros(m.out_channels)
                           for m in preds])
-    y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=k // 2)
+    spec = _QUANT.get()
+    if spec.enabled and spec.unfolded:
+        act_amax = _observe(spec, preds[0].quant_path, x)
+        y = int8_conv_dequant(x, weight, bias, 1, k // 2, x.dtype, act_amax, spec.plain)
+    else:
+        y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=k // 2)
     return list(torch.split(y, [m.out_channels for m in preds], dim=1))
 
 

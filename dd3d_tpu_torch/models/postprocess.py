@@ -8,26 +8,35 @@ import numpy as np
 import torch
 
 
-def get_inference_fn(model, cfg, suppress=None):
+def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False):
     """A plain callable `infer(images, intrinsics) -> detections`: model
     forward + `dd3d_inference` under `torch.inference_mode()`. `images` is
     (B, H, W, 3) uint8 BGR and `intrinsics` (B, 3, 3); numpy arrays are moved
     to the model's device. PyTorch runs eagerly, so there is no cache of
-    compiled programs to key. `suppress` is passed on to `dd3d_inference`."""
+    compiled programs to key. `suppress` is passed on to `dd3d_inference`.
+
+    The int8 settings (TPU.QUANT_*) are read from `cfg` once, into a
+    QuantSpec that is entered around each call only, so functions built
+    from one model with different configs never share them. `infer.quant`
+    is that spec (its `misses` list the static-scale misses); `int8_plain`
+    runs the int8 kernels' plain versions, for checking them on the card."""
     from dd3d_tpu_torch.models.dd3d import dd3d_inference
+    from dd3d_tpu_torch.models.layers import quant_scope, quant_spec_from_cfg
 
     if cfg.DD3D.INFERENCE.get("NUSC_SAMPLE_AGGREGATE", False):
         raise NotImplementedError("DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE is not ported")
     model.eval()
     device = model.pixel_mean.device
+    spec = quant_spec_from_cfg(cfg, plain=int8_plain)
 
     def infer(images, intrinsics):
-        with torch.inference_mode():
+        with torch.inference_mode(), quant_scope(spec):
             images = torch.as_tensor(images, device=device)
             intrinsics = torch.as_tensor(intrinsics, device=device)
             outputs = model(images)
             return dd3d_inference(cfg, outputs, intrinsics, model.strides, suppress=suppress)
 
+    infer.quant = spec
     return infer
 
 

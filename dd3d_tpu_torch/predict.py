@@ -4,6 +4,10 @@
         --ckpt /path/model_final.pth --images /data/frames \
         --intrinsics 721.5,721.5,609.5,172.8 --out preds.json [--device cuda]
 
+With `TPU.QUANT_INT8=True TPU.QUANT_MIN_CH=32 TPU.QUANT_UNFOLDED=True
+TPU.QUANT_SCALES_PATH=scales.json` (from `python -m
+dd3d_tpu_torch.calibrate_int8`) it serves the static-int8 configuration.
+
 Counterpart of scripts/predict.py: images go through the JAX package's host
 mapper and collate (numpy + cv2, ResizeShortestEdge at
 INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to the
@@ -65,6 +69,48 @@ def parse_overrides(pairs, cfg):
     return cfg
 
 
+def read_image_dicts(files, intrinsics):
+    """One dataset dict per image file (cv2 reads it once for its size)."""
+    import cv2
+
+    dicts = []
+    for f in files:
+        img = cv2.imread(f)
+        if img is None:
+            raise FileNotFoundError(f)
+        dicts.append({"file_name": f, "image_id": os.path.splitext(os.path.basename(f))[0], "intrinsics": intrinsics,
+                      "height": img.shape[0], "width": img.shape[1]})
+    return dicts
+
+
+def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
+    """(chunk, batch, meta) per `batch_size` dicts, through the JAX package's
+    host mapper and collate: ResizeShortestEdge at INPUT.RESIZE.MIN_SIZE_TEST,
+    intrinsics rescaled, canvas padded to `size_divisibility`."""
+    from dd3d_tpu.data.augmentations import build_augmentation
+    from dd3d_tpu.data.mapper import DatasetMapper, collate_batch
+
+    mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False,
+                           box3d_on=bool(cfg.MODEL.BOX3D_ON))
+    rng = np.random.RandomState(0)
+    for i in range(0, len(dicts), batch_size):
+        chunk = dicts[i: i + batch_size]
+        batch, meta = collate_batch([mapper(d, rng) for d in chunk], max_gt=1, size_divisibility=size_divisibility)
+        yield chunk, batch, meta
+
+
+def load_model(cfg, ckpt, seed: int, device):
+    """The port's model: a reference-named `.pth` state dict, or random
+    weights drawn from `seed` when `ckpt` is empty."""
+    from dd3d_tpu_torch.models import build_model
+
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    if ckpt:
+        sd = torch.load(ckpt, map_location="cpu")
+        model.load_state_dict(sd.get("model", sd), strict=True)
+    return model.to(device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--experiment", required=True)
@@ -79,12 +125,7 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
     args = ap.parse_args(argv)
 
-    import cv2
-
-    from dd3d_tpu.data.augmentations import build_augmentation
-    from dd3d_tpu.data.mapper import DatasetMapper, collate_batch
     from dd3d_tpu_torch.configs import get_experiment_cfg
-    from dd3d_tpu_torch.models import build_model
     from dd3d_tpu_torch.models.postprocess import get_inference_fn, unpack_detections
 
     cfg = get_experiment_cfg(args.experiment)
@@ -93,30 +134,13 @@ def main(argv=None):
     files = list_images(args.images)
     print(f"{len(files)} images, experiment {args.experiment}, device {args.device}")
 
-    dicts = []
-    for f in files:
-        img = cv2.imread(f)
-        if img is None:
-            raise FileNotFoundError(f)
-        dicts.append({"file_name": f, "image_id": os.path.splitext(os.path.basename(f))[0], "intrinsics": k,
-                      "height": img.shape[0], "width": img.shape[1]})
+    dicts = read_image_dicts(files, k)
 
-    model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
-    if args.ckpt:
-        sd = torch.load(args.ckpt, map_location="cpu")
-        model.load_state_dict(sd.get("model", sd), strict=True)
-    model.to(args.device)
+    model = load_model(cfg, args.ckpt, args.seed, args.device)
     infer_fn = get_inference_fn(model, cfg)
-    mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False,
-                           box3d_on=bool(cfg.MODEL.BOX3D_ON))
-    size_div = model.backbone.size_divisibility
 
-    rng = np.random.RandomState(0)
     results = []
-    for i in range(0, len(dicts), args.batch):
-        chunk = dicts[i: i + args.batch]
-        samples = [mapper(d, rng) for d in chunk]
-        batch, meta = collate_batch(samples, max_gt=1, size_divisibility=size_div)
+    for i, (chunk, batch, meta) in enumerate(iter_batches(cfg, dicts, args.batch, model.backbone.size_divisibility)):
         det = infer_fn(batch["image"], batch["intrinsics"])
         rows = unpack_detections(det, batch, meta[: len(chunk)])
         for d, row in zip(chunk, rows):
@@ -135,7 +159,7 @@ def main(argv=None):
                 rec["tvec"] = row["tvec"][keep].round(3).tolist()
                 rec["size"] = row["size"][keep].round(3).tolist()
             results.append(rec)
-        print(f"  {min(i + args.batch, len(dicts))}/{len(dicts)} images done", flush=True)
+        print(f"  {min((i + 1) * args.batch, len(dicts))}/{len(dicts)} images done", flush=True)
 
     with open(args.out, "w") as f:
         json.dump(results, f)

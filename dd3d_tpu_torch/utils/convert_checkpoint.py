@@ -12,6 +12,9 @@ The port's names are the reference checkpoints' (tests/torch_ref_dd3d.py),
 so a reference `.pth` loads into the same model with `strict=True`. Buffers
 the JAX trees do not hold (num_batches_tracked, pixel_mean / pixel_std, the
 per-level depth statistics) are the model's own, which come from the config.
+
+`assign_quant_paths` gives every quantizable conv the flax scope path that
+keys its int8 scale, so one scales JSON serves both packages.
 """
 import re
 from typing import Dict, List, Tuple
@@ -22,8 +25,10 @@ import torch
 from dd3d_tpu_torch.models.layers import (
     ConvNorm,
     FoldableBatchNorm,
+    FoldableConv,
     FrozenBatchNorm,
     Offset,
+    PredictorConv,
     Scale,
 )
 
@@ -51,6 +56,21 @@ def _flax_module_path(module_name: str, fpn_features: Dict[str, str]) -> List[st
     # FPN convs are named by trunk feature in flax: fpn_lateral3 -> fpn_lateral_level3
     p = re.sub(r"\bfpn_(lateral|output)(\d)\b", lambda m: f"fpn_{m.group(1)}_{fpn_features[m.group(2)]}", p)
     return p.split(".") if p else []
+
+
+def assign_quant_paths(model: torch.nn.Module) -> None:
+    """Set `quant_path` on every quantizable conv of a DD3D model to its flax
+    scope path ("/"-joined): a ConvNorm's conv is its `conv` child
+    (`backbone/bottom_up/level2/root/conv/conv`), a tower conv and a
+    predictor are the module itself (`fcos2d_head/cls_tower_conv0`,
+    `fcos3d_head/box3d_quat0`; a fused predictor group is keyed by its first
+    sibling)."""
+    fpn = model.backbone
+    fpn_features = {str(fpn.in_strides[f].bit_length() - 1): f for f in fpn.in_features}
+    for name, module in model.named_modules():
+        if isinstance(module, PredictorConv) or (isinstance(module, FoldableConv) and module.quantizable):
+            path = _flax_module_path(name, fpn_features)
+            module.quant_path = "/".join(path + ["conv"] if isinstance(module, ConvNorm) else path)
 
 
 def _flax_leaf(module, path: List[str], leaf: str) -> Tuple[str, List[str], str]:

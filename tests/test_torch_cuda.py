@@ -18,7 +18,7 @@ KITTI_K = np.array([[721.5, 0, 609.5], [0, 721.5, 172.8], [0, 0, 1]], np.float32
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc: the NMS kernel has no CPU or interpret mode")
+        pytest.skip("needs a CUDA card and nvcc: the CUDA kernels have no CPU or interpret mode")
     return torch.device("cuda", 0)
 
 
@@ -66,3 +66,85 @@ def test_slice_on_card_matches_cpu(card):
     det_gpu = get_inference_fn(model.to(card), cfg)(images, intrinsics)
     np.testing.assert_array_equal(det_gpu["valid"].cpu().numpy(), det_cpu["valid"].numpy())
     np.testing.assert_allclose(det_gpu["scores"].cpu().numpy(), det_cpu["scores"].numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,dtype,amax", [
+    ((8, 48, 160, 256), torch.bfloat16, None),
+    ((8, 48, 160, 256), torch.bfloat16, 4.0),
+    ((3, 7, 13, 5), torch.float32, None),
+    ((2, 9, 17, 16), torch.float32, 15.875),
+])
+def test_quantize_kernel_matches_plain(card, shape, dtype, amax):
+    """Exact int8 codes; with amax 15.875 (xs = 0.125) every input is an
+    exact .5 tie and a third of them clip."""
+    from dd3d_tpu_torch.ops.int8_conv import activation_scale
+    from dd3d_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
+
+    rng = np.random.RandomState(5)
+    if amax == 15.875:
+        x = (rng.randint(-200, 200, size=shape) + 0.5) * 0.125
+    else:
+        x = rng.randn(*shape) * 3
+    xt = torch.from_numpy(x.astype(np.float32)).to(dtype).to(card)
+    xs = activation_scale(xt, amax)
+    before = quantize_int8.launches
+    q = quantize_int8(xt, xs)
+    assert quantize_int8.launches == before + 1
+    assert torch.equal(q, quantize_int8_plain(xt, xs))
+
+
+@pytest.mark.parametrize("b,h,w,c,o,k,stride", [
+    (2, 24, 40, 256, 256, 3, 1),  # a head-tower conv
+    (2, 33, 47, 3, 16, 7, 1),     # the stem, ragged: C padded to 4 words
+    (2, 24, 40, 64, 5, 3, 1),     # a fused predictor: O = 5
+    (2, 25, 41, 128, 55, 3, 2),   # O = 55, stride 2, odd sizes
+    (1, 12, 20, 1280, 512, 1, 1),  # the widest root concat
+])
+def test_int8_conv_kernel_matches_plain(card, b, h, w, c, o, k, stride):
+    """Exact int32 accumulators (f32 out at scale 1 holds them exactly below
+    2^24) and the bf16 / f32 epilogues bit for bit."""
+    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
+
+    rng = np.random.RandomState(6)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.randint(-127, 128, (o, k, k, c)).astype(np.int8)).to(card)
+    scale = torch.from_numpy((rng.rand(o) * 1e-3 + 1e-5).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32)).to(card)
+    pad = (k - 1) // 2
+    acc = int8_conv_acc_plain(xq, wq, stride, pad)
+    assert int(acc.abs().max()) < 2 ** 24
+    before = int8_conv.launches
+    assert torch.equal(int8_conv(xq, wq, torch.ones_like(scale), None, stride, pad, torch.float32), acc.float())
+    for dt in (torch.bfloat16, torch.float32):
+        assert torch.equal(int8_conv(xq, wq, scale, bias, stride, pad, dt), dequant_plain(acc, scale, bias, dt))
+    assert int8_conv.launches == before + 3
+
+
+def test_int8_conv_dequant_kernel_path_matches_plain(card):
+    """The whole int8 conv (scales, quantize, conv, epilogue) through the
+    kernels against the plain versions, on an NCHW-contiguous input (the
+    wrapper copies it to NHWC) and a channels_last one."""
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv_dequant
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 64, 30, 50, generator=gen).to(card, torch.bfloat16)
+    weight = torch.randn(96, 64, 3, 3, generator=gen).to(card)
+    bias = torch.randn(96, generator=gen).to(card)
+    for inp in (x, x.to(memory_format=torch.channels_last)):
+        for amax in (None, 2.5):
+            got = int8_conv_dequant(inp, weight, bias, 1, 1, torch.bfloat16, amax)
+            assert torch.equal(got, int8_conv_dequant(inp, weight, bias, 1, 1, torch.bfloat16, amax, plain=True))
+            assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_int8_kernels_reject_what_they_do_not_take(card):
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    xq = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device=card)
+    wq = torch.zeros(4, 3, 3, 16, dtype=torch.int8, device=card)
+    ones = torch.ones(4, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv(xq.transpose(1, 2), wq, ones, None, 1, 1, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_int8(torch.zeros(4, 4, device=card).t(), torch.ones(1, device=card))

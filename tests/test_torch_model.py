@@ -59,7 +59,8 @@ def test_activations_run_channels_last():
     assert all(f.is_contiguous(memory_format=torch.channels_last) for f in feats.values())
 
 
-@pytest.mark.parametrize("key,value", [("TPU.QUANT_INT8", True), ("FE.BUILDER", "build_dla_fpn_backbone"),
+@pytest.mark.parametrize("key,value", [("DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D", True),
+                                       ("FE.BUILDER", "build_dla_fpn_backbone"),
                                        ("DD3D.FCOS3D.PER_LEVEL_PREDICTORS", True)])
 def test_unported_config_keys_raise(key, value):
     from dd3d_tpu_torch.models import build_model

@@ -72,23 +72,31 @@ def test_unpack_detections(detections):
 
 
 def test_port_runs_without_jax():
-    """Build the port's model and run inference in a fresh interpreter: no
-    jax or flax module may be imported on the way (the GPU machine has none)."""
+    """Build the port's model and run bf16 inference, then calibrate and serve
+    static int8 with bench.py's overrides, in a fresh interpreter: no jax or
+    flax module may be imported on the way (the GPU machine has none)."""
     code = (
         "import sys, torch\n"
         "from dd3d_tpu_torch.configs import get_experiment_cfg\n"
         "from dd3d_tpu_torch.models import build_model\n"
+        "from dd3d_tpu_torch.models.calibrate import prepare_static_scales\n"
         "from dd3d_tpu_torch.models.postprocess import get_inference_fn\n"
         "cfg = get_experiment_cfg('dd3d_kitti_dla34')\n"
         "model = build_model(cfg, generator=torch.Generator().manual_seed(0))\n"
-        "det = get_inference_fn(model, cfg)(torch.zeros(1, 128, 256, 3, dtype=torch.uint8), torch.eye(3)[None])\n"
+        "images = torch.randint(0, 256, (1, 128, 256, 3), dtype=torch.uint8)\n"
+        "det = get_inference_fn(model, cfg)(images, torch.eye(3)[None])\n"
         "assert det['boxes2d'].shape == (1, 100, 4)\n"
+        "cfg.TPU.QUANT_INT8, cfg.TPU.QUANT_MIN_CH, cfg.TPU.QUANT_UNFOLDED = True, 32, True\n"
+        "infer = get_inference_fn(model, prepare_static_scales(cfg, model, [images]))\n"
+        "det = infer(images, torch.eye(3)[None])\n"
+        "assert det['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}  # test files run in parallel processes
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0 and proc.stdout.strip().splitlines()[-1] == "ok", proc.stderr[-3000:]
 
 
 def test_predict_cli_writes_json(tmp_path):

@@ -2,6 +2,8 @@
 reference-named state dict with random values, loaded into both the JAX
 package (through its converter) and the PyTorch port (through the port's
 converter), at fp32."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,3 +76,33 @@ def both_models(cfg, sd=None):
 
 def to_torch_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
+
+
+@contextlib.contextmanager
+def jax_quant_globals_restored():
+    """The JAX package's int8 settings are module globals that its jitted
+    closures set while tracing and leave set (dd3d_tpu/models/layers.py
+    QUANT_*); put every one of them back afterwards."""
+    import dd3d_tpu.models.layers as jl
+
+    names = ("QUANT_INT8", "QUANT_MIN_CH", "QUANT_UNFOLDED", "QUANT_SCALES", "QUANT_OBSERVED_TAGS",
+             "QUANT_SCALE_MISSES")
+    saved = {n: getattr(jl, n) for n in names}
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(jl, n, v)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int = 2):
+    """Cap PyTorch's intra-op threads: the driver runs test files in several
+    processes at once, and a process of 8 spinning OpenMP threads each makes
+    the f64 GEMMs of the plain int8 conv a hundred times slower."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(n, before))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
