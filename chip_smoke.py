@@ -7,8 +7,10 @@ Drives the port's two serving paths for the dd3d_kitti_dla34 experiment
 (DLA-34 + FPN + FCOS2D/FCOS3D heads at full width, channels_last), bf16 and
 bench.py's static int8 (QUANT_MIN_CH=32, QUANT_UNFOLDED), through
 `build_model` -> [`prepare_static_scales`] -> `get_inference_fn` ->
-`infer(images, intrinsics)`, with seeded random weights, and fails loudly
-(non-zero exit) if any phase fails. The three CUDA kernels are built first,
+`infer(images, intrinsics)`, and its training path, through
+`build_model` -> `train(cfg, batches, model)` with TPU.PALLAS_STEM_DW, with
+seeded random weights and seeded synthetic batches, and fails loudly
+(non-zero exit) if any phase fails. The four CUDA kernels are built first,
 one nvcc process each, all at once.
 
 1. build the greedy-NMS CUDA kernel (dd3d_tpu_torch/csrc/nms.cu) and hold its
@@ -30,7 +32,20 @@ one nvcc process each, all at once.
    plain int8 versions give identical detections; drift against bf16 is
    bounded as in tests/test_int8_infer.py;
 9. timing: images/s of int8 and bf16 in turns, and each int8 kernel against
-   its plain version at a serving shape.
+   its plain version at a serving shape;
+10. the stem weight-gradient kernel (csrc/conv_dw.cu) against its plain
+    version on seeded bf16 inputs at the two stem shapes of the train step,
+    the TPU benchmark's two shapes and a ragged one: within 1e-5 of
+    sum|x*dy| of each output, and bit-identical over two launches;
+11. training: 4 steps through `train()` at batch 8, 384x1280, bf16, with the
+    stem's weight gradient on the kernel: finite losses, 2 launches a step,
+    the FCOS2D BN statistics moved and no FrozenBN buffer; the same 4 steps
+    with the plain dW give the same losses and step-1 stem gradients;
+12. one fp32 train step on the card (TF32 off) against the CPU at 128x256:
+    losses, gradients and updated parameters;
+13. timing: ms per train step and images/s with the kernel and with the
+    plain dW in turns, peak memory, device busy share, and the dW kernel
+    against its plain version and cuDNN's bf16 wgrad at the stem shapes.
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
@@ -45,6 +60,7 @@ import torch
 
 KITTI_K = [[721.5377, 0.0, 609.5593], [0.0, 721.5377, 172.854], [0.0, 0.0, 1.0]]
 HEIGHT, WIDTH, BATCH, N_BATCHES = 384, 1280, 8, 4
+TRAIN_STEPS = 4
 NMS_SHAPE = (8, 512)  # (B, N) of the serving path: batch 8, TPU.NMS_CANDIDATES = 512
 SEED = 0
 
@@ -528,6 +544,340 @@ def phase9_int8_timing(int8_cfg_static, bf16_cfg, model, images, intrinsics, qua
     return {"int8": runs["int8"], "bf16": runs["bf16"]}, out
 
 
+# (B, H, W, CI, CO, k): the stem's base_layer and level0 convs of the train
+# step, scripts/bench_pallas_dw.py's two shapes at batch 8, and a ragged one
+DW_SHAPES = [(BATCH, HEIGHT, WIDTH, 3, 16, 7), (BATCH, HEIGHT, WIDTH, 16, 16, 3), (BATCH, 192, 640, 12, 64, 5),
+             (BATCH, 192, 640, 64, 64, 3), (3, 37, 53, 5, 7, 9)]
+DW_BOUND = 1e-5
+
+
+def dw_inputs(gen, b, h, w, ci, co, device, dtype=torch.bfloat16):
+    """Seeded x (B, CI, H, W) and dy (B, CO, H, W), channels_last."""
+    x = torch.randn(b, h, w, ci, generator=gen).to(device, dtype).permute(0, 3, 1, 2)
+    dy = torch.randn(b, h, w, co, generator=gen).to(device, dtype).permute(0, 3, 1, 2)
+    return x, dy
+
+
+def dw_error_ratio(got, want, x, dy, k):
+    """max |got - want| / sum|x*dy| over the outputs."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same_plain
+
+    return float(((got - want).abs() / conv_dw_s1_same_plain(x.abs(), dy.abs(), k)).max())
+
+
+def phase10_conv_dw(device):
+    """conv_dw_s1_same kernel vs plain on the card. Tolerance: each output
+    within DW_BOUND * sum|x*dy| of that output (f32 sums of up to 3.9 M
+    exact bf16 products in other orders), and two launches bit-identical.
+    Returns (max |kernel - plain| at the stem shapes, [(x, dy, k)] of the
+    two stem shapes for timing)."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same, conv_dw_s1_same_plain
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    t0 = time.time()
+    max_err, worst, stem = 0.0, 0.0, []
+    for b, h, w, ci, co, k in DW_SHAPES:
+        x, dy = dw_inputs(gen, b, h, w, ci, co, device)
+        got = conv_dw_s1_same(x, dy, k)
+        again = conv_dw_s1_same(x, dy, k)
+        torch.cuda.synchronize()
+        want = conv_dw_s1_same_plain(x, dy, k)
+        ratio = dw_error_ratio(got, want, x, dy, k)
+        err = float((got - want).abs().max())
+        worst = max(worst, ratio)
+        log(f"phase10 x ({b},{ci},{h},{w}) dy CO={co} k={k}: max |kernel - plain| = {err:.3e} "
+            f"(largest |dW| {float(want.abs().max()):.1f}), worst / sum|x*dy| = {ratio:.3e} (limit {DW_BOUND}), "
+            f"two launches identical: {torch.equal(got, again)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"phase10 {(b, h, w, ci, co, k)}: two launches differ")
+        if not ratio <= DW_BOUND:
+            raise AssertionError(f"phase10 {(b, h, w, ci, co, k)}: kernel and plain differ beyond the bound")
+        if (h, w) == (HEIGHT, WIDTH):
+            max_err = max(max_err, err)
+            stem.append((x, dy, k))
+    log(f"phase10 ok: worst error {worst:.3e} of sum|x*dy| ({time.time() - t0:.2f} s incl. the kernel build)")
+    return max_err, stem
+
+
+def train_cfg():
+    """dd3d_kitti_dla34 with the stem's weight gradient on the kernel."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34")
+    cfg.TPU.PALLAS_STEM_DW = True
+    return cfg
+
+
+def build_train_model(cfg, device):
+    """He-initialized convs from the seed (build_model's own init) and
+    seeded norm statistics, so that features and gradients carry the image
+    through the depth (randomize_state's N(0, 0.1) weights do not)."""
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.training.synthetic import seed_norm_statistics
+
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    return seed_norm_statistics(model, torch.Generator().manual_seed(SEED + 1)).to(device)
+
+
+def stem_convs(model):
+    trunk = model.backbone.bottom_up
+    return [trunk.base_layer, *trunk.level0]
+
+
+def train_batches(cfg, n, batch, height, width, seed):
+    from dd3d_tpu_torch.training.synthetic import synthetic_batch
+
+    rng = np.random.RandomState(seed)
+    return [synthetic_batch(rng, batch, height, width, max_gt=cfg.TPU.MAX_GT_PER_IMAGE,
+                            num_classes=cfg.DD3D.NUM_CLASSES) for _ in range(n)]
+
+
+def phase11_training(device):
+    """TRAIN_STEPS steps of the train path through `train()`, with the dW
+    kernel and then with its plain version, from the same start, with
+    deterministic cuDNN algorithms. Returns the kernel's launch count."""
+    from dd3d_tpu_torch.models.layers import FoldableBatchNorm, FrozenBatchNorm
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.training.train_loop import train
+
+    cfg = train_cfg()
+    batches = train_batches(cfg, TRAIN_STEPS, BATCH, HEIGHT, WIDTH, SEED + 7)
+    n_gt = [int(b["gt_valid"].sum()) for b in batches]
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for mode in ("kernel", "plain"):
+        t0 = time.time()
+        model = build_train_model(cfg, device)
+        for m in stem_convs(model):
+            m.weight_grad_plain = mode == "plain"
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        metrics, dw_calls = [], []
+        kernel = conv_dw.conv_dw_s1_same
+        name = "conv_dw_s1_same" if mode == "kernel" else "conv_dw_s1_same_plain"
+        real = getattr(conv_dw, name)
+
+        def recording(fn):
+            def wrapper(x, dy, k):
+                out = fn(x, dy, k)
+                if not metrics:  # step 1
+                    dw_calls.append((x.clone(), dy.clone(), k, out.clone()))
+                return out
+            # conv_dw_s1_same counts its launches on the module's name for
+            # itself, which is this wrapper while it stands in
+            wrapper.launches = 0
+            return wrapper
+
+        setattr(conv_dw, name, recording(real))
+        kernel.launches = 0
+        try:
+            train(cfg, batches, model=model, max_iter=TRAIN_STEPS, log_period=1,
+                  metric_hook=lambda it, m: metrics.append(m))
+            torch.cuda.synchronize()
+            launches = conv_dw.conv_dw_s1_same.launches
+        finally:
+            setattr(conv_dw, name, real)
+        log(f"phase11 {mode} dW: {TRAIN_STEPS} steps of batch {BATCH} at {HEIGHT}x{WIDTH} bf16 "
+            f"({n_gt} GT boxes), dW kernel launches {launches} ({time.time() - t0:.2f} s incl. first-call set-up)")
+        for i, m in enumerate(metrics):
+            log(f"phase11 {mode} step {i + 1}: total {m['total_loss']:.4f} grad_norm {m['grad_norm']:.3f} "
+                + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items()) if k.startswith("loss_")))
+            if m["loss_finite"] != 1.0 or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"phase11 {mode} step {i + 1}: a metric is not finite: {m}")
+        if len(metrics) != TRAIN_STEPS:
+            raise AssertionError(f"phase11 {mode}: {len(metrics)} steps logged of {TRAIN_STEPS}")
+        if launches != (2 * TRAIN_STEPS if mode == "kernel" else 0):
+            raise AssertionError(f"phase11 {mode}: {launches} dW kernel launches")
+        live = frozen = 0
+        for name, mod in model.named_modules():
+            if isinstance(mod, (FoldableBatchNorm, FrozenBatchNorm)):
+                moved = not all(torch.equal(getattr(mod, b), before[f"{name}.{b}"])
+                                for b in ("weight", "bias", "running_mean", "running_var"))
+                if isinstance(mod, FrozenBatchNorm) and moved:
+                    raise AssertionError(f"phase11 {mode}: FrozenBN {name} moved")
+                if isinstance(mod, FoldableBatchNorm):
+                    if any(torch.equal(getattr(mod, b), before[f"{name}.{b}"]) for b in ("running_mean", "running_var")):
+                        raise AssertionError(f"phase11 {mode}: live BN {name} statistics did not move")
+                    live += 1
+                else:
+                    frozen += 1
+        log(f"phase11 {mode}: running statistics of all {live} FCOS2D tower BNs moved, "
+            f"none of the {frozen} FrozenBNs' buffers")
+        runs[mode] = (metrics, dw_calls, launches)
+    torch.backends.cudnn.deterministic = False
+
+    (m_k, calls_k, launches), (m_p, calls_p, _) = runs["kernel"], runs["plain"]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(m_k, m_p) for k in b
+                if k.startswith("loss_") or k == "total_loss")
+    log(f"phase11 kernel vs plain dW: worst relative loss difference over {TRAIN_STEPS} steps {worst:.3e} (limit 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError("phase11: losses with the kernel and with the plain dW differ")
+    if len(calls_k) != 2 or len(calls_p) != 2:
+        raise AssertionError(f"phase11: step 1 ran {len(calls_k)} / {len(calls_p)} stem weight gradients, not 2")
+    for (x, dy, k, dw_k), (xp, dyp, _, dw_p) in zip(calls_k, calls_p):
+        same_inputs = torch.equal(x, xp) and torch.equal(dy, dyp)
+        ratio = dw_error_ratio(dw_k, dw_p, x, dy, k)
+        log(f"phase11 step-1 stem dW k={k} x {tuple(x.shape)}: kernel vs plain run {ratio:.3e} of sum|x*dy| "
+            f"(limit {DW_BOUND}); identical x and dy in both runs: {same_inputs}")
+        if not ratio <= DW_BOUND:
+            raise AssertionError("phase11: step-1 stem gradients differ beyond the phase-10 bound")
+    log("phase11 ok")
+    return launches
+
+
+def phase12_fp32_train(device):
+    """One fp32 train step on the card (TF32 off, dW kernel in f32) against
+    the CPU (plain dW) at 128x256, batch 2. Tolerance 1e-3 relative: losses
+    each; gradients as one flat vector in L2 (each tensor is also reported);
+    each updated parameter tensor against its largest magnitude. Both are
+    f32, summed in other orders through ~60 layers."""
+    from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    batch = train_batches(cfg, 1, 2, 128, 256, SEED + 8)[0]
+    t0 = time.time()
+    out = {}
+    for dev in ("cpu", device):
+        state = create_train_state(cfg, build_train_model(cfg, "cpu"), dev)
+        metrics = make_train_step(cfg, state.model, state.optimizer)(to_device(batch, dev))
+        params = dict(state.model.named_parameters())
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.grad.detach().cpu() for n, p in params.items()},
+                         {n: p.detach().cpu() for n, p in params.items()})
+    torch.cuda.synchronize()
+    (m_c, g_c, p_c), (m_g, g_g, p_g) = out["cpu"], out[str(device)]
+    loss_rel = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-12) for k in m_c if k != "loss_finite")
+    flat_c = torch.cat([g.reshape(-1) for g in g_c.values()])
+    flat_g = torch.cat([g_g[n].reshape(-1) for n in g_c])
+    grad_rel = float((flat_g - flat_c).norm() / flat_c.norm())
+    per_tensor = max(((g_g[n] - g).norm() / max(float(g.norm()), 1e-30), n) for n, g in g_c.items())
+    param_rel = max(float((p_g[n] - p).abs().max()) / max(float(p.abs().max()), 1e-30) for n, p in p_c.items())
+    log(f"phase12 fp32 train step, card vs CPU ({time.time() - t0:.2f} s): losses and metrics worst {loss_rel:.3e}, "
+        f"flat gradient L2 {grad_rel:.3e}, worst tensor L2 {float(per_tensor[0]):.3e} ({per_tensor[1]}), "
+        f"updated parameters {param_rel:.3e} (limits 1e-3)")
+    if not (loss_rel <= 1e-3 and grad_rel <= 1e-3 and param_rel <= 1e-3):
+        raise AssertionError("phase12: the fp32 train step on the card and on the CPU differ")
+
+
+def step_breakdown(cfg, state, batches):
+    """Host ms of the parts of a train step, each ended by a synchronize:
+    the step of training/train_step.py cut at its seams."""
+    from dd3d_tpu_torch.models.dd3d import dd3d_losses
+    from dd3d_tpu_torch.models.layers import QuantSpec, quant_scope
+    from dd3d_tpu_torch.ops.color_jitter import apply_color_jitter
+
+    model, opt = state.model, state.optimizer
+    parts = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+    for b in batches:
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        with quant_scope(QuantSpec()):
+            outputs = model(apply_color_jitter(b["image"], b["color_jitter"]))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        total = sum(dd3d_losses(cfg, outputs, b, model.strides).values())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.zero_grad()
+        total.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for i, k in enumerate(parts):
+            parts[k].append((t[i + 1] - t[i]) * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def phase13_train_timing(device, stem_cases):
+    """ms per train step (host clock around each step, synchronized) with
+    the dW kernel and the plain dW in turns (kernel, plain, plain, kernel),
+    peak memory and the device busy share of the kernel path, and the dW
+    kernel against its plain version and cuDNN's bf16 wgrad at the two stem
+    shapes (plain, kernel, kernel, plain)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same, conv_dw_s1_same_plain
+    from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    cfg = train_cfg()
+    state = create_train_state(cfg, build_train_model(cfg, "cpu"), device)
+    batches = [to_device(b, device) for b in train_batches(cfg, 3, BATCH, HEIGHT, WIDTH, SEED + 9)]
+    step = make_train_step(cfg, state.model, state.optimizer)
+    stem = stem_convs(state.model)
+
+    def run(plain, steps=8):
+        for m in stem:
+            m.weight_grad_plain = plain
+        step(batches[0])
+        torch.cuda.synchronize()
+        times = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    ms = {"kernel": [], "plain": []}
+    peak = None
+    for mode in ("kernel", "plain", "plain", "kernel"):
+        if peak is None:
+            torch.cuda.reset_peak_memory_stats()
+        ms[mode].append(run(mode == "plain"))
+        if peak is None:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for mode, (a, b) in ms.items():
+        log(f"phase13 train step, {mode} dW: median {a:.2f} / {b:.2f} ms a step of batch {BATCH} at {HEIGHT}x{WIDTH} "
+            f"bf16 = {BATCH / np.mean([a, b]) * 1e3:.2f} images/s (kernel, plain, plain, kernel)")
+    log(f"phase13 peak memory allocated over the first run (kernel dW; model, optimizer state, 3 batches and "
+        f"the step): {peak:.2f} GiB")
+
+    for m in stem:
+        m.weight_grad_plain = False
+    parts = step_breakdown(cfg, state, batches)
+    log("phase13 host clock of a kernel-path step by part (synchronized after each; medians of 3): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    device_us = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0), e.key)
+                 for e in kernels]
+    busy = sum(t for t, _ in device_us)
+    launches = sum(e.count for e in kernels) / len(batches)
+    log(f"phase13 profiled {len(batches)} steps: device time {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall = "
+        f"busy share {busy / wall_us:.3f} (under the profiler); {launches:.0f} kernel launches a step, "
+        f"{len(kernels)} kernel names")
+    for t, name in sorted(device_us, reverse=True)[:15]:
+        log(f"phase13   {t / 1e3 / len(batches):9.3f} ms/step  {name[:110]}")
+
+    kernel_ms = {}
+    for x, dy, k in stem_cases:
+        co, ci = dy.shape[1], x.shape[1]
+        kern = lambda: conv_dw_s1_same(x, dy, k)  # noqa: E731
+        plain = lambda: conv_dw_s1_same_plain(x, dy, k)  # noqa: E731
+        cudnn = lambda: torch.nn.grad.conv2d_weight(x, (co, ci, k, k), dy, padding=(k - 1) // 2)  # noqa: E731
+        kern(), plain(), cudnn()
+        p_a, k_a, c_a = cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(cudnn, 20)
+        k_b, p_b, c_b = cuda_ms(kern, 20), cuda_ms(plain, 5), cuda_ms(cudnn, 20)
+        kernel_ms[k] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
+        gflop = 2 * x.numel() * co * k * k / 1e9
+        log(f"phase13 dW x {tuple(x.shape)} k={k} -> CO={co} ({gflop:.1f} GFLOP): kernel {k_a:.4f} / {k_b:.4f} ms "
+            f"({gflop / kernel_ms[k][0]:.1f} TFLOP/s), plain {p_a:.4f} / {p_b:.4f} ms, cuDNN bf16 wgrad "
+            f"{c_a:.4f} / {c_b:.4f} ms")
+    return ms, peak, kernel_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -539,7 +889,7 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu")  # one nvcc each, all at once
+    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu")  # one nvcc each, all at once
     log(f"kernels built in {time.time() - t0:.2f} s")
 
     nms_err, serving_nms = phase1_kernel(device)
@@ -566,12 +916,25 @@ def main():
     serving, kernel_ms = phase9_int8_timing(cfg8, cfg, model, images, intrinsics, quant_case, conv_case)
     torch.cuda.synchronize()
 
+    dw_err, stem_cases = phase10_conv_dw(device)
+    torch.cuda.synchronize()
+    dw_launches = phase11_training(device)
+    torch.cuda.synchronize()
+    phase12_fp32_train(device)
+    torch.cuda.synchronize()
+    train_ms, train_peak, dw_ms = phase13_train_timing(device, stem_cases)
+    torch.cuda.synchronize()
+
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
     log(f"timing on {card}: bf16 {imgs_per_s:.1f} images/s (phase 5); phase 9 in turns: static int8 "
         f"{int8_ips:.1f} images/s, bf16 {bf16_ips:.1f} images/s (batch {BATCH}, {HEIGHT}x{WIDTH}); "
         f"NMS kernel {nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms at {NMS_SHAPE}; NMS launches on the bf16 "
         f"path {bf16_nms_launches}")
+    log(f"timing on {card}: train step at batch {BATCH}, {HEIGHT}x{WIDTH}, bf16: "
+        f"{np.mean(train_ms['kernel']):.2f} ms with the dW kernel, {np.mean(train_ms['plain']):.2f} ms with the "
+        f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7][0]:.4f} ms vs plain {dw_ms[7][1]:.4f} ms at the "
+        f"7x7 stem conv")
     print(card)
     print(json.dumps({"kernels": [
         {"name": "greedy_nms", "route": "cuda", "source": "dd3d_tpu_torch/csrc/nms.cu",
@@ -583,6 +946,9 @@ def main():
         {"name": "int8_conv", "route": "cuda", "source": "dd3d_tpu_torch/csrc/int8_conv.cu",
          "replaces": "dd3d_tpu/models/layers.py:246", "launches": launches["int8_conv"], "max_abs_err": conv_err,
          "ms": kernel_ms["int8_conv"][0], "plain_ms": kernel_ms["int8_conv"][1]},
+        {"name": "conv_dw_s1_same", "route": "cuda", "source": "dd3d_tpu_torch/csrc/conv_dw.cu",
+         "replaces": "dd3d_tpu/ops/pallas_conv.py:58", "launches": dw_launches, "max_abs_err": dw_err,
+         "ms": dw_ms[7][0], "plain_ms": dw_ms[7][1]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,24 +1,30 @@
-"""DD3D meta-architecture (backbone -> FPN -> FCOS2D/FCOS3D heads) and its
-shape-static inference decode, counterpart of dd3d_tpu/models/dd3d.py.
+"""DD3D meta-architecture (backbone -> FPN -> FCOS2D/FCOS3D heads), its
+training loss and its shape-static inference decode, counterpart of
+dd3d_tpu/models/dd3d.py.
 
 `DD3D.forward` takes the JAX package's layout, (B, H, W, 3) uint8 BGR
 images, and returns per-level head outputs as (B, H, W, C) views. Inside,
 the modules run NCHW; permuting an NHWC tensor to NCHW gives channels_last
 strides, so the whole network runs channels_last without a copy.
 
+`dd3d_losses` is the training loss from the per-level head outputs and a
+batch in the collate_batch schema (padded GT), in f32: dense target
+assignment, the FCOS2D and FCOS3D losses.
+
 `dd3d_inference` decodes to fixed-size (B, POST_NMS_TOPK) detections:
 per-level blocked top-k -> 3D decode -> top-`TPU.NMS_CANDIDATES` cap with one
 packed gather -> class-aware greedy NMS (the CUDA kernel on the card) ->
 stable compaction.
 """
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from dd3d_tpu_torch.models import build_feature_extractor, register_meta_arch
-from dd3d_tpu_torch.models.fcos2d import FCOS2DHead, decode_fcos2d_level, stable_topk
-from dd3d_tpu_torch.models.fcos3d import FCOS3DHead, decode_fcos3d_candidates
+from dd3d_tpu_torch.models.fcos2d import FCOS2DHead, decode_fcos2d_level, fcos2d_loss, stable_topk
+from dd3d_tpu_torch.models.fcos3d import FCOS3DHead, decode_fcos3d_candidates, fcos3d_loss
+from dd3d_tpu_torch.models.prepare_targets import build_location_bases, prepare_targets
 from dd3d_tpu_torch.ops.locations import compute_feature_locations
 from dd3d_tpu_torch.ops.nms import batched_nms_padded
 from dd3d_tpu_torch.utils.convert_checkpoint import assign_quant_paths
@@ -96,6 +102,49 @@ def build_dd3d(cfg) -> DD3D:
                  getattr(torch, cfg.TPU.COMPUTE_DTYPE))
     assign_quant_paths(model)  # int8 scales are keyed by the JAX package's scope paths
     return model
+
+
+def flatten_levels_t(outputs: List[torch.Tensor]) -> torch.Tensor:
+    """[per-level (B, H, W, C)] -> (B, C, P) f32, level-major along P."""
+    b = outputs[0].shape[0]
+    return torch.cat([x.float().permute(0, 3, 1, 2).reshape(b, x.shape[-1], -1) for x in outputs], dim=-1)
+
+
+def model_strides(model) -> Tuple[int, ...]:
+    """FPN strides of a built meta-arch."""
+    return tuple(model.strides)
+
+
+def dd3d_losses(cfg, outputs: Dict[str, List[torch.Tensor]], batch: Dict[str, torch.Tensor],
+                strides: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """The DD3D training losses (dd3d_tpu/models/dd3d.py:191-235) from
+    per-level (B, H, W, C) head outputs; `batch` holds gt_boxes2d,
+    gt_classes, gt_boxes3d, gt_valid and intrinsics on the outputs' device."""
+    device = outputs["logits"][0].device
+    shapes = [x.shape[1:3] for x in outputs["logits"]]
+    locations, loc_strides, loc_ranges, _ = build_location_bases(
+        shapes, strides, cfg.DD3D.SIZES_OF_INTEREST, cfg.DD3D.FEATURE_LOCATIONS_OFFSET, device=device)
+    targets = prepare_targets(
+        locations, loc_strides, loc_ranges,
+        batch["gt_boxes2d"], batch["gt_classes"], batch["gt_boxes3d"], batch["gt_valid"],
+        num_classes=cfg.DD3D.NUM_CLASSES,
+        center_sample=cfg.DD3D.FCOS3D.PREPARE_TARGET.CENTER_SAMPLE,
+        pos_radius=cfg.DD3D.FCOS3D.PREPARE_TARGET.POS_RADIUS,
+    )
+    loss2d = cfg.DD3D.FCOS2D.LOSS
+    losses, extra = fcos2d_loss(
+        flatten_levels_t(outputs["logits"]), flatten_levels_t(outputs["box2d_reg"]),
+        flatten_levels_t(outputs["centerness"])[:, 0], targets,
+        focal_alpha=loss2d.ALPHA, focal_gamma=loss2d.GAMMA, loc_loss_type=loss2d.LOC_LOSS_TYPE,
+    )
+    if cfg.MODEL.BOX3D_ON:
+        inv_k = torch.linalg.inv(batch["intrinsics"].float())
+        canon = torch.tensor(cfg.DD3D.FCOS3D.CANONICAL_BOX3D_SIZES, dtype=torch.float32, device=device)
+        losses.update(fcos3d_loss(
+            *(flatten_levels_t(outputs[k]) for k in HEAD_KEYS_3D),
+            targets, extra, inv_k, locations, canon, cfg.DD3D.FCOS3D,
+        ))
+    return losses
 
 
 def _gather_fields(d: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -5,6 +5,12 @@ nodes, six levels with strides 1..32, and the plain stem.
 TPU.S2D_STEM, S2D_STEM_FOLD and S2D_BASE4 select exact rewrites of the plain
 stem for TPU layouts (tests/test_s2d_stem.py); the port reads none of them
 and always runs the plain stem.
+
+TPU.PALLAS_STEM_DW routes the same two stem convs as the JAX package's s2d
+stem does (dd3d_tpu/models/s2d.py:310-314, dla.py:304-311) through the
+weight-gradient CUDA kernel in train mode: `base_layer` (7x7, 3->16) and
+every `level0` conv (3x3, 16->16), all stride 1. The stride-2 `level1`
+conv stays on the library conv in both packages.
 """
 import torch
 import torch.nn.functional as F
@@ -84,7 +90,8 @@ class Tree(nn.Module):
 class DLA(nn.Module):
     """DLA trunk; returns a dict of `level{i}` features (stride 2**i)."""
 
-    def __init__(self, levels, channels, out_features=("level3", "level4", "level5"), norm: str = "BN"):
+    def __init__(self, levels, channels, out_features=("level3", "level4", "level5"), norm: str = "BN",
+                 kernel_stem_weight_grad: bool = False):
         super().__init__()
         self.out_features = tuple(out_features)
         self.base_layer = ConvNorm(3, channels[0], 7, 1, norm=norm, relu=True)
@@ -96,6 +103,9 @@ class DLA(nn.Module):
                 convs.append(ConvNorm(cin, channels[i], 3, stride if j == 0 else 1, norm=norm, relu=True))
                 cin = channels[i]
             self.add_module(f"level{i}", nn.Sequential(*convs))
+        if kernel_stem_weight_grad:
+            for conv in (self.base_layer, *self.level0):
+                conv.route_weight_grad()
         self.level2 = Tree(levels[2], channels[1], channels[2], 2, level_root=False, norm=norm)
         for lvl in (3, 4, 5):
             self.add_module(f"level{lvl}", Tree(levels[lvl], channels[lvl - 1], channels[lvl], 2,
@@ -125,7 +135,8 @@ def _dla_trunk(cfg):
     if name not in DLA_VARIANTS:
         raise NotImplementedError(f"FE.BACKBONE.NAME={name!r} is not ported; ported: {sorted(DLA_VARIANTS)}")
     levels, channels = DLA_VARIANTS[name]
-    trunk = DLA(levels, channels, out_features=tuple(cfg.FE.BACKBONE.OUT_FEATURES), norm=cfg.FE.BACKBONE.NORM)
+    trunk = DLA(levels, channels, out_features=tuple(cfg.FE.BACKBONE.OUT_FEATURES), norm=cfg.FE.BACKBONE.NORM,
+                kernel_stem_weight_grad=bool(cfg.TPU.get("PALLAS_STEM_DW", False)))
     return trunk, {f"level{i}": channels[i] for i in range(6)}, DLA_STRIDES
 
 

@@ -1,20 +1,23 @@
-"""FCOS2D head and shape-static inference decode, counterpart of
-dd3d_tpu/models/fcos2d.py (inference; the loss belongs to the training
-slice).
+"""FCOS2D head, loss and shape-static inference decode, counterpart of
+dd3d_tpu/models/fcos2d.py.
 
 - `FCOS2DHead` (v2): shared cls/box2d conv towers with per-level batch norms
   folded into each level's application of the shared kernel, predictors for
   class logits / ltrb box regression (relu'd) / centerness, learnable
   per-level `Scale` on the box regression.
+- `fcos2d_loss`: sigmoid focal (cls) + centerness-weighted gIoU (box) + BCE
+  (centerness), normalized by GLOBAL batch sums (positive count, centerness
+  sum), never per image.
 - `decode_fcos2d_level`: fixed-size top-k candidate selection per level.
 """
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dd3d_tpu_torch.models.layers import PredictorConv, Scale, TowerConv, fused_predictor_apply
+from dd3d_tpu_torch.ops.losses import iou_loss_ltrb_t, sigmoid_bce, sigmoid_focal_loss
 from dd3d_tpu_torch.ops.nms import NEG_INF
 
 
@@ -52,6 +55,41 @@ class FCOS2DHead(nn.Module):
             box_reg_out.append(F.relu(reg))  # relu (improved FCOS), not exp
             ctr_out.append(ctr)
         return logits, box_reg_out, ctr_out
+
+
+def compute_ctrness_targets_t(reg_t: torch.Tensor) -> torch.Tensor:
+    """(B, 4, P) ltrb -> (B, P) sqrt((min_lr / max_lr) * (min_tb / max_tb))."""
+    l, t, r, b = reg_t.unbind(1)
+    lr_ratio = torch.minimum(l, r) / torch.clamp(torch.maximum(l, r), min=1e-9)
+    tb_ratio = torch.minimum(t, b) / torch.clamp(torch.maximum(t, b), min=1e-9)
+    return torch.sqrt(torch.clamp(lr_ratio * tb_ratio, min=0.0))
+
+
+def fcos2d_loss(logits_flat: torch.Tensor, box2d_reg_flat: torch.Tensor, centerness_flat: torch.Tensor,
+                targets: Dict[str, torch.Tensor], focal_alpha: float = 0.25, focal_gamma: float = 2.0,
+                loc_loss_type: str = "giou") -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Global-batch FCOS2D losses (dd3d_tpu/models/fcos2d.py:186-226) on
+    component-major f32 maps: logits (B, C, P), box2d_reg (B, 4, P),
+    centerness (B, P). Returns (losses, extra) with extra's loss_denom,
+    centerness_targets and num_pos for the 3D loss."""
+    num_classes = logits_flat.shape[1]
+    pos = targets["pos_mask"].float()
+    num_pos = torch.clamp(pos.sum(), min=1.0)
+
+    iota_c = torch.arange(num_classes, device=logits_flat.device)[None, :, None]
+    cls_target = (targets["labels"][:, None, :] == iota_c).float() * pos[:, None, :]
+    loss_cls = sigmoid_focal_loss(logits_flat, cls_target, focal_alpha, focal_gamma).sum() / num_pos
+
+    box2d_tgt = targets["box2d_reg_targets"]
+    ctr_targets = compute_ctrness_targets_t(box2d_tgt) * pos
+    loss_denom = torch.clamp(ctr_targets.sum(), min=1e-6)
+    iou_elem = iou_loss_ltrb_t(box2d_reg_flat, box2d_tgt, loc_loss_type)
+    loss_box2d = torch.sum(iou_elem * ctr_targets * pos) / loss_denom
+    loss_ctr = torch.sum(sigmoid_bce(centerness_flat, ctr_targets) * pos) / num_pos
+
+    losses = {"loss_cls": loss_cls, "loss_box2d_reg": loss_box2d, "loss_centerness": loss_ctr}
+    extra = {"loss_denom": loss_denom, "centerness_targets": ctr_targets, "num_pos": num_pos}
+    return losses, extra
 
 
 def stable_topk(x: torch.Tensor, k: int):

@@ -1,12 +1,13 @@
-"""FCOS3D head, box decode and inference gather, counterpart of
-dd3d_tpu/models/fcos3d.py (inference; the loss belongs to the training
-slice).
+"""FCOS3D head, loss, box decode and inference gather, counterpart of
+dd3d_tpu/models/fcos3d.py.
 
 - shared box3d conv tower with per-level FrozenBN folded per level + five
   predictors (quat 4C / proj_ctr 2C / depth 1C / size 3C / conf 1C) run as
   one conv, learnable per-level Scale/Offset;
 - `predictions_to_boxes3d`: camera-aware decode — depth scaled by focal
   length, allocentric->egocentric rotation, tanh size around canonical sizes;
+- `fcos3d_loss`: the disentangled 8-corner loss and the 3D confidence BCE
+  on component-major maps;
 - `decode_fcos3d_candidates`: gathers the 3D outputs at the 2D candidates.
 """
 from typing import Dict, List, Sequence
@@ -15,6 +16,8 @@ import torch
 from torch import nn
 
 from dd3d_tpu_torch.models.layers import Offset, PredictorConv, Scale, TowerConv, fused_predictor_apply
+from dd3d_tpu_torch.models.loss_geometry import allocentric_to_egocentric_t, corners_t, normalize_rows, unproject_t
+from dd3d_tpu_torch.ops.losses import sigmoid_bce, smooth_l1_loss
 from dd3d_tpu_torch.ops.geometry import allocentric_to_egocentric, unproject_points2d
 from dd3d_tpu_torch.structures.boxes3d import Boxes3D
 
@@ -108,6 +111,81 @@ def predictions_to_boxes3d(
         quat = allocentric_to_egocentric(quat, proj_ctr, inv_intrinsics)
     size = (torch.tanh(size) + 1.0) * canon_box_sizes  # max size = 2x canonical
     return Boxes3D(quat, proj_ctr, depth, size, inv_intrinsics)
+
+
+def gather_per_class_t(pred_flat: torch.Tensor, onehot_c: torch.Tensor, comp_dim: int, num_classes: int):
+    """(B, comp_dim * C, P) -> (B, comp_dim, P): each location's class, as
+    the JAX package's exact f32 one-hot multiply-sum (channel order
+    [comp, class] row-major)."""
+    return torch.stack([torch.sum(pred_flat[:, k * num_classes:(k + 1) * num_classes] * onehot_c, dim=1)
+                        for k in range(comp_dim)], dim=1)
+
+
+def fcos3d_loss(quat_flat: torch.Tensor, ctr_flat: torch.Tensor, depth_flat: torch.Tensor,
+                size_flat: torch.Tensor, conf_flat: torch.Tensor, targets: Dict[str, torch.Tensor],
+                fcos2d_info: Dict[str, torch.Tensor], inv_intrinsics: torch.Tensor, locations: torch.Tensor,
+                canon_box_sizes: torch.Tensor, cfg3d) -> Dict[str, torch.Tensor]:
+    """Dense masked FCOS3D loss (dd3d_tpu/models/fcos3d.py:248-358): maps
+    (B, comp * C, P) f32, inv_intrinsics (B, 3, 3), locations (P, 2),
+    canon_box_sizes (>= C, 3). Normalized by the 2D loss's centerness sum."""
+    if cfg3d.CLASS_AGNOSTIC_BOX3D:
+        raise NotImplementedError("DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D is not ported")
+    num_classes = conf_flat.shape[1]
+    pos_mask = targets["pos_mask"]
+    pos = pos_mask.float()
+    labels_safe = torch.where(pos_mask, targets["labels"], 0)
+    device = conf_flat.device
+
+    canon_tbl = canon_box_sizes.float()
+    onehot_canon = (labels_safe[:, None, :] == torch.arange(canon_tbl.shape[0], device=device)[None, :, None]).float()
+    onehot_c = (labels_safe[:, None, :] == torch.arange(num_classes, device=device)[None, :, None]).float()
+    quat_p = gather_per_class_t(quat_flat, onehot_c, 4, num_classes)
+    ctr_p = gather_per_class_t(ctr_flat, onehot_c, 2, num_classes)
+    depth_p = gather_per_class_t(depth_flat, onehot_c, 1, num_classes)[:, 0]
+    size_p = gather_per_class_t(size_flat, onehot_c, 3, num_classes)
+    conf_p = gather_per_class_t(conf_flat, onehot_c, 1, num_classes)[:, 0]
+    canon = torch.stack([torch.sum(onehot_canon * canon_tbl[None, :, j, None], dim=1) for j in range(3)], dim=1)
+
+    # predictions_to_boxes3d, component-major
+    quat_p = normalize_rows(quat_p, dim=1)
+    depth_d = depth_p
+    if cfg3d.SCALE_DEPTH_BY_FOCAL_LENGTHS:
+        pixel_size = torch.sqrt(inv_intrinsics[:, 0, 0] ** 2 + inv_intrinsics[:, 1, 1] ** 2)[:, None]
+        depth_d = depth_d / (pixel_size * cfg3d.SCALE_DEPTH_BY_FOCAL_LENGTHS_FACTOR)
+    loc_t = locations.t()[None]  # (1, 2, P)
+    if cfg3d.PREDICT_DISTANCE:
+        ray = unproject_t(loc_t.expand(pos.shape[0], 2, pos.shape[1]), inv_intrinsics)
+        depth_d = depth_d / torch.clamp(torch.sqrt(torch.sum(ray * ray, dim=1)), min=EPS)
+    depth_d = torch.clamp(depth_d, cfg3d.MIN_DEPTH, cfg3d.MAX_DEPTH)
+    ctr_d = ctr_p + loc_t
+    quat_d = allocentric_to_egocentric_t(quat_p, ctr_d, inv_intrinsics) if cfg3d.PREDICT_ALLOCENTRIC_ROT else quat_p
+    size_d = (torch.tanh(size_p) + 1.0) * canon
+
+    # disentangled 8-corner loss: one predicted component at a time
+    box3d = targets["box3d_targets"]
+    tq, tc, td, ts = box3d[:, 0:4], box3d[:, 4:6], box3d[:, 6], box3d[:, 7:10]
+    target_corners = corners_t(tq, tc, td, ts, inv_intrinsics)
+    weights = fcos2d_info["centerness_targets"]
+    loss_denom = fcos2d_info["loss_denom"]
+    w3d, beta = cfg3d.LOSS.WEIGHT_BOX3D, cfg3d.LOSS.SMOOTH_L1_BETA
+    subs = {
+        "quat": (quat_d, tc, td, ts),
+        "proj_ctr": (tq, ctr_d, td, ts),
+        "depth": (tq, tc, depth_d, ts),
+        "size": (tq, tc, td, size_d),
+    }
+    losses = {}
+    for key, (q, c, d, sz) in subs.items():
+        per_loc = smooth_l1_loss(corners_t(q, c, d, sz, inv_intrinsics), target_corners, beta).mean(dim=1)
+        losses[f"loss_box3d_{key}"] = w3d * torch.sum(per_loc * weights * pos) / loss_denom
+
+    with torch.no_grad():
+        pred_corners = corners_t(quat_d, ctr_d, depth_d, size_d, inv_intrinsics)
+        l1_err = torch.abs(target_corners - pred_corners).mean(dim=1)
+        conf_target = torch.exp(-l1_err / cfg3d.LOSS.CONF_3D_TEMPERATURE)
+    conf_bce = sigmoid_bce(conf_p, conf_target)
+    losses["loss_conf3d"] = cfg3d.LOSS.WEIGHT_CONF3D * torch.sum(conf_bce * weights * pos) / loss_denom
+    return losses
 
 
 def decode_fcos3d_candidates(

@@ -1,6 +1,7 @@
 """Building-block layers: conv+norm+act, frozen BN, learnable Scale/Offset.
 
-Counterpart of dd3d_tpu/models/layers.py, for inference:
+Counterpart of dd3d_tpu/models/layers.py. `model.train()` and
+`model.eval()` select the mode, in place of flax's `train=` flag:
 - Modules take NCHW tensors (channels_last in memory when the caller feeds
   NHWC images, see models/dd3d.py) and compute in the dtype of the activation
   they are given; parameters stay fp32.
@@ -8,10 +9,15 @@ Counterpart of dd3d_tpu/models/layers.py, for inference:
   Conv2d with a `.norm` child; BatchNorm2d's weight / bias / running_mean /
   running_var / num_batches_tracked), as in tests/torch_ref_dd3d.py, so a
   reference state dict loads with `load_state_dict(strict=True)`.
-- Every norm is folded into the preceding conv: the kernel is scaled by the
-  norm's per-channel `mul` in fp32 and only then cast to the compute dtype
-  (dd3d_tpu/models/layers.py:307-309). Folding after the cast gives other
-  bf16 weights.
+- A norm that is foldable is folded into the preceding conv: the kernel is
+  scaled by the norm's per-channel `mul` in fp32 and only then cast to the
+  compute dtype (dd3d_tpu/models/layers.py:307-309). Folding after the cast
+  gives other bf16 weights. FrozenBN folds in both modes; live BN folds at
+  eval only (:404-416). In train mode live BN normalizes with the batch
+  statistics of the conv output and updates its running averages (:90-112).
+- Under TPU.PALLAS_STEM_DW the DLA stem's stride-1 convs run through
+  ops/conv_dw.Conv2dS1Same in train mode, so their weight gradient is the
+  CUDA kernel (`FoldableConv.route_weight_grad`).
 - int8 post-training quantization (TPU.QUANT_INT8, :134-243, :311-353,
   :474-499): a `QuantSpec` holds the settings of ONE call, entered with
   `quant_scope` (a contextvars.ContextVar, never a module global), so two
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, check_kernel_size
 from dd3d_tpu_torch.ops.int8_conv import int8_conv_dequant
 
 logger = logging.getLogger(__name__)
@@ -148,9 +155,17 @@ class _NormStats(nn.Module):
     def folded(self):
         raise NotImplementedError
 
+    @property
+    def foldable(self) -> bool:
+        """Whether `folded()` gives this norm's affine in the current mode."""
+        return True
+
+    def affine(self, x):
+        return self.folded()
+
     def forward(self, x):
-        # The folded affine in the ACTIVATION dtype, like d2's FrozenBatchNorm2d.
-        mul, add = self.folded()
+        # The affine in the ACTIVATION dtype, like d2's FrozenBatchNorm2d.
+        mul, add = self.affine(x)
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
@@ -168,14 +183,36 @@ class FrozenBatchNorm(_NormStats):
 
 
 class FoldableBatchNorm(_NormStats):
-    """Live BatchNorm at inference: the running-stat affine, with rsqrt like
-    the JAX module (:84-88). Train mode belongs to the training slice."""
+    """Live BatchNorm (flax nn.BatchNorm(momentum=0.9, epsilon=1e-5), JAX
+    :64-112). At eval: the running-stat affine, with rsqrt, foldable. In
+    train mode: the statistics of the batch in f32 over (N, H, W), with the
+    fast biased variance E[x^2] - E[x]^2 and no clamp, and the running
+    averages updated as ra = 0.9 * ra + 0.1 * stat (biased variance too)."""
+
+    momentum = 0.9
+
+    @property
+    def foldable(self) -> bool:
+        return not self.training
 
     def folded(self):
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported; call model.eval()")
+            raise RuntimeError("live BatchNorm normalizes with batch statistics in train mode; it does not fold")
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         return mul, self.bias - self.running_mean * mul
+
+    def affine(self, x):
+        if not self.training:
+            return self.folded()
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        return mul, self.bias - mean * mul
 
 
 def make_norm(norm: str, features: int) -> Optional[_NormStats]:
@@ -213,6 +250,10 @@ class FoldableConv(nn.Module):
 
     quantizable = True
     quant_path: Optional[str] = None
+    # Train-mode weight gradient through the CUDA kernel (route_weight_grad);
+    # `weight_grad_plain` runs its plain version instead, on any device.
+    kernel_weight_grad = False
+    weight_grad_plain = False
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
                  bias: bool = False, init: str = INIT_NORMAL_FAN_OUT):
@@ -227,12 +268,26 @@ class FoldableConv(nn.Module):
         if self.bias is not None:
             self.bias.data.zero_()
 
+    def route_weight_grad(self) -> None:
+        """Run this conv through ops/conv_dw.Conv2dS1Same in train mode (the
+        plain DLA stem under TPU.PALLAS_STEM_DW). Only a stride-1 conv with
+        an odd k <= 9 has the kernel; any other raises here."""
+        if self.stride != 1:
+            raise ValueError(f"the weight-gradient kernel takes stride-1 convs; this one has stride {self.stride}")
+        check_kernel_size(self.kernel_size)
+        self.kernel_weight_grad = True
+
     def forward(self, x, mul=None, add=None):
         weight, bias = self.weight, self.bias
         if mul is not None:
             weight = weight * mul[:, None, None, None]  # fp32, before the cast
             bias = bias * mul + add if bias is not None else add
         pad = (self.kernel_size - 1) // 2
+        if self.kernel_weight_grad and self.training:
+            # conv, then the bias in the activation dtype, as the s2d stem's
+            # conv2d_s1_same path does (dd3d_tpu/models/s2d.py:310-314)
+            y = Conv2dS1Same.apply(x, weight.to(x.dtype), self.weight_grad_plain)
+            return y if bias is None else y + bias.to(x.dtype)[:, None, None]
         spec = _QUANT.get()
         if spec.enabled and self.quantizable and (mul is not None or spec.unfolded):
             act_amax = _observe(spec, self.quant_path, x)
@@ -260,7 +315,12 @@ class ConvNorm(FoldableConv):
         self.relu = relu
 
     def forward(self, x):
-        y = super().forward(x) if self.norm is None else super().forward(x, *self.norm.folded())
+        if self.norm is None:
+            y = super().forward(x)
+        elif self.norm.foldable:
+            y = super().forward(x, *self.norm.folded())
+        else:
+            y = self.norm(super().forward(x))
         return F.relu(y) if self.relu else y
 
 
@@ -273,16 +333,15 @@ class PerLevelNorms(nn.ModuleList):
             raise NotImplementedError("per-level norms need a norm (BN or FrozenBN)")
         super().__init__([make_norm(norm, features) for _ in range(num_levels)])
 
-    def folded(self, level: int):
-        return self[level].folded()
-
     def forward(self, x, level: int):
         return self[level](x)
 
 
 class TowerConv(FoldableConv):
     """A head-tower layer: one conv shared by all levels, each level's norm
-    folded into its own application of the kernel (never averaged), then relu.
+    folded into its own application of the kernel (never averaged), then relu;
+    a live BN in train mode normalizes each level with its own batch
+    statistics instead (dd3d_tpu/models/fcos2d.py:140-149).
     Reference names: `<tower>.<i>.weight`, `<tower>.<i>.norm.<level>.*`."""
 
     def __init__(self, channels: int, num_levels: int, norm: str):
@@ -290,7 +349,10 @@ class TowerConv(FoldableConv):
         self.norm = PerLevelNorms(num_levels, channels, norm)
 
     def forward(self, x, level: int):
-        return F.relu(super().forward(x, *self.norm.folded(level)))
+        norm = self.norm[level]
+        if norm.foldable:
+            return F.relu(super().forward(x, *norm.folded()))
+        return F.relu(norm(super().forward(x)))
 
 
 class PredictorConv(nn.Module):

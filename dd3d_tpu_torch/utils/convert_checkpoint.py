@@ -15,6 +15,10 @@ per-level depth statistics) are the model's own, which come from the config.
 
 `assign_quant_paths` gives every quantizable conv the flax scope path that
 keys its int8 scale, so one scales JSON serves both packages.
+
+`flax_param_paths` names every trainable parameter of the port by its flax
+path (the weight-decay mask reads it), and `convert_flax_params` converts a
+tree shaped like the JAX params, e.g. a gradient tree, to port names.
 """
 import re
 from typing import Dict, List, Tuple
@@ -58,6 +62,14 @@ def _flax_module_path(module_name: str, fpn_features: Dict[str, str]) -> List[st
     return p.split(".") if p else []
 
 
+def _model_fpn_features(model: torch.nn.Module) -> Dict[str, str]:
+    """{stride digit: trunk feature} of a DD3D model's FPN; {} for a bare trunk."""
+    fpn = getattr(model, "backbone", None)
+    if fpn is None:
+        return {}
+    return {str(fpn.in_strides[f].bit_length() - 1): f for f in fpn.in_features}
+
+
 def assign_quant_paths(model: torch.nn.Module) -> None:
     """Set `quant_path` on every quantizable conv of a DD3D model to its flax
     scope path ("/"-joined): a ConvNorm's conv is its `conv` child
@@ -65,8 +77,7 @@ def assign_quant_paths(model: torch.nn.Module) -> None:
     predictor are the module itself (`fcos2d_head/cls_tower_conv0`,
     `fcos3d_head/box3d_quat0`; a fused predictor group is keyed by its first
     sibling)."""
-    fpn = model.backbone
-    fpn_features = {str(fpn.in_strides[f].bit_length() - 1): f for f in fpn.in_features}
+    fpn_features = _model_fpn_features(model)
     for name, module in model.named_modules():
         if isinstance(module, PredictorConv) or (isinstance(module, FoldableConv) and module.quantizable):
             path = _flax_module_path(name, fpn_features)
@@ -90,6 +101,40 @@ def _flax_leaf(module, path: List[str], leaf: str) -> Tuple[str, List[str], str]
         sub = path + ["conv"] if isinstance(module, ConvNorm) else path
         return "params", sub, "kernel" if leaf == "weight" else "bias"
     raise KeyError(f"no JAX counterpart for {'.'.join(path)}.{leaf} ({type(module).__name__})")
+
+
+def flax_param_paths(model: torch.nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{port parameter name: its flax path in the JAX params, leaf included},
+    e.g. fcos2d_head.cls_tower.0.norm.3.weight ->
+    (fcos2d_head, cls_tower_norm0, norm3, scale)."""
+    fpn_features = _model_fpn_features(model)
+    paths = {}
+    for mod_name, module in model.named_modules():
+        for leaf, _ in module.named_parameters(recurse=False):
+            coll, path, name = _flax_leaf(module, _flax_module_path(mod_name, fpn_features), leaf)
+            if coll != "params":
+                raise ValueError(f"{mod_name}.{leaf} is trainable in the port but lives in JAX's {coll}")
+            paths[f"{mod_name}.{leaf}" if mod_name else leaf] = tuple(path) + (name,)
+    return paths
+
+
+def convert_flax_params(params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """{port parameter name: tensor} from a tree with the structure of the
+    JAX params (the params themselves, or their gradients); conv kernels
+    HWIO -> OIHW. Every leaf must be used."""
+    tree = _to_dict(params)
+    out, used = {}, set()
+    for key, path in flax_param_paths(model).items():
+        node = tree
+        for part in path:
+            node = node[part]
+        value = node.transpose(3, 2, 0, 1) if node.ndim == 4 else node
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        used.add(path)
+    unused = [p for p in _leaves(tree) if p not in used]
+    if unused:
+        raise ValueError(f"{len(unused)} JAX leaves have no place in the port: {unused[:10]}")
+    return out
 
 
 def _leaves(tree, prefix=()):
@@ -136,7 +181,7 @@ def convert_flax_variables(variables: Dict, model: torch.nn.Module, strict: bool
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{key}: JAX {coll}/{'/'.join(path)}/{name} has shape {value.shape}, "
                                  f"the port {tuple(tensor.shape)}")
-            state[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+            state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
             used.add((coll,) + tuple(path) + (name,))
     if strict:
         unused = [c + "/" + "/".join(p) for c in trees for p in _leaves(trees[c]) if (c,) + p not in used]

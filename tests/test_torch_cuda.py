@@ -148,3 +148,63 @@ def test_int8_kernels_reject_what_they_do_not_take(card):
         int8_conv(xq.transpose(1, 2), wq, ones, None, 1, 1, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         quantize_int8(torch.zeros(4, 4, device=card).t(), torch.ones(1, device=card))
+
+
+def _dw_case(card, b, h, w, ci, co, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, ci, generator=gen).to(card, dtype).permute(0, 3, 1, 2)  # channels_last NCHW
+    dy = torch.randn(b, h, w, co, generator=gen).to(card, dtype).permute(0, 3, 1, 2)
+    return x, dy
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,dtype", [
+    (2, 96, 320, 3, 16, 7, torch.bfloat16),   # the stem's base_layer, smaller canvas
+    (2, 96, 320, 16, 16, 3, torch.bfloat16),  # level0
+    (2, 48, 160, 64, 64, 3, torch.bfloat16),  # CO over one 16-channel slice
+    (3, 37, 53, 5, 7, 9, torch.float32),      # ragged tiles, 9x9, CO padded
+    (1, 9, 40, 130, 4, 3, torch.float32),     # M = 1170: two slices of 1024 rows
+])
+def test_conv_dw_kernel_matches_plain(card, b, h, w, ci, co, k, dtype):
+    """Within 1e-5 of sum|x*dy| of each output (f32 sums in other orders),
+    and two launches give identical bits (no atomics, a fixed grid)."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same, conv_dw_s1_same_plain
+
+    x, dy = _dw_case(card, b, h, w, ci, co, dtype, seed=b * h + k)
+    before = conv_dw_s1_same.launches
+    got = conv_dw_s1_same(x, dy, k)
+    again = conv_dw_s1_same(x, dy, k)
+    assert conv_dw_s1_same.launches == before + 2
+    assert torch.equal(got, again)
+    want = conv_dw_s1_same_plain(x, dy, k)
+    bound = conv_dw_s1_same_plain(x.abs(), dy.abs(), k)
+    assert ((got - want).abs() <= 1e-5 * bound).all()
+
+
+def test_conv2d_s1_same_gradients_match_autograd(card):
+    """Conv2dS1Same's dx and dW on the card against autograd through
+    F.conv2d, in f32 with TF32 off."""
+    from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, _ = _dw_case(card, 2, 40, 72, 16, 16, torch.float32, seed=3)
+    w = torch.randn(16, 16, 3, 3, device=card) * 0.1
+    grads = []
+    for fn in (lambda a, b: Conv2dS1Same.apply(a, b), lambda a, b: torch.nn.functional.conv2d(a, b, padding=1)):
+        xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        torch.sin(fn(xa, wa)).sum().backward()
+        grads.append((xa.grad, wa.grad))
+    (dx_k, dw_k), (dx_r, dw_r) = grads
+    torch.testing.assert_close(dx_k, dx_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dw_k, dw_r, rtol=1e-4, atol=1e-4)
+
+
+def test_conv_dw_kernel_rejects_what_it_does_not_take(card):
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
+
+    x, dy = _dw_case(card, 1, 8, 8, 4, 4, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_dw_s1_same(x.contiguous(), dy, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        big, dbig = _dw_case(card, 1, 4, 4, 2048, 4, torch.float32, seed=0)
+        conv_dw_s1_same(big, dbig, 9)

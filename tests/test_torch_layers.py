@@ -157,6 +157,9 @@ def test_scale_offset_in_activation_dtype():
 
 
 def test_live_bn_refuses_train_mode():
+    """Live BN has no foldable affine in train mode: it normalizes with the
+    batch statistics (tests/test_torch_train.py holds those against JAX)."""
     bn = pl.FoldableBatchNorm(4).train()
-    with pytest.raises(NotImplementedError):
+    assert not bn.foldable
+    with pytest.raises(RuntimeError, match="does not fold"):
         bn.folded()

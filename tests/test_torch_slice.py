@@ -73,8 +73,10 @@ def test_unpack_detections(detections):
 
 def test_port_runs_without_jax():
     """Build the port's model and run bf16 inference, then calibrate and serve
-    static int8 with bench.py's overrides, in a fresh interpreter: no jax or
-    flax module may be imported on the way (the GPU machine has none)."""
+    static int8 with bench.py's overrides, then take a bf16 train step through
+    `train` with the stem's weight gradient routed to its kernel, in a fresh
+    interpreter: no jax or flax module may be imported on the way (the GPU
+    machine has none)."""
     code = (
         "import sys, torch\n"
         "from dd3d_tpu_torch.configs import get_experiment_cfg\n"
@@ -90,6 +92,17 @@ def test_port_runs_without_jax():
         "infer = get_inference_fn(model, prepare_static_scales(cfg, model, [images]))\n"
         "det = infer(images, torch.eye(3)[None])\n"
         "assert det['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
+        "import numpy as np\n"
+        "from dd3d_tpu_torch.training.synthetic import synthetic_batch\n"
+        "from dd3d_tpu_torch.training.train_loop import train\n"
+        "cfg = get_experiment_cfg('dd3d_kitti_dla34')\n"
+        "cfg.TPU.PALLAS_STEM_DW = True\n"
+        "model = build_model(cfg, generator=torch.Generator().manual_seed(0))\n"
+        "assert model.backbone.bottom_up.base_layer.kernel_weight_grad\n"
+        "seen = []\n"
+        "batches = [synthetic_batch(np.random.RandomState(0), 1, 128, 128)]\n"
+        "state = train(cfg, batches, model=model, device='cpu', max_iter=1, metric_hook=lambda i, m: seen.append(m))\n"
+        "assert state.step == 1 and seen[0]['loss_finite'] == 1.0, seen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
