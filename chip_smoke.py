@@ -20,7 +20,8 @@ one nvcc process each, all at once.
 3. decode the same batch with the plain suppression on the card: the
    detections must be identical;
 4. fp32 on the card (TF32 off) against fp32 on the CPU, on a small batch;
-5. timing: images/s of phase 2 and the NMS kernel against the plain version;
+5. timing: images/s of phase 2 and the NMS kernel against the plain version
+   and its bound, from the IoU tests that this data needs;
 6. the int8 quantize kernel (csrc/quantize.cu) against its plain version,
    exactly: the serving shape, ragged shapes, .5 ties, the clip, dynamic and
    static scales;
@@ -31,8 +32,10 @@ one nvcc process each, all at once.
    the launch counts of all three kernels and that no scale missed; the
    plain int8 versions give identical detections; drift against bf16 is
    bounded as in tests/test_int8_infer.py;
-9. timing: images/s of int8 and bf16 in turns, and each int8 kernel against
-   its plain version at a serving shape;
+9. timing: images/s of int8 and bf16 in turns, each int8 kernel against
+   its plain version and its bound at a serving shape, and the int8 conv
+   kernel beside cuDNN's bf16 conv and its bound at every shape of phase 7,
+   summed as count x ms a forward;
 10. the stem weight-gradient kernel (csrc/conv_dw.cu) against its plain
     version on seeded bf16 inputs at the two stem shapes of the train step,
     the TPU benchmark's two shapes and a ragged one: within 1e-5 of
@@ -45,7 +48,14 @@ one nvcc process each, all at once.
     losses, gradients and updated parameters;
 13. timing: ms per train step and images/s with the kernel and with the
     plain dW in turns, peak memory, device busy share, and the dW kernel
-    against its plain version and cuDNN's bf16 wgrad at the stem shapes.
+    against its plain version, cuDNN's bf16 wgrad and its bound at the stem
+    shapes.
+
+Before the last line, the card's name and power limit and one JSON line of
+the four kernels: launches on the main path, error against the plain
+version, ms, the plain version's ms, the bound (bytes or operations at the
+published H100 peaks) and, where one PyTorch call computes the same thing,
+that call's ms.
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
@@ -63,6 +73,20 @@ HEIGHT, WIDTH, BATCH, N_BATCHES = 384, 1280, 8, 4
 TRAIN_STEPS = 4
 NMS_SHAPE = (8, 512)  # (B, N) of the serving path: batch 8, TPU.NMS_CANDIDATES = 512
 SEED = 0
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
+# least time the card could take for a kernel's work is the larger of its
+# bytes over the memory rate and its operations over the peak of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+
+def bound_ms(nbytes, ops, kind):
+    """(ms, "bytes" or "operations"): each input read once, each output
+    written once, against the operations of type `kind` at its peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def log(msg):
@@ -274,6 +298,34 @@ def serving_ms(infer, images, intrinsics):
     return np.percentile(times, [50, 25, 75])
 
 
+# f32 operations of one IoU test in csrc/nms.cu (2 min, 2 max, sub, max for
+# each side; mul; add, sub; max; div; compare) and of one box's area.
+NMS_OPS_PER_PAIR, NMS_OPS_PER_BOX = 14, 5
+
+
+def nms_bound(boxes, valid, thr):
+    """The NMS kernel's least time on these inputs: it tests box k against
+    every later alive box j only while k is alive, so the pairs are counted
+    by walking the same greedy suppression (on the CPU). Bytes: boxes and
+    valid read, keep written. Returns (ms, bound_by, pairs, keep)."""
+    b = boxes.cpu()
+    alive = valid.cpu().clone()
+    x1, y1, x2, y2 = b.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    pairs = 0
+    for k in range(b.shape[1] - 1):
+        later = alive[:, k + 1:] & alive[:, k:k + 1]
+        pairs += int(later.sum())
+        iw = (torch.minimum(x2[:, k:k + 1], x2[:, k + 1:]) - torch.maximum(x1[:, k:k + 1], x1[:, k + 1:])).clamp(min=0)
+        ih = (torch.minimum(y2[:, k:k + 1], y2[:, k + 1:]) - torch.maximum(y1[:, k:k + 1], y1[:, k + 1:])).clamp(min=0)
+        inter = iw * ih
+        iou = inter / (area[:, k:k + 1] + area[:, k + 1:] - inter).clamp(min=1e-9)
+        alive[:, k + 1:] &= ~(later & (iou > thr))
+    nbytes = boxes.numel() * 4 + valid.numel() * 2
+    ms, by = bound_ms(nbytes, NMS_OPS_PER_PAIR * pairs + NMS_OPS_PER_BOX * valid.numel(), "f32")
+    return ms, by, pairs, alive
+
+
 def phase5_timing(cfg, model, images, intrinsics, serving_nms):
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
@@ -293,9 +345,13 @@ def phase5_timing(cfg, model, images, intrinsics, serving_nms):
     kern_b = cuda_ms(lambda: greedy_nms(bx, vd, thr), 200)
     plain_b = cuda_ms(lambda: greedy_nms_plain(bx, vd, thr), 20)
     kern_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    bound, bound_by, pairs, keep = nms_bound(bx, vd, thr)
+    if not torch.equal(keep, greedy_nms(bx, vd, thr).cpu()):
+        raise AssertionError("phase5: the pair-counting walk and the kernel keep different boxes")
     log(f"phase5 nms at (B, N) = {NMS_SHAPE}, thr {thr}: kernel {kern_a:.4f} / {kern_b:.4f} ms, "
-        f"plain {plain_a:.4f} / {plain_b:.4f} ms (plain, kernel, kernel, plain)")
-    return BATCH / med * 1e3, kern_ms, plain_ms
+        f"plain {plain_a:.4f} / {plain_b:.4f} ms (plain, kernel, kernel, plain); {pairs} IoU tests on this "
+        f"data: bound {bound:.6f} ms by {bound_by} ({bound / kern_ms:.2e} of the kernel's time)")
+    return BATCH / med * 1e3, (kern_ms, plain_ms, bound, bound_by)
 
 
 QUANT_SHAPE = (8, 48, 160, 256)  # a P3 tower-conv input of the serving path, NHWC
@@ -376,14 +432,15 @@ def phase7_int8_conv(model, images):
     path at the serving size: int32 accumulators exactly (scale 1, f32 out,
     every |acc| below 2^24 so f32 holds it exactly) and the dequant epilogue
     bit for bit (bf16 out with bias, and f32 out with bias). Returns
-    (max_abs_err, sites, the P3 tower-conv case for timing)."""
+    (max_abs_err, sites, [(site, count, (xq, wq, scale, bias, stride, pad))],
+    the P3 tower-conv case for timing)."""
     from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
 
     t0 = time.time()
     sites = int8_conv_sites(model, images)
     gen = torch.Generator().manual_seed(SEED + 4)
     device = images.device
-    max_err, timing_case = 0.0, None
+    max_err, timing_case, cases = 0.0, None, []
     for (b, h, w, c, o, k, stride), count in sorted(sites.items()):
         pad = (k - 1) // 2
         xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, dtype=torch.int8).to(device)
@@ -410,11 +467,12 @@ def phase7_int8_conv(model, images):
         max_err = max(max_err, *errs)
         log(f"phase7 (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward: accumulators, "
             f"bf16 and f32 epilogues equal (tolerance 0)")
+        cases.append(((b, h, w, c, o, k, stride), count, (xq, wq, scale, bias, stride, pad)))
         if (c, o, k, h) == (256, 256, 3, HEIGHT // 8):  # a tower conv at P3
-            timing_case = (xq, wq, scale, bias, stride, pad)
+            timing_case = cases[-1][2]
     log(f"phase7 ok: {len(sites)} conv shapes, {sum(sites.values())} int8 convs a forward "
         f"({time.time() - t0:.2f} s incl. the kernel build)")
-    return max_err, sites, timing_case
+    return max_err, sites, cases, timing_case
 
 
 def int8_cfg():
@@ -498,10 +556,77 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites):
     return cfg, launches
 
 
+def int8_conv_bound(xq, wq, stride, pad, out_bytes=2):
+    """Least time of one int8 conv: x and w read, the output written (bf16
+    by default), against 2*M*O*K int8 operations (K of the unpadded C)."""
+    b, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
+    m = b * ((h + 2 * pad - kh) // stride + 1) * ((w + 2 * pad - kw) // stride + 1)
+    return bound_ms(xq.numel() + wq.numel() + m * o * out_bytes + 8 * o, 2 * m * o * kh * kw * c, "int8")
+
+
+def cudnn_bf16_conv(xq, wq, stride, pad):
+    """cuDNN's bf16 conv of the same codes (exact operands, f32 sums): the
+    library yardstick; the port never calls it for int8."""
+    xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = wq.to(torch.bfloat16).permute(0, 3, 1, 2)
+    return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad)
+
+
+def device_ms(fn, reps, profiler):
+    """Device time of one call of `fn`, from one profiler window over `reps`
+    calls: every kernel in the window is charged to `fn` (a wrapper's own
+    copies too), and the host's launch overhead does not inflate it (at a
+    small shape the wrapper's host time exceeds the kernel's, so CUDA events
+    around a loop of calls would time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    with profiler() as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / reps
+
+
+def int8_conv_sites_timing(cases, min_ch):
+    """Device time of the int8 conv wrapper (its kernel, and the channel
+    padding copy at the stem; bf16 out with bias, as served) and of cuDNN's
+    bf16 conv, each in its own profiler window, at every conv shape of
+    phase 7, summed as count x ms a forward over the serving set
+    (C >= min_ch) and over all shapes, beside the sums of the bounds: the
+    launches x gap figure that ranks the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    sums = {"serving": [0.0, 0.0, 0.0, 0], "all": [0.0, 0.0, 0.0, 0]}
+    for (b, h, w, c, o, k, stride), count, (xq, wq, scale, bias, _, pad) in cases:
+        k_ms = device_ms(lambda: int8_conv(xq, wq, scale, bias, stride, pad, torch.bfloat16), 10, prof)
+        c_ms = device_ms(cudnn_bf16_conv(xq, wq, stride, pad), 10, prof)
+        bnd, by = int8_conv_bound(xq, wq, stride, pad)
+        log(f"phase9 int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward, device time: "
+            f"kernel {k_ms:.4f} ms, cuDNN bf16 {c_ms:.4f} ms, bound {bnd:.5f} ms by {by} ({bnd / k_ms:.2f} of it)")
+        for key in ("serving", "all") if c >= min_ch else ("all",):
+            acc = sums[key]
+            acc[0] += count * k_ms
+            acc[1] += count * c_ms
+            acc[2] += count * bnd
+            acc[3] += count
+    for key, (k_sum, c_sum, b_sum, n) in sums.items():
+        log(f"phase9 int8 convs a forward, {key} ({n} convs), device time: kernel {k_sum:.3f} ms, cuDNN bf16 "
+            f"{c_sum:.3f} ms, bound {b_sum:.3f} ms (count x ms summed over shapes)")
+    return sums
+
+
 def phase9_int8_timing(int8_cfg_static, bf16_cfg, model, images, intrinsics, quant_case, conv_case):
     """Images/s of the int8 and the bf16 path in turns (int8, bf16, bf16,
     int8), and each int8 kernel against its plain version at a serving
-    shape (plain, kernel, kernel, plain). Returns {name: (ms, plain_ms)}."""
+    shape (plain, kernel, kernel, plain), with its bound and, for the conv,
+    cuDNN's bf16 conv of the same codes. Returns {name: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}."""
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
     from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
     from dd3d_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
@@ -533,11 +658,15 @@ def phase9_int8_timing(int8_cfg_static, bf16_cfg, model, images, intrinsics, qua
         out[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
         log(f"phase9 {name}: kernel {k_a:.4f} / {k_b:.4f} ms, plain {p_a:.4f} / {p_b:.4f} ms "
             f"(plain, kernel, kernel, plain)")
-    xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wb = wq.to(torch.bfloat16).permute(0, 3, 1, 2)
-    cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad), 20)
+    # quantize: bf16 in, int8 out, ~3 f32 operations an element
+    q_bound = bound_ms(x.numel() * (x.element_size() + 1), 3 * x.numel(), "f32")
+    out["quantize_int8"] += (*q_bound, None)
+    cudnn = cuda_ms(cudnn_bf16_conv(xq, wq, stride, pad), 20)
+    out["int8_conv"] += (*int8_conv_bound(xq, wq, stride, pad), cudnn)
     b, h, w, c = xq.shape
     gop = 2 * b * h * w * c * wq.shape[0] * wq.shape[1] * wq.shape[2] / stride ** 2 / 1e9
+    for name, (k_ms, _, bnd, by, _) in out.items():
+        log(f"phase9 {name}: bound {bnd:.4f} ms by {by}, {bnd / k_ms:.2f} of the kernel's time")
     log(f"phase9 int8 conv at {tuple(xq.shape)} -> {wq.shape[0]}, {wq.shape[1]}x{wq.shape[2]}: {gop:.1f} GOP, "
         f"kernel {gop / out['int8_conv'][0]:.1f} TOP/s; the same conv in bf16 through cuDNN {cudnn:.4f} ms "
         f"({gop / cudnn:.1f} TFLOP/s)")
@@ -870,11 +999,13 @@ def phase13_train_timing(device, stem_cases):
         kern(), plain(), cudnn()
         p_a, k_a, c_a = cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(cudnn, 20)
         k_b, p_b, c_b = cuda_ms(kern, 20), cuda_ms(plain, 5), cuda_ms(cudnn, 20)
-        kernel_ms[k] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
-        gflop = 2 * x.numel() * co * k * k / 1e9
-        log(f"phase13 dW x {tuple(x.shape)} k={k} -> CO={co} ({gflop:.1f} GFLOP): kernel {k_a:.4f} / {k_b:.4f} ms "
-            f"({gflop / kernel_ms[k][0]:.1f} TFLOP/s), plain {p_a:.4f} / {p_b:.4f} ms, cuDNN bf16 wgrad "
-            f"{c_a:.4f} / {c_b:.4f} ms")
+        flop = 2 * x.numel() * co * k * k
+        # x and dy (bf16) read, dW (f32) written; bf16 products on the tensor cores
+        bnd, by = bound_ms((x.numel() + dy.numel()) * x.element_size() + 4 * co * ci * k * k, flop, "bf16")
+        kernel_ms[k] = ((k_a + k_b) / 2, (p_a + p_b) / 2, bnd, by, (c_a + c_b) / 2)
+        log(f"phase13 dW x {tuple(x.shape)} k={k} -> CO={co} ({flop / 1e9:.1f} GFLOP): kernel {k_a:.4f} / {k_b:.4f} "
+            f"ms ({flop / 1e9 / kernel_ms[k][0]:.1f} TFLOP/s), plain {p_a:.4f} / {p_b:.4f} ms, cuDNN bf16 wgrad "
+            f"{c_a:.4f} / {c_b:.4f} ms; bound {bnd:.4f} ms by {by}, {bnd / kernel_ms[k][0]:.2f} of the kernel's time")
     return ms, peak, kernel_ms
 
 
@@ -904,16 +1035,18 @@ def main():
     torch.cuda.synchronize()
     phase4_fp32(get_experiment_cfg("dd3d_kitti_dla34"), device)
     torch.cuda.synchronize()
-    imgs_per_s, nms_ms, nms_plain_ms = phase5_timing(cfg, model, images, intrinsics, serving_nms)
+    imgs_per_s, nms_t = phase5_timing(cfg, model, images, intrinsics, serving_nms)
     torch.cuda.synchronize()
 
     quant_err, quant_case = phase6_quantize(device)
     torch.cuda.synchronize()
-    conv_err, sites, conv_case = phase7_int8_conv(model, images[0])
+    conv_err, sites, conv_cases, conv_case = phase7_int8_conv(model, images[0])
     torch.cuda.synchronize()
     cfg8, launches = phase8_int8_path(cfg, model, images, intrinsics, sites)
     torch.cuda.synchronize()
     serving, kernel_ms = phase9_int8_timing(cfg8, cfg, model, images, intrinsics, quant_case, conv_case)
+    int8_conv_sites_timing(conv_cases, cfg8.TPU.QUANT_MIN_CH)
+    del conv_cases
     torch.cuda.synchronize()
 
     dw_err, stem_cases = phase10_conv_dw(device)
@@ -929,27 +1062,31 @@ def main():
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
     log(f"timing on {card}: bf16 {imgs_per_s:.1f} images/s (phase 5); phase 9 in turns: static int8 "
         f"{int8_ips:.1f} images/s, bf16 {bf16_ips:.1f} images/s (batch {BATCH}, {HEIGHT}x{WIDTH}); "
-        f"NMS kernel {nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms at {NMS_SHAPE}; NMS launches on the bf16 "
+        f"NMS kernel {nms_t[0]:.4f} ms vs plain {nms_t[1]:.4f} ms at {NMS_SHAPE}; NMS launches on the bf16 "
         f"path {bf16_nms_launches}")
     log(f"timing on {card}: train step at batch {BATCH}, {HEIGHT}x{WIDTH}, bf16: "
         f"{np.mean(train_ms['kernel']):.2f} ms with the dW kernel, {np.mean(train_ms['plain']):.2f} ms with the "
-        f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7][0]:.4f} ms vs plain {dw_ms[7][1]:.4f} ms at the "
-        f"7x7 stem conv")
+        f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7][0]:.4f} ms vs plain {dw_ms[7][1]:.4f} ms and "
+        f"cuDNN {dw_ms[7][4]:.4f} ms at the 7x7 stem conv, {dw_ms[3][0]:.4f} ms vs cuDNN {dw_ms[3][4]:.4f} ms at "
+        f"level0")
+    timed = {"greedy_nms": (*nms_t, None), "quantize_int8": kernel_ms["quantize_int8"],
+             "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7]}
+    rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
+             nms_err),
+            ("quantize_int8", "dd3d_tpu_torch/csrc/quantize.cu", "scripts/bench_quantize_kernel.py:91",
+             launches["quantize_int8"], quant_err),
+            ("int8_conv", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246", launches["int8_conv"],
+             conv_err),
+            ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58", dw_launches,
+             dw_err)]
+    kernels = []
+    for name, source, replaces, n, err in rows:
+        ms, plain_ms, bnd, by, library_ms = timed[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                        "library_ms": library_ms})
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": "greedy_nms", "route": "cuda", "source": "dd3d_tpu_torch/csrc/nms.cu",
-         "replaces": "dd3d_tpu/ops/pallas_nms.py:40", "launches": launches["greedy_nms"], "max_abs_err": nms_err,
-         "ms": nms_ms, "plain_ms": nms_plain_ms},
-        {"name": "quantize_int8", "route": "cuda", "source": "dd3d_tpu_torch/csrc/quantize.cu",
-         "replaces": "scripts/bench_quantize_kernel.py:91", "launches": launches["quantize_int8"],
-         "max_abs_err": quant_err, "ms": kernel_ms["quantize_int8"][0], "plain_ms": kernel_ms["quantize_int8"][1]},
-        {"name": "int8_conv", "route": "cuda", "source": "dd3d_tpu_torch/csrc/int8_conv.cu",
-         "replaces": "dd3d_tpu/models/layers.py:246", "launches": launches["int8_conv"], "max_abs_err": conv_err,
-         "ms": kernel_ms["int8_conv"][0], "plain_ms": kernel_ms["int8_conv"][1]},
-        {"name": "conv_dw_s1_same", "route": "cuda", "source": "dd3d_tpu_torch/csrc/conv_dw.cu",
-         "replaces": "dd3d_tpu/ops/pallas_conv.py:58", "launches": dw_launches, "max_abs_err": dw_err,
-         "ms": dw_ms[7][0], "plain_ms": dw_ms[7][1]},
-    ]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -185,9 +185,13 @@ class FrozenBatchNorm(_NormStats):
 class FoldableBatchNorm(_NormStats):
     """Live BatchNorm (flax nn.BatchNorm(momentum=0.9, epsilon=1e-5), JAX
     :64-112). At eval: the running-stat affine, with rsqrt, foldable. In
-    train mode: the statistics of the batch in f32 over (N, H, W), with the
-    fast biased variance E[x^2] - E[x]^2 and no clamp, and the running
-    averages updated as ra = 0.9 * ra + 0.1 * stat (biased variance too)."""
+    train mode: the statistics of the batch in f32 over (N, H, W), the
+    biased variance, and the running averages updated as
+    ra = 0.9 * ra + 0.1 * stat (biased variance too). JAX forms the variance
+    as E[x^2] - E[x]^2 (:96), which cancels in f32 where a level has few
+    values a channel (P7 at a small canvas); the port takes the same biased
+    variance from one var_mean reduction, which does not cancel and stays
+    nearer the f64 result (tests/test_torch_train.py holds both against it)."""
 
     momentum = 0.9
 
@@ -204,9 +208,7 @@ class FoldableBatchNorm(_NormStats):
     def affine(self, x):
         if not self.training:
             return self.folded()
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

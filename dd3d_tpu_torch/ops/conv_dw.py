@@ -6,7 +6,11 @@ custom_vjp).
 `conv_dw_s1_same(x, dy, k)` takes x (B, CI, H, W) and dy (B, CO, H, W), both
 channels_last in memory, bf16 or f32 of one dtype, and an odd k <= 9, and
 returns dW (CO, CI, k, k) in f32:
-- for CUDA tensors it launches the kernel (or raises: there is no fallback);
+- for CUDA tensors it launches the kernel (or raises: there is no fallback):
+  bf16 on the tensor cores (mma.sync bf16 -> f32; `pad_operands` first
+  brings W*CI and CO to multiples of 8 and the pointers to 16-byte
+  alignment), f32 on the CUDA cores (tensor cores would round f32 inputs
+  to TF32);
 - for CPU tensors it runs the plain PyTorch version, `conv_dw_s1_same_plain`,
   which the CPU tests and chip_smoke.py hold the kernel against.
 
@@ -41,6 +45,29 @@ def conv_dw_s1_same_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Te
             xs = xp[:, :, dh:dh + h, dw:dw + w].permute(1, 0, 2, 3).reshape(x.shape[1], -1)  # (CI, P)
             out[:, :, dh, dw] = dyt @ xs.t()
     return out
+
+
+def pad_operands(x: torch.Tensor, dy: torch.Tensor):
+    """x (B, CI, H, W) and dy (B, CO, H, W) as the kernel's tensor-core path
+    stages them, in 16-byte chunks: W padded with zero columns until
+    W*CI % 8 == 0, CO with zero channels to a multiple of 8, and an input
+    not 16-byte aligned copied to fresh storage. Zero columns of x lie where
+    the SAME padding reads zeros anyway, and zero pixels or channels of dy
+    add nothing, so dW[:CO] is unchanged. Of the path's convs none needs
+    it (W*CI = 3840 and 20480, CO = 16)."""
+    cl = torch.channels_last
+    w, ci, co = x.shape[3], x.shape[1], dy.shape[1]
+    extra_w = next(e for e in range(8) if (w + e) * ci % 8 == 0)
+    extra_co = -co % 8
+    if extra_w:
+        x = F.pad(x, (0, extra_w)).contiguous(memory_format=cl)
+    if extra_w or extra_co:
+        dy = F.pad(dy, (0, extra_w, 0, 0, 0, extra_co)).contiguous(memory_format=cl)
+    if x.data_ptr() % 16:
+        x = x.clone(memory_format=cl)
+    if dy.data_ptr() % 16:
+        dy = dy.clone(memory_format=cl)
+    return x, dy
 
 
 _lib = None
@@ -78,22 +105,25 @@ def conv_dw_s1_same(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     cl = torch.channels_last
     if not (x.is_contiguous(memory_format=cl) and dy.is_contiguous(memory_format=cl)):
         raise ValueError("x and dy must be channels_last-contiguous (the kernel reads NHWC)")
-    b, ci, h, w = x.shape
     co = dy.shape[1]
+    if x.dtype == torch.bfloat16:
+        x, dy = pad_operands(x, dy)
+    b, ci, h, w = x.shape
+    co_k = dy.shape[1]
     lib = _library()
-    ws_floats = lib.dd3d_conv_dw_workspace(b, h, w, ci, co, k)
+    ws_floats = lib.dd3d_conv_dw_workspace(b, h, w, ci, co_k, k)
     if ws_floats < 0:
         raise ValueError(f"x {tuple(x.shape)} with k={k}: the halo tile exceeds the kernel's shared memory")
     workspace = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
-    out = torch.empty((co, ci, k, k), dtype=torch.float32, device=x.device)
+    out = torch.empty((co_k, ci, k, k), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dd3d_conv_dw_s1_same(x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16), b, h, w, ci,
-                                       co, k, workspace.data_ptr(), out.data_ptr(), stream)
+                                       co_k, k, workspace.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"weight-gradient kernel launch failed: cudaError {err}")
     conv_dw_s1_same.launches += 1
-    return out
+    return out if co_k == co else out[:co].contiguous()
 
 
 conv_dw_s1_same.launches = 0

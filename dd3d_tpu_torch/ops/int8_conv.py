@@ -65,6 +65,19 @@ def int8_conv_plain(xq, wq, scale, bias, stride: int, pad: int, out_dtype: torch
     return y.contiguous()
 
 
+CHANNEL_MULTIPLE = 16  # the kernel stages 16-byte chunks, each within one (r, s) tap
+
+
+def pad_channels(xq: torch.Tensor, wq: torch.Tensor):
+    """xq (B, H, W, C) and wq (O, kh, kw, C) with zero channels appended up to
+    C % CHANNEL_MULTIPLE == 0 (an explicit copy; of the path's convs only
+    the 3-channel stem needs it). Zero codes add nothing to the sums."""
+    extra = -xq.shape[3] % CHANNEL_MULTIPLE
+    if not extra:
+        return xq, wq
+    return F.pad(xq, (0, extra)), F.pad(wq, (0, extra))
+
+
 _lib = None
 
 
@@ -109,12 +122,9 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opt
     tensors = [xq, wq, scale] + ([] if bias is None else [bias])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("xq, wq, scale and bias must be contiguous (xq NHWC, wq OHWI)")
-    b, h, w, c = xq.shape
+    b, h, w, _ = xq.shape
     o, kh, kw, _ = wq.shape
-    if c % 4:
-        # The kernel reads channels in 4-byte words: zero channels (an
-        # explicit copy, only the 3-channel stem needs it) add nothing to the sums.
-        xq, wq = F.pad(xq, (0, 4 - c % 4)), F.pad(wq, (0, 4 - c % 4))
+    xq, wq = pad_channels(xq, wq)
     ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}, stride {stride}, pad {pad}")

@@ -24,7 +24,7 @@ import torch
 from dd3d_tpu.models.dla import DLA as JaxDLA, BasicBlock
 from dd3d_tpu.ops.pallas_conv import conv2d_s1_same, conv_dw_s1_same_pallas
 from dd3d_tpu_torch.models.dla import DLA
-from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, conv_dw_s1_same, conv_dw_s1_same_plain
+from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, conv_dw_s1_same, conv_dw_s1_same_plain, pad_operands
 from dd3d_tpu_torch.utils.convert_checkpoint import convert_flax_params, convert_flax_variables
 
 from tests.torch_port_util import torch_threads
@@ -65,6 +65,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         conv_dw_s1_same(x.bfloat16(), torch.zeros(1, 4, 8, 8), 3)
     with pytest.raises(ValueError, match="need x"):
         conv_dw_s1_same(x, torch.zeros(1, 4, 8, 9), 3)
+
+
+@pytest.mark.parametrize("w,ci,co,offset", [(13, 3, 7, 0), (20, 5, 16, 0), (11, 16, 12, 1), (32, 3, 16, 8)])
+def test_operand_padding_leaves_the_dw_unchanged(w, ci, co, offset):
+    """The tensor-core path's padding (W*CI and CO to multiples of 8, an
+    input at an unaligned offset copied) gives the same dW, bit for bit:
+    small integer values, so every f32 sum is exact in any order."""
+    rng = np.random.RandomState(w + ci)
+    b, h, k = 2, 9, 5
+    xs = torch.from_numpy(rng.randint(-3, 4, b * h * w * ci + offset).astype(np.float32)).bfloat16()
+    x = xs[offset:].view(b, h, w, ci).permute(0, 3, 1, 2)  # channels_last, `offset` elements into its storage
+    dy = nchw_cl(rng.randint(-3, 4, (b, h, w, co)).astype(np.float32)).bfloat16()
+    xp, dyp = pad_operands(x, dy)
+    assert xp.shape[3] * ci % 8 == 0 and dyp.shape[1] % 8 == 0 and xp.shape[3] == dyp.shape[3]
+    assert xp.data_ptr() % 16 == 0 and dyp.data_ptr() % 16 == 0
+    cl = torch.channels_last
+    assert xp.is_contiguous(memory_format=cl) and dyp.is_contiguous(memory_format=cl)
+    assert not xp[..., w:].any() and not dyp[..., w:].any() and not dyp[:, co:].any()
+    assert torch.equal(conv_dw_s1_same_plain(xp, dyp, k)[:co], conv_dw_s1_same_plain(x, dy, k))
+    if (w * ci % 8, co % 8, offset % 8) == (0, 0, 0):
+        assert pad_operands(x, dy) == (x, dy)  # nothing to pad, nothing copied
 
 
 def test_conv2d_s1_same_matches_custom_vjp():

@@ -95,10 +95,15 @@ def test_quantize_kernel_matches_plain(card, shape, dtype, amax):
 
 @pytest.mark.parametrize("b,h,w,c,o,k,stride", [
     (2, 24, 40, 256, 256, 3, 1),  # a head-tower conv
-    (2, 33, 47, 3, 16, 7, 1),     # the stem, ragged: C padded to 4 words
+    (2, 33, 47, 3, 16, 7, 1),     # the stem, ragged: C padded to 16
     (2, 24, 40, 64, 5, 3, 1),     # a fused predictor: O = 5
     (2, 25, 41, 128, 55, 3, 2),   # O = 55, stride 2, odd sizes
     (1, 12, 20, 1280, 512, 1, 1),  # the widest root concat
+    (2, 13, 21, 32, 10, 3, 1),    # O = 10, M = 546 (not a multiple of 128)
+    (1, 9, 15, 64, 64, 1, 1),     # O = 64: the 64-wide tile, M = 135
+    (2, 17, 19, 48, 128, 3, 2),   # O = 128, stride 2, K = 432 (not a multiple of 128)
+    (1, 11, 13, 256, 256, 3, 1),  # O = 256, M = 143
+    (1, 10, 14, 12, 24, 3, 1),    # C = 12 padded to 16
 ])
 def test_int8_conv_kernel_matches_plain(card, b, h, w, c, o, k, stride):
     """Exact int32 accumulators (f32 out at scale 1 holds them exactly below
@@ -160,9 +165,14 @@ def _dw_case(card, b, h, w, ci, co, dtype, seed):
 @pytest.mark.parametrize("b,h,w,ci,co,k,dtype", [
     (2, 96, 320, 3, 16, 7, torch.bfloat16),   # the stem's base_layer, smaller canvas
     (2, 96, 320, 16, 16, 3, torch.bfloat16),  # level0
-    (2, 48, 160, 64, 64, 3, torch.bfloat16),  # CO over one 16-channel slice
+    (2, 48, 160, 64, 64, 3, torch.bfloat16),  # CO over one 16-channel slice, M over one 160-row slice
+    (2, 37, 45, 3, 16, 7, torch.bfloat16),    # ragged tiles; W*CI % 8 != 0: W padded by the wrapper
+    (1, 19, 50, 16, 16, 3, torch.bfloat16),   # ragged tiles, nothing padded
+    (2, 21, 35, 64, 64, 3, torch.bfloat16),   # ragged, M = 576 in 4 slices, CO in 4
+    (1, 15, 20, 5, 7, 9, torch.bfloat16),     # CO = 7, 9x9: W and CO padded by the wrapper
     (3, 37, 53, 5, 7, 9, torch.float32),      # ragged tiles, 9x9, CO padded
     (1, 9, 40, 130, 4, 3, torch.float32),     # M = 1170: two slices of 1024 rows
+    (2, 29, 70, 3, 16, 7, torch.float32),     # the stem on the CUDA cores, ragged
 ])
 def test_conv_dw_kernel_matches_plain(card, b, h, w, ci, co, k, dtype):
     """Within 1e-5 of sum|x*dy| of each output (f32 sums in other orders),
@@ -178,6 +188,23 @@ def test_conv_dw_kernel_matches_plain(card, b, h, w, ci, co, k, dtype):
     want = conv_dw_s1_same_plain(x, dy, k)
     bound = conv_dw_s1_same_plain(x.abs(), dy.abs(), k)
     assert ((got - want).abs() <= 1e-5 * bound).all()
+
+
+@pytest.mark.parametrize("offset", [1, 8])
+def test_conv_dw_kernel_bits_do_not_depend_on_alignment(card, offset):
+    """bf16 inputs `offset` elements into their storage (2 bytes: copied by
+    the wrapper; 16 bytes: staged in place) give the bits of the same data
+    in fresh storage: the grid and the order of the sums follow the shape
+    alone."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
+
+    b, h, w, ci, co, k = 2, 40, 96, 16, 16, 3
+    gen = torch.Generator().manual_seed(offset)
+    xs = torch.randn(b * h * w * ci + offset, generator=gen).to(card, torch.bfloat16)
+    x = xs[offset:].view(b, h, w, ci).permute(0, 3, 1, 2)
+    dy = torch.randn(b, h, w, co, generator=gen).to(card, torch.bfloat16).permute(0, 3, 1, 2)
+    assert x.data_ptr() % 16 == (0 if offset == 8 else 2)
+    assert torch.equal(conv_dw_s1_same(x, dy, k), conv_dw_s1_same(x.clone(memory_format=torch.channels_last), dy, k))
 
 
 def test_conv2d_s1_same_gradients_match_autograd(card):

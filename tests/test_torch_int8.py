@@ -7,12 +7,14 @@
   kernels against them on the card);
 - the quant branches of ConvNorm, TowerConv and the fused predictors, with
   the QUANT_MIN_CH gate and QUANT_UNFOLDED off and on, against the flax
-  modules: exact in fp32 where both quantize (one f32 epilogue over exact
-  int32 sums), 1e-5 where both run the fp32 conv (summation order), and P6/P7
-  never quantized;
+  modules: where both quantize, the port's int8 conv bit for bit against the
+  written two-rounding dequant in numpy and within one ulp of JAX (XLA:CPU
+  may contract the dequant into an FMA), 1e-5 where both run the fp32 conv
+  (summation order), and P6/P7 never quantized;
 - the quant state: scale-miss fallback, legacy scales files, and settings
   scoped to one call.
 """
+import contextlib
 import json
 
 import jax
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import dd3d_tpu_torch.ops.int8_conv as int8_ops
 from dd3d_tpu.models import layers as jl
 from dd3d_tpu_torch.models import layers as pl
 from dd3d_tpu_torch.ops.int8_conv import activation_scale, int8_conv, int8_conv_acc_plain, int8_conv_dequant
@@ -155,6 +158,25 @@ def test_int8_exactness_int_grid():
     np.testing.assert_allclose(y, ref.permute(0, 2, 3, 1).numpy(), rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("c", [3, 12])
+def test_channel_padding_leaves_the_conv_unchanged(c):
+    """The wrapper pads C with zero channels to a multiple of 16 for the
+    kernel's 16-byte chunks; the padded operands give the same outputs."""
+    rng = np.random.RandomState(c)
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, 9, 11, c)).astype(np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (5, 3, 3, c)).astype(np.int8))
+    scale = torch.from_numpy((rng.rand(5) * 1e-3).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(5).astype(np.float32))
+    xp, wp = int8_ops.pad_channels(xq, wq)
+    assert xp.shape[3] == wp.shape[3] == 16 and not xp[..., c:].any() and not wp[..., c:].any()
+    for stride in (1, 2):
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(int8_ops.int8_conv_plain(xp, wp, scale, bias, stride, 1, dt),
+                               int8_ops.int8_conv_plain(xq, wq, scale, bias, stride, 1, dt))
+    same = torch.zeros(1, 2, 2, 32, dtype=torch.int8)
+    assert int8_ops.pad_channels(same, same)[0] is same
+
+
 def test_wrappers_check_and_run_the_plain_version_on_the_cpu():
     x = torch.randn(1, 4, 4, 8)
     xs = activation_scale(x, None)
@@ -193,15 +215,59 @@ def _jax_quant(monkeypatch, enabled, min_ch, unfolded, scales=None):
     monkeypatch.setattr(jl, "QUANT_SCALE_MISSES", [])
 
 
-def _check(port_q, port_fp, jax_q, quantizes, exact=True):
-    """Both sides quantize (exact) or neither does (fp32 conv, 1e-5)."""
+@contextlib.contextmanager
+def _recorded_int8_convs():
+    """Record each int8 conv the layers run: (xq, wq, scale, bias, stride,
+    pad, output)."""
+    calls, real = [], int8_ops.int8_conv
+
+    def record(xq, wq, scale, bias, stride, pad, out_dtype):
+        out = real(xq, wq, scale, bias, stride, pad, out_dtype)
+        calls.append((xq, wq, scale, bias, stride, pad, out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(int8_ops, "int8_conv", record)
+        yield calls
+
+
+def _assert_written_dequant(call):
+    """The port's f32 int8 conv bit for bit against the dequant as
+    layers.py:276 and :364-365 write it, in numpy: f32(acc) * scale rounded,
+    then + bias rounded, over the port's exact im2col accumulators. Returns
+    one ulp of the largest pre-rounding magnitude, 2^-23 * max(|acc * scale|
+    + |bias|): jitted XLA:CPU contracts f32(acc) * scale + bias into one FMA
+    with a single rounding on some hosts and not on others, so JAX's result
+    may sit that far from the written arithmetic."""
+    xq, wq, scale, bias, stride, pad, out = call
+    acc = int8_conv_acc_plain(xq, wq, stride, pad).numpy()
+    scale = scale.detach().numpy()
+    y = acc.astype(np.float32) * scale
+    mag = np.abs(acc * scale.astype(np.float64))
+    if bias is not None:
+        bias = bias.detach().numpy()
+        y = y + bias
+        mag = mag + np.abs(bias)
+    assert y.dtype == np.float32 and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), y)
+    return 2.0 ** -23 * float(mag.max())
+
+
+def _check(port_q, port_fp, jax_q, calls, quantizes, exact=True):
+    """Both sides quantize or neither does (fp32 conv, 1e-5). Where both
+    quantize, the port's one int8 conv (`calls`) is pinned bit for bit to
+    the written two-rounding dequant, and the layer's output is within one
+    ulp of JAX's (1e-5 where `exact` is off)."""
     if quantizes:
         assert not np.array_equal(port_q, port_fp), "the int8 branch should have engaged"
+        assert len(calls) == 1
+        ulp = _assert_written_dequant(calls[0])
         if exact:
-            np.testing.assert_array_equal(port_q, jax_q)
+            np.testing.assert_allclose(port_q, jax_q, rtol=0, atol=ulp)
         else:
             np.testing.assert_allclose(port_q, jax_q, **TOL)
     else:
+        assert calls == []
         np.testing.assert_array_equal(port_q, port_fp)
         np.testing.assert_allclose(port_q, jax_q, **TOL)
 
@@ -228,10 +294,11 @@ def test_conv_norm_quant_branch(monkeypatch, norm, min_ch, unfolded):
     xt = to_torch_nchw(x)
     with torch.no_grad():
         y_fp = pm(xt).permute(0, 2, 3, 1).numpy()
-        with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=min_ch, unfolded=unfolded)) as spec:
+        with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=min_ch, unfolded=unfolded)) as spec, \
+                _recorded_int8_convs() as calls:
             y_q = pm(xt).permute(0, 2, 3, 1).numpy()
     quantizes = (norm != "" or unfolded) and 8 >= min_ch
-    _check(y_q, y_fp, y_j, quantizes, exact=norm != "BN")
+    _check(y_q, y_fp, y_j, calls, quantizes, exact=norm != "BN")
     assert spec.misses == [] and spec.capture is None
 
 
@@ -267,9 +334,9 @@ def test_tower_conv_quant_branch(monkeypatch, min_ch):
         for l, (x, y_j) in enumerate(zip(xs, outs_j)):
             xt = to_torch_nchw(x)
             y_fp = tower(xt, l).permute(0, 2, 3, 1).numpy()
-            with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=min_ch)):
+            with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=min_ch)), _recorded_int8_convs() as calls:
                 y_q = tower(xt, l).permute(0, 2, 3, 1).numpy()
-            _check(y_q, y_fp, np.asarray(y_j), min_ch == 0)
+            _check(y_q, y_fp, np.asarray(y_j), calls, min_ch == 0)
 
 
 @pytest.mark.parametrize("unfolded", [False, True], ids=["folded_only", "unfolded"])
@@ -300,10 +367,11 @@ def test_fused_predictors_quant_branch(monkeypatch, unfolded):
     xt = to_torch_nchw(x)
     with torch.no_grad():
         outs_fp = pl.fused_predictor_apply(xt, preds)
-        with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=10 ** 6, unfolded=unfolded, capture=[])) as spec:
+        with pl.quant_scope(pl.QuantSpec(enabled=True, min_ch=10 ** 6, unfolded=unfolded, capture=[])) as spec, \
+                _recorded_int8_convs() as calls:
             outs_q = pl.fused_predictor_apply(xt, preds)
     for oj, oq, of in zip(outs_j, outs_q, outs_fp):
-        _check(oq.permute(0, 2, 3, 1).numpy(), of.permute(0, 2, 3, 1).numpy(), np.asarray(oj), unfolded)
+        _check(oq.permute(0, 2, 3, 1).numpy(), of.permute(0, 2, 3, 1).numpy(), np.asarray(oj), calls, unfolded)
     # capture keys the group by its first sibling, with the NHWC shape tag
     assert [(p, t) for p, t, _ in spec.capture] == ([("p0", "6x7x16")] if unfolded else [])
 
