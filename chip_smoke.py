@@ -10,18 +10,22 @@ bench.py's static int8 (QUANT_MIN_CH=32, QUANT_UNFOLDED), through
 `infer(images, intrinsics)`, and its training path, through
 `build_model` -> `train(cfg, batches, model)` with TPU.PALLAS_STEM_DW, with
 seeded random weights and seeded synthetic batches, and fails loudly
-(non-zero exit) if any phase fails. The four CUDA kernels are built first,
-one nvcc process each, all at once.
+(non-zero exit) if any phase fails. The four CUDA sources (five kernels:
+NMS is two) are built first, one nvcc process each, all at once.
 
-1. build the greedy-NMS CUDA kernel (dd3d_tpu_torch/csrc/nms.cu) and hold its
-   keep masks against the plain PyTorch version on the card, exactly;
+1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
+   against the plain PyTorch version on the card, exactly, at N from 1 to
+   2048 and on the edge cases of tests/test_torch_cuda.py;
 2. serve 4 batches of 8 uint8 384x1280 images with KITTI intrinsics, and
    check the NMS input, the kernel's launch count, shapes and finiteness;
+   the NMS inputs of the first batch are kept for phase 5;
 3. decode the same batch with the plain suppression on the card: the
    detections must be identical;
 4. fp32 on the card (TF32 off) against fp32 on the CPU, on a small batch;
-5. timing: images/s of phase 2 and the NMS kernel against the plain version
-   and its bound, from the IoU tests that this data needs;
+5. timing: images/s of phase 2, and the NMS kernels' device time a call
+   (profiler) and CUDA-event time against the plain version and the bound
+   from the IoU tests that this data needs, on random boxes and on phase
+   2's serving inputs;
 6. the int8 quantize kernel (csrc/quantize.cu) against its plain version,
    exactly: the serving shape, ragged shapes, .5 ties, the clip, dynamic and
    static scales;
@@ -61,6 +65,7 @@ Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -144,10 +149,35 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def card_tests():
+    """tests/test_torch_cuda.py of this checkout, loaded by its path (an
+    installed package may also be named `tests`)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_cuda.py")
+    spec = importlib.util.spec_from_file_location("card_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+NMS_SIZES = (1, 63, 64, 65, 300, 2048)  # N of the extra random cases: the word edges, ragged, the maximum
+NMS_EDGE_SIZES = (65, 300, 2048)
+NMS_SWEEP = (64, 128, 256, 512, 1024, 2048)  # N of phase 5's device-time sweep, at batch BATCH
+
+
 def phase1_kernel(device):
-    """Kernel vs plain keep masks on the card; returns (max_abs_err, (boxes, valid)) at the serving shape."""
+    """Kernel vs plain keep masks on the card: random boxes at the serving
+    shape and at every N of NMS_SIZES, and the edge cases of the card tests
+    (tests/test_torch_cuda.py::nms_edge_case: ties at the threshold, chains
+    across words, invalid boxes in a chain, identical and zero-area boxes,
+    nothing valid), which must also give their known keep masks. Returns
+    (max_abs_err, (boxes, valid)) at the serving shape."""
     from dd3d_tpu_torch.ops.nms import batched_nms_padded
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+
+    cases_module = card_tests()
+    NMS_EDGE_CASES, nms_edge_case = cases_module.NMS_EDGE_CASES, cases_module.nms_edge_case
 
     gen = torch.Generator().manual_seed(SEED)
     t0 = time.time()
@@ -155,18 +185,18 @@ def phase1_kernel(device):
     b, n = NMS_SHAPE
     serving = random_sorted_boxes(gen, b, n, device)
     for thr in (0.75, 0.5):
-        cases.append((f"random B={b} N={n} thr={thr}", serving[0], serving[1], thr))
-    boxes, valid = random_sorted_boxes(gen, 3, 300, device)  # N not a multiple of 128
-    cases.append(("random B=3 N=300 thr=0.6", boxes, valid, 0.6))
-    cases.append(("all invalid", boxes, torch.zeros_like(valid), 0.5))
-    same = torch.tensor([10.0, 10.0, 50.0, 40.0], device=device).expand(2, 64, 4).contiguous()
-    cases.append(("identical boxes", same, torch.ones(2, 64, dtype=torch.bool, device=device), 0.5))
-    zero_area = boxes.clone()
-    zero_area[..., 2] = zero_area[..., 0]
-    cases.append(("zero-area boxes", zero_area, valid, 0.5))
+        cases.append((f"random B={b} N={n} thr={thr}", serving[0], serving[1], thr, None))
+    for size in NMS_SIZES:
+        boxes, valid = random_sorted_boxes(gen, 3, size, device)
+        cases.append((f"random B=3 N={size} thr=0.6", boxes, valid, 0.6, None))
+    for name in NMS_EDGE_CASES:
+        for size in NMS_EDGE_SIZES:
+            boxes, valid, want = nms_edge_case(name, size)
+            cases.append((f"{name} B=2 N={size} thr=0.5", torch.from_numpy(boxes).to(device),
+                          torch.from_numpy(valid).to(device), 0.5, torch.from_numpy(want).to(device)))
 
     max_err = 0
-    for name, bx, vd, thr in cases:
+    for name, bx, vd, thr, want in cases:
         keep_k = greedy_nms(bx, vd, thr)
         torch.cuda.synchronize()
         keep_p = greedy_nms_plain(bx, vd, thr)
@@ -176,10 +206,8 @@ def phase1_kernel(device):
             f"max |kernel - plain| = {err} (tolerance 0: keep masks must be equal)")
         if err:
             raise AssertionError(f"phase1 {name}: kernel and plain keep masks differ")
-        if name == "identical boxes" and keep_k.sum(1).tolist() != [1, 1]:
-            raise AssertionError("identical boxes: exactly the first must survive")
-        if name == "all invalid" and keep_k.any():
-            raise AssertionError("all invalid: nothing may be kept")
+        if want is not None and not torch.equal(keep_k, want):
+            raise AssertionError(f"phase1 {name}: the keep mask is not the greedy walk's known answer")
 
     # several classes: the class-offset trick in front of the kernel
     bx, vd = serving
@@ -207,12 +235,13 @@ def phase2_serve(cfg, model, images, intrinsics):
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
 
-    candidates, survivors = [], []
+    candidates, survivors, inputs = [], [], []
 
     def counting_suppress(boxes, valid, thr):
         keep = greedy_nms(boxes, valid, thr)
         candidates.append(valid.sum(dim=1).cpu())
         survivors.append(keep.sum(dim=1).cpu())
+        inputs.append((boxes.clone(), valid.clone()))
         return keep
 
     infer = get_inference_fn(model, cfg, suppress=counting_suppress)
@@ -238,7 +267,7 @@ def phase2_serve(cfg, model, images, intrinsics):
         raise AssertionError("phase2: NMS suppressed nothing; the check would be trivial")
     log(f"phase2 ok: {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, NMS kernel launches {launches} "
         f"({time.time() - t0:.2f} s incl. first-call set-up)")
-    return launches
+    return launches, inputs[0]
 
 
 def phase3_plain_path(cfg, model, images, intrinsics):
@@ -326,32 +355,67 @@ def nms_bound(boxes, valid, thr):
     return ms, by, pairs, alive
 
 
-def phase5_timing(cfg, model, images, intrinsics, serving_nms):
-    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+def nms_times(bx, vd, thr, prof):
+    """(profiler device ms a call, summed over both kernels; CUDA-event ms a
+    call over 200 calls, which time the wrapper's host side when it is the
+    slower; plain CUDA-event ms), in turns: plain, kernel, kernel, plain."""
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+
+    for _ in range(3):
+        greedy_nms(bx, vd, thr)
+        greedy_nms_plain(bx, vd, thr)
+    plain_a = cuda_ms(lambda: greedy_nms_plain(bx, vd, thr), 20)
+    dev_a = device_ms(lambda: greedy_nms(bx, vd, thr), 50, prof)
+    ev_a = cuda_ms(lambda: greedy_nms(bx, vd, thr), 200)
+    ev_b = cuda_ms(lambda: greedy_nms(bx, vd, thr), 200)
+    dev_b = device_ms(lambda: greedy_nms(bx, vd, thr), 50, prof)
+    plain_b = cuda_ms(lambda: greedy_nms_plain(bx, vd, thr), 20)
+    return (dev_a, dev_b), (ev_a, ev_b), (plain_a, plain_b)
+
+
+def phase5_timing(cfg, model, images, intrinsics, nms_inputs):
+    """Serving images/s, and the NMS kernels on each of `nms_inputs` ({name:
+    (boxes, valid)}): device time (profiler) and CUDA-event time against the
+    plain version, the bound from the IoU tests the greedy walk needs on
+    that data, and the pairs the mask kernel tests (every j > i). Returns
+    (images/s, {name: (device ms, plain ms, bound ms, bound_by)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
 
     med, p25, p75 = serving_ms(get_inference_fn(model, cfg), images, intrinsics)
     log(f"phase5 serving: batch {BATCH} {HEIGHT}x{WIDTH} bf16, median {med:.3f} ms/batch over "
         f"{3 * len(images)} batches (p25 {p25:.3f}, p75 {p75:.3f}) = {BATCH / med * 1e3:.1f} images/s, "
         f"input already on the card")
 
-    bx, vd = serving_nms
     thr = cfg.DD3D.FCOS2D.INFERENCE.NMS_THRESH
-    for _ in range(3):
-        greedy_nms(bx, vd, thr)
-        greedy_nms_plain(bx, vd, thr)
-    plain_a = cuda_ms(lambda: greedy_nms_plain(bx, vd, thr), 20)
-    kern_a = cuda_ms(lambda: greedy_nms(bx, vd, thr), 200)
-    kern_b = cuda_ms(lambda: greedy_nms(bx, vd, thr), 200)
-    plain_b = cuda_ms(lambda: greedy_nms_plain(bx, vd, thr), 20)
-    kern_ms, plain_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
-    bound, bound_by, pairs, keep = nms_bound(bx, vd, thr)
-    if not torch.equal(keep, greedy_nms(bx, vd, thr).cpu()):
-        raise AssertionError("phase5: the pair-counting walk and the kernel keep different boxes")
-    log(f"phase5 nms at (B, N) = {NMS_SHAPE}, thr {thr}: kernel {kern_a:.4f} / {kern_b:.4f} ms, "
-        f"plain {plain_a:.4f} / {plain_b:.4f} ms (plain, kernel, kernel, plain); {pairs} IoU tests on this "
-        f"data: bound {bound:.6f} ms by {bound_by} ({bound / kern_ms:.2e} of the kernel's time)")
-    return BATCH / med * 1e3, (kern_ms, plain_ms, bound, bound_by)
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    out = {}
+    for name, (bx, vd) in nms_inputs.items():
+        dev, ev, plain = nms_times(bx, vd, thr, prof)
+        dev_ms, plain_ms = float(np.mean(dev)), float(np.mean(plain))
+        bound, bound_by, pairs, keep = nms_bound(bx, vd, thr)
+        if not torch.equal(keep, greedy_nms(bx, vd, thr).cpu()):
+            raise AssertionError(f"phase5 {name}: the pair-counting walk and the kernel keep different boxes")
+        b, n = vd.shape
+        log(f"phase5 nms {name} (B, N) = ({b}, {n}), thr {thr}: kernels' device time {dev[0]:.4f} / {dev[1]:.4f} "
+            f"ms a call (profiler, mask + scan), CUDA events {ev[0]:.4f} / {ev[1]:.4f} ms a call, plain "
+            f"{plain[0]:.4f} / {plain[1]:.4f} ms (plain, kernel, kernel, plain); {pairs} IoU tests on this data: "
+            f"bound {bound:.6f} ms by {bound_by} ({bound / dev_ms:.2e} of the device time); the mask kernel "
+            f"tests all {b * n * (n - 1) // 2} pairs j > i; the scan's serial chain of {n} rows an image is a "
+            f"latency floor that no roofline counts")
+        out[name] = (dev_ms, plain_ms, bound, bound_by)
+
+    # how each kernel's device time grows with N: the mask with the pairs
+    # (N^2 / 2), the scan with the rows of its serial chain (N)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    for n in NMS_SWEEP:
+        bx, vd = random_sorted_boxes(gen, BATCH, n, bx.device)
+        by_kernel = device_ms_by_kernel(lambda: greedy_nms(bx, vd, thr), 50, prof)
+        log(f"phase5 nms sweep (B, N) = ({BATCH}, {n}): device time a call " + ", ".join(
+            f"{k.split('::')[-1].split('(')[0]} {v * 1e3:.2f} us" for k, v in sorted(by_kernel.items())))
+    return BATCH / med * 1e3, out
 
 
 QUANT_SHAPE = (8, 48, 160, 256)  # a P3 tower-conv input of the serving path, NHWC
@@ -573,21 +637,26 @@ def cudnn_bf16_conv(xq, wq, stride, pad):
     return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad)
 
 
-def device_ms(fn, reps, profiler):
-    """Device time of one call of `fn`, from one profiler window over `reps`
-    calls: every kernel in the window is charged to `fn` (a wrapper's own
-    copies too), and the host's launch overhead does not inflate it (at a
-    small shape the wrapper's host time exceeds the kernel's, so CUDA events
-    around a loop of calls would time the host)."""
+def device_ms_by_kernel(fn, reps, profiler):
+    """{kernel name: device ms a call of `fn`}, from one profiler window over
+    `reps` calls (after one call outside it)."""
     fn()
     torch.cuda.synchronize()
     with profiler() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    return us / 1e3 / reps
+    return {e.key: (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+
+
+def device_ms(fn, reps, profiler):
+    """Device time of one call of `fn`, from one profiler window over `reps`
+    calls: every kernel in the window is charged to `fn` (a wrapper's own
+    copies too), and the host's launch overhead does not inflate it (at a
+    small shape the wrapper's host time exceeds the kernel's, so CUDA events
+    around a loop of calls would time the host)."""
+    return sum(device_ms_by_kernel(fn, reps, profiler).values())
 
 
 def int8_conv_sites_timing(cases, min_ch):
@@ -1023,19 +1092,20 @@ def main():
     build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu")  # one nvcc each, all at once
     log(f"kernels built in {time.time() - t0:.2f} s")
 
-    nms_err, serving_nms = phase1_kernel(device)
+    nms_err, random_nms = phase1_kernel(device)
     torch.cuda.synchronize()
 
     cfg = get_experiment_cfg("dd3d_kitti_dla34")  # bf16 serving config
     model = build(cfg, device)
     images, intrinsics = make_batches(device)
-    bf16_nms_launches = phase2_serve(cfg, model, images, intrinsics)
+    bf16_nms_launches, serving_nms = phase2_serve(cfg, model, images, intrinsics)
     torch.cuda.synchronize()
     phase3_plain_path(cfg, model, images, intrinsics)
     torch.cuda.synchronize()
     phase4_fp32(get_experiment_cfg("dd3d_kitti_dla34"), device)
     torch.cuda.synchronize()
-    imgs_per_s, nms_t = phase5_timing(cfg, model, images, intrinsics, serving_nms)
+    imgs_per_s, nms_t = phase5_timing(cfg, model, images, intrinsics,
+                                      {"random boxes": random_nms, "serving inputs": serving_nms})
     torch.cuda.synchronize()
 
     quant_err, quant_case = phase6_quantize(device)
@@ -1062,14 +1132,15 @@ def main():
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
     log(f"timing on {card}: bf16 {imgs_per_s:.1f} images/s (phase 5); phase 9 in turns: static int8 "
         f"{int8_ips:.1f} images/s, bf16 {bf16_ips:.1f} images/s (batch {BATCH}, {HEIGHT}x{WIDTH}); "
-        f"NMS kernel {nms_t[0]:.4f} ms vs plain {nms_t[1]:.4f} ms at {NMS_SHAPE}; NMS launches on the bf16 "
-        f"path {bf16_nms_launches}")
+        f"NMS kernels' device time {nms_t['random boxes'][0]:.4f} ms vs plain {nms_t['random boxes'][1]:.4f} ms "
+        f"at {NMS_SHAPE} on random boxes, {nms_t['serving inputs'][0]:.4f} ms on the serving inputs; NMS "
+        f"launches on the bf16 path {bf16_nms_launches}")
     log(f"timing on {card}: train step at batch {BATCH}, {HEIGHT}x{WIDTH}, bf16: "
         f"{np.mean(train_ms['kernel']):.2f} ms with the dW kernel, {np.mean(train_ms['plain']):.2f} ms with the "
         f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7][0]:.4f} ms vs plain {dw_ms[7][1]:.4f} ms and "
         f"cuDNN {dw_ms[7][4]:.4f} ms at the 7x7 stem conv, {dw_ms[3][0]:.4f} ms vs cuDNN {dw_ms[3][4]:.4f} ms at "
         f"level0")
-    timed = {"greedy_nms": (*nms_t, None), "quantize_int8": kernel_ms["quantize_int8"],
+    timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
              "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              nms_err),

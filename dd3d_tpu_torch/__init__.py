@@ -4,8 +4,9 @@ The JAX package `dd3d_tpu` is the reference this port is held against
 (tests/test_torch_*.py). Module names mirror it: `dd3d_tpu/models/fcos2d.py`
 has its counterpart at `dd3d_tpu_torch/models/fcos2d.py`.
 
-This package imports torch and never jax or flax. It reads the JAX package's
-config tree (`dd3d_tpu.configs`, plain Python) through `dd3d_tpu_torch.configs`.
+This package imports torch and never jax, flax or anything of the JAX
+package: it keeps its own copy of the config tree (`dd3d_tpu_torch.configs`)
+and of the inference data path (`dd3d_tpu_torch.data`).
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
 
 `greedy_nms` takes score-sorted, class-offset boxes (B, N, 4) f32 and valid
 (B, N) bool, and returns the keep mask (B, N) bool:
-- for CUDA tensors it launches the kernel (or raises: there is no fallback);
+- for CUDA tensors it launches the kernels (or raises: there is no
+  fallback): the suppression-bitmask kernel into a (B, N, ceil(N/64)) int64
+  scratch from `torch.empty`, then the scan kernel, one warp an image;
 - for CPU tensors it runs the plain PyTorch version, `greedy_nms_plain`,
   which the CPU tests and chip_smoke.py hold the kernel against.
 """
@@ -30,8 +32,8 @@ def _library():
         lib = load_library("nms.cu")
         lib.dd3d_nms_max_n.argtypes = []
         lib.dd3d_nms_max_n.restype = ctypes.c_int
-        lib.dd3d_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.dd3d_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.dd3d_nms_keep.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -39,7 +41,8 @@ def _library():
 
 def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Keep mask (B, N) of exact greedy NMS; see the module docstring.
-    `greedy_nms.launches` counts kernel launches."""
+    `greedy_nms.launches` counts the calls that launched the kernels: one a
+    call, though a call launches two kernels (mask, then scan)."""
     if boxes.ndim != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"need boxes (B, N, 4) and valid (B, N); got {tuple(boxes.shape)}, {tuple(valid.shape)}")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -57,9 +60,10 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -
     if n > lib.dd3d_nms_max_n():
         raise ValueError(f"N={n} exceeds the kernel's maximum {lib.dd3d_nms_max_n()}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    mask = torch.empty((b, n, -(-n // 64)), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.dd3d_nms_keep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, n,
+        err = lib.dd3d_nms_keep(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), b, n,
                                 float(iou_threshold), stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")

@@ -8,10 +8,11 @@ With `TPU.QUANT_INT8=True TPU.QUANT_MIN_CH=32 TPU.QUANT_UNFOLDED=True
 TPU.QUANT_SCALES_PATH=scales.json` (from `python -m
 dd3d_tpu_torch.calibrate_int8`) it serves the static-int8 configuration.
 
-Counterpart of scripts/predict.py: images go through the JAX package's host
-mapper and collate (numpy + cv2, ResizeShortestEdge at
-INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to the
-backbone's size divisibility), then through the port's model and decode.
+Counterpart of scripts/predict.py: images go through the port's copy of the
+JAX package's inference mapper and collate (`dd3d_tpu_torch/data/`: numpy,
+cv2 and PIL, ResizeShortestEdge at INPUT.RESIZE.MIN_SIZE_TEST, intrinsics
+rescaled, canvas padded to the backbone's size divisibility), then through
+the port's model and decode.
 `--ckpt` is a reference-named `.pth` state dict; without it the weights are
 random, drawn from `--seed`. Detections are written in original image
 coordinates. Visualization (`--vis`) is not ported yet.
@@ -84,14 +85,14 @@ def read_image_dicts(files, intrinsics):
 
 
 def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
-    """(chunk, batch, meta) per `batch_size` dicts, through the JAX package's
-    host mapper and collate: ResizeShortestEdge at INPUT.RESIZE.MIN_SIZE_TEST,
-    intrinsics rescaled, canvas padded to `size_divisibility`."""
-    from dd3d_tpu.data.augmentations import build_augmentation
-    from dd3d_tpu.data.mapper import DatasetMapper, collate_batch
+    """(chunk, batch, meta) per `batch_size` dicts, through the inference
+    mapper and collate (data/mapper.py): ResizeShortestEdge at
+    INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to
+    `size_divisibility`."""
+    from dd3d_tpu_torch.data.augmentations import build_test_resize
+    from dd3d_tpu_torch.data.mapper import DatasetMapper, collate_batch
 
-    mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False,
-                           box3d_on=bool(cfg.MODEL.BOX3D_ON))
+    mapper = DatasetMapper(build_test_resize(cfg))
     rng = np.random.RandomState(0)
     for i in range(0, len(dicts), batch_size):
         chunk = dicts[i: i + batch_size]

@@ -28,7 +28,60 @@ def _random_boxes(rng, b, n):
     return boxes, rng.rand(b, n) > 0.1
 
 
-@pytest.mark.parametrize("b,n", [(8, 512), (3, 300), (1, 2048)])
+NMS_EDGE_CASES = ("tie", "chain", "chain-invalid", "identical", "zero-area", "all-invalid")
+
+
+def nms_edge_case(name, n):
+    """(boxes (2, n, 4) f32, valid (2, n) bool, keep the greedy walk must give
+    or None) of an NMS edge case at threshold 0.5, for any n >= 1:
+    - tie: pairs [10p, 0, 10p+2, 1], [10p, 0, 10p+1, 1] at IoU exactly 0.5,
+      which does not suppress (the test is strict): every box is kept;
+    - chain: [3k, 0, 3k+10, 1], IoU 7/13 with the next box, 4/16 with the one
+      after: k suppresses k+1, which then cannot suppress k+2, so the even
+      boxes are kept, across every 64-box word;
+    - chain-invalid: the chain with boxes invalid in its middle, each of
+      which flips the parity of the kept boxes after it;
+    - identical: one box n times (in image 1 the first one invalid): only
+      the first valid one is kept;
+    - zero-area: IoU 0 everywhere: every valid box is kept;
+    - all-invalid: nothing is kept."""
+    k = np.arange(n)
+    ones = np.ones((2, n), bool)
+    if name == "tie":
+        x0 = (10 * (k // 2)).astype(np.float32)
+        box = np.stack([x0, 0 * x0, x0 + np.where(k % 2 == 0, 2, 1), 0 * x0 + 1], -1).astype(np.float32)
+        return np.stack([box, box]), ones, ones
+    if name in ("chain", "chain-invalid"):
+        box = np.stack([3 * k, 0 * k, 3 * k + 10, 0 * k + 1], -1).astype(np.float32)
+        valid = ones.copy()
+        if name == "chain-invalid":
+            valid[0, k % 63 == 4] = valid[1, k % 50 == 8] = False
+        keep = np.zeros((2, n), bool)
+        for img in range(2):
+            last = -2  # the chain: k is kept unless k-1 is its kept, valid neighbour
+            for i in range(n):
+                keep[img, i] = valid[img, i] and last != i - 1
+                last = i if keep[img, i] else last
+        return np.stack([box, box]), valid, keep
+    rng = np.random.RandomState(n)
+    if name == "identical":
+        valid = ones.copy()
+        valid[1, 0] = False
+        keep = np.zeros((2, n), bool)
+        keep[0, 0] = True
+        if n > 1:
+            keep[1, 1] = True
+        return np.broadcast_to(np.array([10, 10, 50, 40], np.float32), (2, n, 4)).copy(), valid, keep
+    boxes, valid = _random_boxes(rng, 2, n)
+    if name == "zero-area":
+        boxes[..., 2] = boxes[..., 0]
+        return boxes, valid, valid
+    if name == "all-invalid":
+        return boxes, ~ones, ~ones
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("b,n", [(8, 512), (3, 300), (1, 1), (2, 63), (2, 64), (2, 65), (1, 2048)])
 def test_kernel_matches_plain(card, b, n):
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 
@@ -39,6 +92,21 @@ def test_kernel_matches_plain(card, b, n):
         keep = greedy_nms(bt, vt, thr)
         assert greedy_nms.launches == before + 1
         assert torch.equal(keep, greedy_nms_plain(bt, vt, thr))
+
+
+@pytest.mark.parametrize("n", [1, 65, 300, 2048])
+@pytest.mark.parametrize("name", NMS_EDGE_CASES)
+def test_kernel_edge_cases(card, name, n):
+    """Exact keep masks against the plain version and the greedy walk's
+    known answer: ties at the threshold, chains across words, invalid boxes
+    in a chain, identical and zero-area boxes, nothing valid."""
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+
+    boxes, valid, want = nms_edge_case(name, n)
+    bt, vt = torch.from_numpy(boxes).to(card), torch.from_numpy(valid).to(card)
+    keep = greedy_nms(bt, vt, 0.5)
+    assert torch.equal(keep, greedy_nms_plain(bt, vt, 0.5))
+    np.testing.assert_array_equal(keep.cpu().numpy(), want)
 
 
 def test_kernel_rejects_too_many_boxes(card):

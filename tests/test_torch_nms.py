@@ -14,6 +14,8 @@ from dd3d_tpu.ops.pallas_nms import pallas_greedy_nms_batched
 from dd3d_tpu_torch.ops import nms as pnms
 from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 
+from tests.test_torch_cuda import nms_edge_case
+
 
 def _random_boxes(rng, b, n):
     boxes = rng.rand(b, n, 4).astype(np.float32) * 200
@@ -38,11 +40,17 @@ def _case(name):
     if name == "n512":
         boxes, valid = _random_boxes(rng, 2, 512)
         return boxes, valid, 0.6
+    if name in ("tie", "chain", "chain-invalid"):
+        # the card tests' edge cases (tests/test_torch_cuda.py), at N = 256
+        return nms_edge_case(name, 256)[:2] + (0.5,)
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name", ["random-0.5", "random-0.75", "all-invalid", "identical", "n512"])
+@pytest.mark.parametrize("name", ["random-0.5", "random-0.75", "all-invalid", "identical", "n512", "tie", "chain",
+                                  "chain-invalid"])
 def test_suppression_matches_jax_and_pallas(name):
+    """Also the card tests' tie and chain inputs, so that the plain version,
+    which the card holds the kernel to, is held to JAX on exactly those."""
     boxes, valid, thr = _case(name)
     keep_port = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), thr).numpy()
     keep_pallas = np.asarray(pallas_greedy_nms_batched(jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True))
@@ -55,6 +63,8 @@ def test_suppression_matches_jax_and_pallas(name):
         assert keep_port.sum(axis=1).tolist() == [1, 1] and keep_port[1, 1]
     if name == "all-invalid":
         assert not keep_port.any()
+    if name in ("tie", "chain", "chain-invalid"):
+        np.testing.assert_array_equal(keep_port, nms_edge_case(name, 256)[2])
 
 
 def test_pairwise_iou_bits_match_jax(rng):

@@ -71,12 +71,59 @@ def test_unpack_detections(detections):
     assert rows[1]["boxes3d_vec"].shape == (valid[1].sum(), 10)
 
 
-def test_port_runs_without_jax():
+@pytest.mark.parametrize("min_size,max_size", [(384, 100000), ([96, 200], 100000), (256, 300)])
+def test_iter_batches_matches_jax_mapper(tmp_path, monkeypatch, min_size, max_size):
+    """Three PNGs at odd sizes (one portrait) through the port's
+    `iter_batches` (its own copy of the inference mapper and collate) and
+    through the JAX package's DatasetMapper + collate_batch with the native
+    decoder off (as tests/test_native_imageio.py does): byte-identical
+    batches (image, intrinsics, image size, canvas, the GT padding) and
+    meta. Cases: the test resize of dd3d_kitti_dla34, two sizes drawn from
+    the same seeded stream, and a longest edge clamped by MAX_SIZE_TEST."""
+    import cv2
+
+    from dd3d_tpu.data import native
+    from dd3d_tpu.data.augmentations import build_augmentation
+    from dd3d_tpu.data.mapper import DatasetMapper, collate_batch
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.predict import iter_batches, read_image_dicts
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", True)
+    assert not native.available()
+    rng = np.random.RandomState(3)
+    files = []
+    for i, (h, w) in enumerate([(100, 330), (77, 151), (203, 97)]):
+        files.append(str(tmp_path / f"{i:06d}.png"))
+        cv2.imwrite(files[-1], rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+    cfg = get_experiment_cfg("dd3d_kitti_dla34")
+    cfg.INPUT.RESIZE.MIN_SIZE_TEST, cfg.INPUT.RESIZE.MAX_SIZE_TEST = min_size, max_size
+    dicts = read_image_dicts(files, KITTI_K.astype(np.float64))
+
+    (chunk, batch, meta), = iter_batches(cfg, dicts, 3, 128)
+    mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False, box3d_on=True)
+    map_rng = np.random.RandomState(0)
+    want, want_meta = collate_batch([mapper(d, map_rng) for d in dicts], max_gt=1, size_divisibility=128)
+    assert chunk == dicts and list(batch) == list(want)
+    for k, v in want.items():
+        assert batch[k].dtype == v.dtype and batch[k].shape == v.shape, k
+        assert batch[k].tobytes() == v.tobytes(), k
+    assert meta == want_meta
+    assert batch["image_size"].max() > 100  # the images were resized
+
+
+def test_port_runs_without_jax(tmp_path):
     """Build the port's model and run bf16 inference, then calibrate and serve
     static int8 with bench.py's overrides, then take a bf16 train step through
-    `train` with the stem's weight gradient routed to its kernel, in a fresh
-    interpreter: no jax or flax module may be imported on the way (the GPU
-    machine has none)."""
+    `train` with the stem's weight gradient routed to its kernel, then map
+    and collate a PNG through `predict.iter_batches`, in a fresh interpreter:
+    no jax or flax module, and nothing of the JAX package `dd3d_tpu`, may be
+    imported on the way (the GPU machine has no jax; the port keeps its own
+    copy of what it needs)."""
+    import cv2
+
+    png = str(tmp_path / "frame.png")
+    cv2.imwrite(png, np.random.RandomState(0).randint(0, 256, (90, 250, 3), dtype=np.uint8))
     code = (
         "import sys, torch\n"
         "from dd3d_tpu_torch.configs import get_experiment_cfg\n"
@@ -103,7 +150,11 @@ def test_port_runs_without_jax():
         "batches = [synthetic_batch(np.random.RandomState(0), 1, 128, 128)]\n"
         "state = train(cfg, batches, model=model, device='cpu', max_iter=1, metric_hook=lambda i, m: seen.append(m))\n"
         "assert state.step == 1 and seen[0]['loss_finite'] == 1.0, seen\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "from dd3d_tpu_torch.predict import iter_batches, read_image_dicts\n"
+        f"dicts = read_image_dicts([{png!r}], np.eye(3))\n"
+        "(_, batch, meta), = iter_batches(cfg, dicts, 1, 128)\n"
+        "assert batch['image'].shape == (1, 384, 1152, 3) and batch['image_size'].tolist() == [[384, 1067]]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dd3d_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

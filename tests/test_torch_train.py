@@ -9,8 +9,9 @@
   clipped by value and by norm;
 - one whole train step, DLA-34 trunk + FPN 64 + 1-conv towers, 128x128,
   batch 2, color jitter, against `make_train_step`: losses, the BN
-  statistics, and the gradients and update of every parameter, each f32 side
-  held against the port's step in f64;
+  statistics, and the gradients and update of every parameter: the port's
+  per tensor against its own step in f64, JAX's against that step and
+  against the port's as flat vectors;
 - checkpoint save -> resume -> continue against an uninterrupted run.
 """
 import contextlib
@@ -236,6 +237,10 @@ def f64_train_step(cfg, state_dict, batch):
 
 @pytest.fixture(scope="module")
 def train_step_case():
+    return make_train_step_case()
+
+
+def make_train_step_case():
     cfg = small_cfg()
     # lr 1.0 from step 0: updates far above the rounding of f32 parameters
     cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS = 1.0, 0
@@ -247,7 +252,14 @@ def train_step_case():
 
     tx = optax.chain(capture_grads(), jax_build_optimizer(cfg, variables["params"]))
     state = TrainState.create(variables["params"], variables["batch_stats"], tx)
-    new_state, metrics_j = jax.jit(jax_make_train_step(cfg, jm))(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    # compiled here, for this host's CPU, not loaded from the persistent cache
+    cache_on = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        step_j = jax.jit(jax_make_train_step(cfg, jm))
+        new_state, metrics_j = step_j(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    finally:
+        jax.config.update("jax_enable_compilation_cache", cache_on)
 
     before = {k: v.clone() for k, v in pm.state_dict().items()}
     m64, grads64 = f64_train_step(cfg, before, batch)
@@ -272,36 +284,62 @@ def test_train_step_losses_match(train_step_case):
         np.testing.assert_allclose(mp[k], mj[k], rtol=2e-4, err_msg=k)
 
 
-def assert_close_per_tensor(got, jax, oracle):
-    """The port's f32 tensors (`got`) and JAX's (`jax`), each against the
-    port's f64 step (`oracle`). Per tensor, relative to its largest
-    magnitude in the oracle: JAX is within 1e-2 (3e-2 for P6/P7, 0.2 for
-    P7's conv) of the oracle, which holds the oracle's arithmetic to JAX's
-    tensor by tensor, and the port is no farther from the oracle than the
-    larger of 2x JAX's distance and 1e-2 (3e-2 for P6/P7). Port and JAX
-    directly: the flat vector within 1e-3 in L2.
-    Why an oracle: both sides are f32 through ~40 convs, ReLUs and
-    train-mode BN, summed in other orders, and JAX's rounding moves with the
-    host (XLA:CPU contracts products and sums into FMAs on some hosts), so
-    a direct per-tensor bound cannot tell that from a fault. P7 is 1x1 at
-    128x128, so each FCOS2D tower BN normalizes two values a channel, which
-    amplifies rounding into the P6/P7 weights; JAX's f32 step takes that
-    variance as E[x^2]-E[x]^2, which cancels there, and its gradient of P7's
-    conv weight lies 9.5e-2 from the oracle at this input (the port's, with
-    torch.var_mean, 1.7e-3), hence JAX's 0.2 there. A tensor's scale is
-    floored at 1e-6 of the largest value of all: the P7 bias gradient is
-    zero up to rounding, as train-mode BN cancels a uniform shift."""
+# Per-tensor bounds of the port's f32 step against its f64 step, relative to
+# the tensor's largest magnitude in the f64 step. Measured on the CPU at this
+# input (batch 2, 128x128; `python -m tests.test_torch_train` prints them):
+# the port's worst tensor lies 9.5e-4 from f64 (P7's conv weight), every
+# other within 6.6e-4 (a box3d_size predictor). The bounds keep a margin of
+# 7-10x over those: torch's CPU kernels sum in an order that may change with
+# the thread count and the CPU's vector width, not with XLA.
+PORT_BOUND = 5e-3
+PORT_BOUND_P67 = 1e-2  # P6, P7 and fpn_output5, which P6 and P7 read
+# JAX's f32 step against the same f64 step, per tensor: a sanity bound only.
+JAX_SANITY_BOUND = 0.5
+
+
+def distances_from_oracle(got, jax, oracle):
+    """{name: (port's, JAX's)} max |f32 - f64| of each tensor, relative to
+    its largest magnitude in the oracle (floored at 1e-6 of the largest value
+    of all)."""
     top = max(np.abs(w).max() for w in oracle.values())
+    out = {}
     for name, w in oracle.items():
         scale = max(np.abs(w).max(), 1e-6 * top)
-        bound = 3e-2 if name.startswith("backbone.top_block.") else 1e-2
-        jax_bound = 0.2 if name.startswith("backbone.top_block.p7.") else bound
-        err_port = np.abs(got[name] - w).max() / scale
-        err_jax = np.abs(jax[name] - w).max() / scale
-        assert err_jax <= jax_bound, f"{name}: JAX {err_jax:.3e} from the port's f64 step (bound {jax_bound:.0e})"
-        assert err_port <= max(2 * err_jax, bound), f"{name}: port {err_port:.3e}, JAX {err_jax:.3e} from f64"
+        out[name] = (np.abs(got[name] - w).max() / scale, np.abs(jax[name] - w).max() / scale)
+    return out
+
+
+def assert_close_per_tensor(got, jax, oracle):
+    """The port's f32 tensors (`got`) and JAX's (`jax`), each against the
+    port's f64 step (`oracle`), and against each other.
+
+    - The port against the oracle, per tensor, relative to the tensor's
+      largest magnitude in the oracle: within PORT_BOUND, PORT_BOUND_P67 for
+      P6, P7 and fpn_output5 (the measured distances and margins are beside
+      the constants). This is the test of the port's step.
+    - JAX against the oracle as one flat vector, within 1e-3 in L2: the
+      oracle computes JAX's step. Per tensor only the sanity bound
+      JAX_SANITY_BOUND: JAX's f32 rounding moves with the host (XLA:CPU
+      contracts products and sums into FMAs on some hosts), and its live BN
+      takes the variance as E[x^2]-E[x]^2 in f32, which cancels where a BN
+      normalizes few values a channel: P7 is 1x1 at 128x128 (two values a
+      channel), P6 2x2, and the P5-P7 path reaches fpn_output5. JAX's P7
+      conv weight gradient lies 9.5e-2 of its largest value from the oracle
+      on one host and 0.22 on another, P6's up to 5.7e-2, fpn_output5's
+      1.6e-2; every other tensor within 7.7e-3.
+    - The port against JAX as one flat vector, within 1e-3 in L2.
+    A tensor's scale is floored at 1e-6 of the largest value of all: the P7
+    bias gradient is zero up to rounding, as train-mode BN cancels a uniform
+    shift."""
+    for name, (err_port, err_jax) in distances_from_oracle(got, jax, oracle).items():
+        p67 = name.startswith(("backbone.top_block.", "backbone.fpn_output5."))
+        bound = PORT_BOUND_P67 if p67 else PORT_BOUND
+        assert err_port <= bound, f"{name}: port {err_port:.3e} from its f64 step (bound {bound:.0e})"
+        assert err_jax <= JAX_SANITY_BOUND, f"{name}: JAX {err_jax:.3e} from the port's f64 step"
+    flat_o = np.concatenate([oracle[n].ravel() for n in jax])
     flat_g = np.concatenate([got[n].ravel() for n in jax])
     flat_j = np.concatenate([w.ravel() for w in jax.values()])
+    assert np.linalg.norm(flat_j - flat_o) <= 1e-3 * np.linalg.norm(flat_o), "JAX's step is not the oracle's"
     assert np.linalg.norm(flat_g - flat_j) <= 1e-3 * np.linalg.norm(flat_j)
 
 
@@ -377,3 +415,32 @@ def test_unported_training_options_raise():
     cfg.SOLVER.ACCUMULATE_GRAD_BATCHES = 2
     with pytest.raises(NotImplementedError, match="ACCUMULATE"):
         popt.Optimizer(cfg, model)
+
+
+def report_distances():
+    """Print the distances the train-step bounds were set from:
+    `JAX_PLATFORMS=cpu python -m tests.test_torch_train` from the repo root."""
+    with torch_threads(4):
+        case = make_train_step_case()
+    pm, before, params_j = case["pm"], case["before"], case["params_j"]
+    names = [n for n, _ in pm.named_parameters()]
+    sides = {
+        "gradients": ({n: p.grad.numpy() for n, p in pm.named_parameters()},
+                      {n: g.numpy() for n, g in case["grads_j"].items()}, case["grads64"]),
+        "updates": ({n: (pm.get_parameter(n).detach() - before[n]).numpy() for n in names},
+                    {n: (params_j[n] - before[n]).numpy() for n in names}, case["updates64"]),
+    }
+    for what, (got, jax_side, oracle) in sides.items():
+        dist = distances_from_oracle(got, jax_side, oracle)
+        for side, i in (("port", 0), ("JAX", 1)):
+            worst = sorted(dist.items(), key=lambda kv: -kv[1][i])[:5]
+            print(f"{what}, {side} from f64, worst: " + ", ".join(f"{n} {d[i]:.2e}" for n, d in worst))
+        flat = {k: np.concatenate([v[n].ravel() for n in jax_side]) for k, v in
+                (("port", got), ("JAX", jax_side), ("f64", oracle))}
+        rel = lambda a, b: np.linalg.norm(flat[a] - flat[b]) / np.linalg.norm(flat[b])  # noqa: E731
+        print(f"{what}, flat L2: port-f64 {rel('port', 'f64'):.2e}, JAX-f64 {rel('JAX', 'f64'):.2e}, "
+              f"port-JAX {rel('port', 'JAX'):.2e}")
+
+
+if __name__ == "__main__":
+    report_distances()
