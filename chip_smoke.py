@@ -7,11 +7,14 @@ Drives the port's two serving paths for the dd3d_kitti_dla34 experiment
 (DLA-34 + FPN + FCOS2D/FCOS3D heads at full width, channels_last), bf16 and
 bench.py's static int8 (QUANT_MIN_CH=32, QUANT_UNFOLDED), through
 `build_model` -> [`prepare_static_scales`] -> `get_inference_fn` ->
-`infer(images, intrinsics)`, and its training path, through
+`infer(images, intrinsics)`, its training path, through
 `build_model` -> `train(cfg, batches, model)` with TPU.PALLAS_STEM_DW, with
-seeded random weights and seeded synthetic batches, and fails loudly
-(non-zero exit) if any phase fails. The four CUDA sources (five kernels:
-NMS is two) are built first, one nvcc process each, all at once.
+seeded random weights and seeded synthetic batches, and its training CLI
+on image files (`python -m dd3d_tpu_torch.train` under torch.distributed.run
+on the port's KITTI-format fixture), and fails loudly (non-zero exit) if any
+phase fails. The four CUDA sources (five kernels: NMS is two) and the host
+image code (csrc/imageio.cpp, g++) are built first, one compiler process
+each, all at once.
 
 1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
    against the plain PyTorch version on the card, exactly, at N from 1 to
@@ -42,8 +45,10 @@ NMS is two) are built first, one nvcc process each, all at once.
    summed as count x ms a forward;
 10. the stem weight-gradient kernel (csrc/conv_dw.cu) against its plain
     version on seeded bf16 inputs at the two stem shapes of the train step,
-    the TPU benchmark's two shapes and a ragged one: within 1e-5 of
-    sum|x*dy| of each output, and bit-identical over two launches;
+    the TPU benchmark's two shapes, a ragged one, and the two stem shapes
+    at the CLI's smallest and largest resize bucket (384x1024, 640x1920):
+    within 1e-5 of sum|x*dy| of each output, and bit-identical over two
+    launches;
 11. training: 4 steps through `train()` at batch 8, 384x1280, bf16, with the
     stem's weight gradient on the kernel: finite losses, 2 launches a step,
     the FCOS2D BN statistics moved and no FrozenBN buffer; the same 4 steps
@@ -53,7 +58,19 @@ NMS is two) are built first, one nvcc process each, all at once.
 13. timing: ms per train step and images/s with the kernel and with the
     plain dW in turns, peak memory, device busy share, and the dW kernel
     against its plain version, cuDNN's bf16 wgrad and its bound at the stem
-    shapes.
+    shapes;
+14. the training CLI on files: the port writes its KITTI-format fixture (8
+    images, dd3d_tpu_torch/overfit_smoke.py) and `python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    dd3d_tpu_torch.train +experiments=dd3d_kitti_dla34_overfit` trains 8
+    steps of batch 8 from it (NCCL, DDP, global SyncBN, the loader's resize
+    buckets, TPU.PALLAS_STEM_DW): exit 0, finite losses in metrics.jsonl, at
+    least two resize buckets, 2 dW launches a step counted in that process,
+    checkpoints at steps 4 and 8; then `train()` resumes from the run's
+    directory at step 8 for 2 more steps;
+15. timing: the train loader alone in images/s (thread path and process
+    pool), and the CLI's median step time with the loader against the same
+    steps on synthetic batches at the same resize bucket, in one process.
 
 Before the last line, the card's name and power limit and one JSON line of
 the four kernels: launches on the main path, error against the plain
@@ -63,11 +80,16 @@ that call's ms.
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
+
+`chip_smoke.py --cli-rank ARGS` and `--cli-timing ARGS` are phases 14 and 15
+inside the process that torch.distributed.run starts; they are not run by
+hand.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -746,6 +768,10 @@ def phase9_int8_timing(int8_cfg_static, bf16_cfg, model, images, intrinsics, qua
 # step, scripts/bench_pallas_dw.py's two shapes at batch 8, and a ragged one
 DW_SHAPES = [(BATCH, HEIGHT, WIDTH, 3, 16, 7), (BATCH, HEIGHT, WIDTH, 16, 16, 3), (BATCH, 192, 640, 12, 64, 5),
              (BATCH, 192, 640, 64, 64, 3), (3, 37, 53, 5, 7, 9)]
+# the stem convs at the CLI's smallest and largest resize bucket: KITTI's
+# 375x1242 frames resized to a short side of 288 and 576, padded to 128
+BUCKET_CANVASES = ((384, 1024), (640, 1920))
+DW_SHAPES += [(BATCH, h, w, ci, 16, k) for h, w in BUCKET_CANVASES for ci, k in ((3, 7), (16, 3))]
 DW_BOUND = 1e-5
 
 
@@ -768,7 +794,8 @@ def phase10_conv_dw(device):
     within DW_BOUND * sum|x*dy| of that output (f32 sums of up to 3.9 M
     exact bf16 products in other orders), and two launches bit-identical.
     Returns (max |kernel - plain| at the stem shapes, [(x, dy, k)] of the
-    two stem shapes for timing)."""
+    two stem convs at 384x1280 and at the two bucket canvases, for
+    timing)."""
     from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same, conv_dw_s1_same_plain
 
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -792,6 +819,7 @@ def phase10_conv_dw(device):
             raise AssertionError(f"phase10 {(b, h, w, ci, co, k)}: kernel and plain differ beyond the bound")
         if (h, w) == (HEIGHT, WIDTH):
             max_err = max(max_err, err)
+        if b == BATCH and (h, w) in ((HEIGHT, WIDTH), *BUCKET_CANVASES):
             stem.append((x, dy, k))
     log(f"phase10 ok: worst error {worst:.3e} of sum|x*dy| ({time.time() - t0:.2f} s incl. the kernel build)")
     return max_err, stem
@@ -1059,7 +1087,7 @@ def phase13_train_timing(device, stem_cases):
     for t, name in sorted(device_us, reverse=True)[:15]:
         log(f"phase13   {t / 1e3 / len(batches):9.3f} ms/step  {name[:110]}")
 
-    kernel_ms = {}
+    kernel_ms = {}  # (k, H, W) -> (kernel, plain, bound, bound_by, cuDNN)
     for x, dy, k in stem_cases:
         co, ci = dy.shape[1], x.shape[1]
         kern = lambda: conv_dw_s1_same(x, dy, k)  # noqa: E731
@@ -1071,14 +1099,239 @@ def phase13_train_timing(device, stem_cases):
         flop = 2 * x.numel() * co * k * k
         # x and dy (bf16) read, dW (f32) written; bf16 products on the tensor cores
         bnd, by = bound_ms((x.numel() + dy.numel()) * x.element_size() + 4 * co * ci * k * k, flop, "bf16")
-        kernel_ms[k] = ((k_a + k_b) / 2, (p_a + p_b) / 2, bnd, by, (c_a + c_b) / 2)
+        key = (k, *x.shape[2:])
+        kernel_ms[key] = ((k_a + k_b) / 2, (p_a + p_b) / 2, bnd, by, (c_a + c_b) / 2)
         log(f"phase13 dW x {tuple(x.shape)} k={k} -> CO={co} ({flop / 1e9:.1f} GFLOP): kernel {k_a:.4f} / {k_b:.4f} "
-            f"ms ({flop / 1e9 / kernel_ms[k][0]:.1f} TFLOP/s), plain {p_a:.4f} / {p_b:.4f} ms, cuDNN bf16 wgrad "
-            f"{c_a:.4f} / {c_b:.4f} ms; bound {bnd:.4f} ms by {by}, {bnd / kernel_ms[k][0]:.2f} of the kernel's time")
+            f"ms ({flop / 1e9 / kernel_ms[key][0]:.1f} TFLOP/s), plain {p_a:.4f} / {p_b:.4f} ms, cuDNN bf16 wgrad "
+            f"{c_a:.4f} / {c_b:.4f} ms; bound {bnd:.4f} ms by {by}, {bnd / kernel_ms[key][0]:.2f} of the kernel's time")
     return ms, peak, kernel_ms
 
 
+CLI_STEPS = 8
+TIMING_STEPS = 12
+TIMING_BUCKET = 384  # KITTI frames at short side 384: a 384x1280 canvas, phase 13's shape
+
+
+def cli_overrides(root, out_root, max_iter, *extra):
+    """The CLI's arguments: dd3d_kitti_dla34_overfit at full width from the
+    fixture, the stem dW on the kernel, checkpoints every 4 steps, no
+    evaluation or visualization (not ported)."""
+    return ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}", f"OUTPUT_ROOT={out_root}",
+            "TPU.PALLAS_STEM_DW=True", f"SOLVER.MAX_ITER={max_iter}", "SOLVER.CHECKPOINT_PERIOD=4",
+            "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", *extra]
+
+
+def recording_train_steps(steps):
+    """Stand a wrapper in for the train loop's make_train_step that appends,
+    for each step, (the host clock at its call, its image shape, its total
+    loss). Reading the loss waits for the step, so the clock's differences
+    are whole steps, the wait for the batch included."""
+    import dd3d_tpu_torch.training.train_loop as train_loop
+
+    real = train_loop.make_train_step
+
+    def make(cfg, model, optimizer):
+        step = real(cfg, model, optimizer)
+
+        def recorded(batch):
+            t = time.perf_counter()
+            metrics = step(batch)
+            steps.append((t, list(batch["image"].shape), float(metrics["total_loss"])))
+            return metrics
+        return recorded
+
+    train_loop.make_train_step = make
+
+
+def step_ms(steps):
+    """ms of each recorded step but the last, from the clock's differences."""
+    return [(b[0] - a[0]) * 1e3 for a, b in zip(steps, steps[1:])]
+
+
+def cli_rank(argv):
+    """Phase 14 inside torch.distributed.run: the CLI's main with the dW
+    kernel's launch count and SyncBN's all-reduce count set to 0 just before
+    and read just after, printed as one CLI_RESULT JSON line."""
+    from dd3d_tpu_torch.models.layers import sync_batch_moments
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.train import main as train_main
+
+    steps = []
+    recording_train_steps(steps)
+    conv_dw.conv_dw_s1_same.launches = 0
+    sync_batch_moments.calls = 0
+    out_dir = train_main(argv)
+    torch.cuda.synchronize()
+    print("CLI_RESULT " + json.dumps({"output_dir": out_dir, "dw_launches": conv_dw.conv_dw_s1_same.launches,
+                                      "syncbn_forward_allreduces": sync_batch_moments.calls,
+                                      "shapes": [s[1] for s in steps], "losses": [s[2] for s in steps],
+                                      "step_ms": step_ms(steps)}), flush=True)
+
+
+def cli_timing(argv):
+    """Phase 15 inside torch.distributed.run, in one process group (NCCL,
+    DDP): `train()` on synthetic batches of the bucket's shape, then the
+    CLI's main at that one resize bucket (main leaves the group at its
+    end); each step's time includes the wait for its batch."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.data.augmentations import resize_shortest_edge_dims
+    from dd3d_tpu_torch.data.mapper import pad_to_divisibility
+    from dd3d_tpu_torch.train import main as train_main
+    from dd3d_tpu_torch.training.train_loop import train
+    from dd3d_tpu_torch.utils import comm
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34_overfit")
+    cfg.TPU.PALLAS_STEM_DW = True
+    device = comm.resolve_device()
+    comm.init_distributed(device)
+    h, w = pad_to_divisibility(*resize_shortest_edge_dims(375, 1242, TIMING_BUCKET, 10000), 128)
+    batches = train_batches(cfg, 4, BATCH, h, w, SEED + 10)
+    steps = []
+    recording_train_steps(steps)
+    train(cfg, [batches[i % 4] for i in range(TIMING_STEPS)], model=build_train_model(cfg, "cpu"),
+          device=device, max_iter=TIMING_STEPS)
+    synthetic = steps[:]
+    train_main(argv)
+    loader = steps[len(synthetic):]
+    print("CLI_RESULT " + json.dumps({"loader_ms": step_ms(loader), "synthetic_ms": step_ms(synthetic),
+                                      "shapes": [s[1] for s in loader], "synthetic_shape": [h, w]}), flush=True)
+
+
+def run_cli(mode, args, timeout_s=600):
+    """`chip_smoke.py <mode> args` under torch.distributed.run on one card;
+    returns the parsed CLI_RESULT line. The child's log tail is printed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           os.path.abspath(__file__), mode, *args]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s)
+    for line in (proc.stdout + proc.stderr).splitlines()[-12:]:
+        log(f"  | {line[:220]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{mode}: the CLI exited {proc.returncode}")
+    result = [line for line in proc.stdout.splitlines() if line.startswith("CLI_RESULT ")]
+    if len(result) != 1:
+        raise AssertionError(f"{mode}: no CLI_RESULT line")
+    out = json.loads(result[0][len("CLI_RESULT "):])
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def loader_cfg(root, **overrides):
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34_overfit")
+    cfg.DATASET_ROOT = root
+    for key, value in overrides.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node[part]
+        node[leaf] = value
+    return cfg
+
+
+def phase14_cli(tmp):
+    """The training CLI from the port's fixture; checks in the docstring of
+    this file. Returns (the dW kernel's launches, SyncBN's all-reduces a
+    step, the fixture's root)."""
+    from dd3d_tpu_torch.data.build import TrainDataLoader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+    from dd3d_tpu_torch.training.checkpoint import CheckpointManager
+    from dd3d_tpu_torch.training.train_loop import close_iterator, train
+
+    root = make_fixture(os.path.join(tmp, "fixture"), n_images=8)
+    res = run_cli("--cli-rank", cli_overrides(root, os.path.join(tmp, "out"), CLI_STEPS))
+    run_dir = res["output_dir"]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]  # the last step's (the loop logs every 20 and at the end)
+    buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
+    steps = CheckpointManager(os.path.join(run_dir, "ckpt")).steps()
+    log(f"phase14 CLI: {len(res['shapes'])} steps of batch {BATCH} in {res['seconds']:.1f} s (process start, "
+        f"kernel build, fixture loader and model included); canvases {buckets}; dW kernel launches "
+        f"{res['dw_launches']}; SyncBN all-reduces {res['syncbn_forward_allreduces']} in forward passes "
+        f"({res['syncbn_forward_allreduces'] // max(len(res['shapes']), 1)} a step, as many in backward); "
+        f"checkpoints {steps}")
+    log("phase14 total loss by step: " + ", ".join(f"{v:.3f}" for v in res["losses"]) + "; ms a step (the wait "
+        "for the batch included, the first with set-up): " + ", ".join(f"{v:.1f}" for v in res["step_ms"]))
+    log(f"phase14 metrics.jsonl: {rows}")
+    if len(res["losses"]) != CLI_STEPS or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"phase14: {len(res['losses'])} steps of {CLI_STEPS}, or a loss not finite")
+    if [r["step"] for r in rows] != [CLI_STEPS] or not all(np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"phase14: metrics.jsonl holds {rows}")
+    if len(buckets) < 2:
+        raise AssertionError(f"phase14: one resize bucket in {CLI_STEPS} steps: {buckets}")
+    if res["dw_launches"] != 2 * CLI_STEPS:
+        raise AssertionError(f"phase14: {res['dw_launches']} dW kernel launches, not {2 * CLI_STEPS}")
+    if not {4, 8} <= set(steps):
+        raise AssertionError(f"phase14: checkpoints {steps}, not 4 and 8")
+
+    cfg = loader_cfg(root, **{"TPU.PALLAS_STEM_DW": True, "VIS.DATALOADER_ENABLED": False,
+                              "DATALOADER.TRAIN.USE_PROCESS_POOL": False})
+    register_datasets(cfg)
+    it = iter(TrainDataLoader(cfg))
+    try:
+        state = train(cfg, (batch for batch, _meta in it), model=build_train_model(cfg, "cpu"),
+                      max_iter=CLI_STEPS + 2, output_dir=run_dir, log_period=1)
+    finally:
+        close_iterator(it)
+    log(f"phase14 resume: train() from {run_dir} ran to step {state.step}, optimizer count "
+        f"{state.optimizer.count}; checkpoints {CheckpointManager(os.path.join(run_dir, 'ckpt')).steps()}")
+    if state.step != CLI_STEPS + 2 or state.optimizer.count != CLI_STEPS + 2:
+        raise AssertionError("phase14: train() did not resume at step 8 and take 2 more steps")
+    log("phase14 ok")
+    return res["dw_launches"], res["syncbn_forward_allreduces"] // CLI_STEPS, root
+
+
+def loader_images_per_s(root, use_processes, batches=6):
+    """Images/s of the train loader alone from the fixture, after 2 warm-up
+    batches (the pool's start)."""
+    from dd3d_tpu_torch.data.build import TrainDataLoader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.training.train_loop import close_iterator
+
+    cfg = loader_cfg(root, **{"DATALOADER.TRAIN.USE_PROCESS_POOL": use_processes})
+    register_datasets(cfg)
+    loader = TrainDataLoader(cfg)
+    it = iter(loader)
+    try:
+        for _ in range(2):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        return batches * loader.batch_size / (time.perf_counter() - t0), loader.num_workers
+    finally:
+        close_iterator(it)
+
+
+def phase15_cli_timing(tmp, root, card):
+    """The loader alone (thread path, process pool), then the CLI's median
+    step time with the loader against synthetic batches of the same shape."""
+    ips = {}
+    for use_processes in (False, True):
+        ips[use_processes], workers = loader_images_per_s(root, use_processes)
+        log(f"phase15 loader alone on {card}: {'process pool' if use_processes else 'thread path'} "
+            f"({workers} workers, {os.cpu_count()} host cores): {ips[use_processes]:.1f} images/s at batch {BATCH}")
+    res = run_cli("--cli-timing", cli_overrides(root, os.path.join(tmp, "out_timing"), TIMING_STEPS,
+                                                f"INPUT.RESIZE.MIN_SIZE_TRAIN=[{TIMING_BUCKET}]"))
+    loader_med, synth_med = float(np.median(res["loader_ms"][2:])), float(np.median(res["synthetic_ms"][2:]))
+    log(f"phase15 ms a step with the loader: {[round(v, 1) for v in res['loader_ms']]}; on synthetic batches: "
+        f"{[round(v, 1) for v in res['synthetic_ms']]}")
+    if {tuple(s[1:3]) for s in res["shapes"]} != {tuple(res["synthetic_shape"])}:
+        raise AssertionError(f"phase15: the loader's canvases {res['shapes'][:3]} are not {res['synthetic_shape']}")
+    log(f"phase15 CLI step on {card}, bucket {TIMING_BUCKET} (canvas {res['shapes'][0][1:3]}), batch {BATCH}, "
+        f"medians of steps 3-{TIMING_STEPS - 1}: {loader_med:.2f} ms with the loader, {synth_med:.2f} ms on synthetic "
+        f"batches ({res['seconds']:.1f} s for both runs)")
+    if not (np.isfinite(loader_med) and np.isfinite(synth_med)):
+        raise AssertionError("phase15: a step time is not finite")
+    return ips, loader_med, synth_med
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] in ("--cli-rank", "--cli-timing"):
+        (cli_rank if sys.argv[1] == "--cli-rank" else cli_timing)(sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(2)
@@ -1089,7 +1342,7 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu")  # one nvcc each, all at once
+    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "imageio.cpp")  # one compiler each
     log(f"kernels built in {time.time() - t0:.2f} s")
 
     nms_err, random_nms = phase1_kernel(device)
@@ -1121,12 +1374,16 @@ def main():
 
     dw_err, stem_cases = phase10_conv_dw(device)
     torch.cuda.synchronize()
-    dw_launches = phase11_training(device)
+    phase11_training(device)
     torch.cuda.synchronize()
     phase12_fp32_train(device)
     torch.cuda.synchronize()
     train_ms, train_peak, dw_ms = phase13_train_timing(device, stem_cases)
     torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_dw_launches, syncbn_per_step, root = phase14_cli(tmp)
+        torch.cuda.synchronize()
+        loader_ips, cli_ms, synth_ms = phase15_cli_timing(tmp, root, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -1137,18 +1394,22 @@ def main():
         f"launches on the bf16 path {bf16_nms_launches}")
     log(f"timing on {card}: train step at batch {BATCH}, {HEIGHT}x{WIDTH}, bf16: "
         f"{np.mean(train_ms['kernel']):.2f} ms with the dW kernel, {np.mean(train_ms['plain']):.2f} ms with the "
-        f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7][0]:.4f} ms vs plain {dw_ms[7][1]:.4f} ms and "
-        f"cuDNN {dw_ms[7][4]:.4f} ms at the 7x7 stem conv, {dw_ms[3][0]:.4f} ms vs cuDNN {dw_ms[3][4]:.4f} ms at "
-        f"level0")
+        f"plain dW; peak {train_peak:.2f} GiB; dW kernel {dw_ms[7, HEIGHT, WIDTH][0]:.4f} ms vs plain "
+        f"{dw_ms[7, HEIGHT, WIDTH][1]:.4f} ms and cuDNN {dw_ms[7, HEIGHT, WIDTH][4]:.4f} ms at the 7x7 stem conv, "
+        f"{dw_ms[3, HEIGHT, WIDTH][0]:.4f} ms vs cuDNN {dw_ms[3, HEIGHT, WIDTH][4]:.4f} ms at level0; at the CLI's "
+        "buckets " + ", ".join(f"{h}x{w} k={k} {dw_ms[k, h, w][0]:.4f} ms" for h, w in BUCKET_CANVASES for k in (7, 3)))
+    log(f"timing on {card}: train loader alone {loader_ips[False]:.1f} images/s (threads), {loader_ips[True]:.1f} "
+        f"images/s (process pool); CLI step {cli_ms:.2f} ms with the loader vs {synth_ms:.2f} ms on synthetic "
+        f"batches at bucket {TIMING_BUCKET}; SyncBN {syncbn_per_step} all-reduces a forward (as many in backward)")
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
-             "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7]}
+             "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              nms_err),
             ("quantize_int8", "dd3d_tpu_torch/csrc/quantize.cu", "scripts/bench_quantize_kernel.py:91",
              launches["quantize_int8"], quant_err),
             ("int8_conv", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246", launches["int8_conv"],
              conv_err),
-            ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58", dw_launches,
+            ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58", cli_dw_launches,
              dw_err)]
     kernels = []
     for name, source, replaces, n, err in rows:

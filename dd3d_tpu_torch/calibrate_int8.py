@@ -14,11 +14,10 @@ TPU.QUANT_MIN_CH=0 to calibrate in the regime of `prepare_static_scales`. `--hea
 recorded maxima: above 1 it trades clipping for a coarser step. Serve with
 `TPU.QUANT_INT8=True TPU.QUANT_SCALES_PATH=<out>` (bench.py's serving
 configuration also sets TPU.QUANT_MIN_CH=32 TPU.QUANT_UNFOLDED=True).
+It runs on the card; `--device cpu` runs it on the CPU.
 """
 import argparse
 import json
-
-import torch
 
 from dd3d_tpu_torch.models.calibrate import capture_scales
 from dd3d_tpu_torch.predict import iter_batches, list_images, load_model, parse_intrinsics, parse_overrides, \
@@ -35,19 +34,21 @@ def main(argv=None):
     ap.add_argument("--max-images", type=int, default=64)
     ap.add_argument("--headroom", type=float, default=1.0, help="scale multiplier on recorded maxes")
     ap.add_argument("--out", default="int8_scales.json")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default), or cpu")
     ap.add_argument("--seed", type=int, default=0, help="weight seed when no --ckpt is given")
     ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
     args = ap.parse_args(argv)
 
     from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.utils.comm import resolve_device
 
+    device = resolve_device(args.device)
     cfg = get_experiment_cfg(args.experiment)
     parse_overrides(args.overrides, cfg)
     files = list_images(args.images)[: args.max_images]
-    print(f"{len(files)} calibration images, experiment {args.experiment}, device {args.device}")
+    print(f"{len(files)} calibration images, experiment {args.experiment}, device {device}")
     dicts = read_image_dicts(files, parse_intrinsics(args.intrinsics))
-    model = load_model(cfg, args.ckpt, args.seed, args.device)
+    model = load_model(cfg, args.ckpt, args.seed, device)
     batches = (batch["image"] for _, batch, _ in iter_batches(cfg, dicts, args.batch,
                                                               model.backbone.size_divisibility))
     scales = capture_scales(cfg, model, batches)

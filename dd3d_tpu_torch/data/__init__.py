@@ -1,2 +1,3 @@
-"""Host-side inference data path of the port (numpy, cv2 and PIL): its own
-copy of what dd3d_tpu/data does for serving, nothing for training."""
+"""Host-side data path of the port (numpy and its own C++ image code): its
+own copy of dd3d_tpu/data for the KITTI-3D datasets, training and
+inference."""

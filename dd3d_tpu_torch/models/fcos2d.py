@@ -7,7 +7,8 @@ dd3d_tpu/models/fcos2d.py.
   per-level `Scale` on the box regression.
 - `fcos2d_loss`: sigmoid focal (cls) + centerness-weighted gIoU (box) + BCE
   (centerness), normalized by GLOBAL batch sums (positive count, centerness
-  sum), never per image.
+  sum), never per image; with a process group the sums run over every
+  rank's batch.
 - `decode_fcos2d_level`: fixed-size top-k candidate selection per level.
 """
 from typing import Dict, List, Sequence, Tuple
@@ -19,6 +20,7 @@ from torch import nn
 from dd3d_tpu_torch.models.layers import PredictorConv, Scale, TowerConv, fused_predictor_apply
 from dd3d_tpu_torch.ops.losses import iou_loss_ltrb_t, sigmoid_bce, sigmoid_focal_loss
 from dd3d_tpu_torch.ops.nms import NEG_INF
+from dd3d_tpu_torch.utils.comm import all_reduce_sum
 
 
 class FCOS2DHead(nn.Module):
@@ -71,18 +73,24 @@ def fcos2d_loss(logits_flat: torch.Tensor, box2d_reg_flat: torch.Tensor, centern
     """Global-batch FCOS2D losses (dd3d_tpu/models/fcos2d.py:186-226) on
     component-major f32 maps: logits (B, C, P), box2d_reg (B, 4, P),
     centerness (B, P). Returns (losses, extra) with extra's loss_denom,
-    centerness_targets and num_pos for the 3D loss."""
+    centerness_targets and num_pos for the 3D loss.
+
+    The normalizers (positive count, centerness sum) are the global batch's:
+    with a process group, one all-reduce sums them over the ranks, and they
+    are clamped after the sum. Each rank's losses are then its own share of
+    the global-batch losses; training/train_step.py scales the backward and
+    sums the logged values."""
     num_classes = logits_flat.shape[1]
     pos = targets["pos_mask"].float()
-    num_pos = torch.clamp(pos.sum(), min=1.0)
+    box2d_tgt = targets["box2d_reg_targets"]
+    ctr_targets = compute_ctrness_targets_t(box2d_tgt) * pos
+    num_pos, ctr_sum = all_reduce_sum(torch.stack([pos.sum(), ctr_targets.sum()]).detach())
+    num_pos = torch.clamp(num_pos, min=1.0)
+    loss_denom = torch.clamp(ctr_sum, min=1e-6)
 
     iota_c = torch.arange(num_classes, device=logits_flat.device)[None, :, None]
     cls_target = (targets["labels"][:, None, :] == iota_c).float() * pos[:, None, :]
     loss_cls = sigmoid_focal_loss(logits_flat, cls_target, focal_alpha, focal_gamma).sum() / num_pos
-
-    box2d_tgt = targets["box2d_reg_targets"]
-    ctr_targets = compute_ctrness_targets_t(box2d_tgt) * pos
-    loss_denom = torch.clamp(ctr_targets.sum(), min=1e-6)
     iou_elem = iou_loss_ltrb_t(box2d_reg_flat, box2d_tgt, loc_loss_type)
     loss_box2d = torch.sum(iou_elem * ctr_targets * pos) / loss_denom
     loss_ctr = torch.sum(sigmoid_bce(centerness_flat, ctr_targets) * pos) / num_pos

@@ -127,7 +127,8 @@ def fcos3d_loss(quat_flat: torch.Tensor, ctr_flat: torch.Tensor, depth_flat: tor
                 canon_box_sizes: torch.Tensor, cfg3d) -> Dict[str, torch.Tensor]:
     """Dense masked FCOS3D loss (dd3d_tpu/models/fcos3d.py:248-358): maps
     (B, comp * C, P) f32, inv_intrinsics (B, 3, 3), locations (P, 2),
-    canon_box_sizes (>= C, 3). Normalized by the 2D loss's centerness sum."""
+    canon_box_sizes (>= C, 3). Normalized by the 2D loss's centerness sum,
+    the global batch's (summed over the ranks in `fcos2d_loss`)."""
     if cfg3d.CLASS_AGNOSTIC_BOX3D:
         raise NotImplementedError("DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D is not ported")
     num_classes = conf_flat.shape[1]

@@ -14,7 +14,9 @@ Counterpart of dd3d_tpu/models/layers.py. `model.train()` and
   compute dtype (dd3d_tpu/models/layers.py:307-309). Folding after the cast
   gives other bf16 weights. FrozenBN folds in both modes; live BN folds at
   eval only (:404-416). In train mode live BN normalizes with the batch
-  statistics of the conv output and updates its running averages (:90-112).
+  statistics of the conv output and updates its running averages (:90-112);
+  with a process group these are the global batch's statistics (SyncBN,
+  `sync_batch_moments`).
 - Under TPU.PALLAS_STEM_DW the DLA stem's stride-1 convs run through
   ops/conv_dw.Conv2dS1Same in train mode, so their weight gradient is the
   CUDA kernel (`FoldableConv.route_weight_grad`).
@@ -33,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -208,13 +211,73 @@ class FoldableBatchNorm(_NormStats):
     def affine(self, x):
         if not self.training:
             return self.folded()
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        xf = x.float()
+        if dist.is_initialized():
+            var, mean = sync_batch_moments(xf)
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         mul = self.weight * torch.rsqrt(var + self.eps)
         return mul, self.bias - mean * mul
+
+
+def combine_moments(stats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) per channel of the union of the ranks'
+    batches, from `stats` (W, 3, C): each rank's count, mean and biased
+    variance. The exact pooled form, var = sum_r (n_r / N) (var_r +
+    (mean_r - mean)^2): no E[x^2] - E[x]^2 over the whole batch, which
+    cancels in f32 (ROADMAP §3, settled traps). A rank with no values
+    (n_r = 0) weighs nothing; with one rank the weights are exactly 1 and
+    its own (var, mean) come back unchanged."""
+    n, means, variances = stats[:, 0], stats[:, 1], stats[:, 2]
+    weight = n / n.sum(dim=0).clamp(min=1.0)
+    mean = (weight * means).sum(dim=0)
+    var = (weight * (variances + (means - mean) ** 2)).sum(dim=0)
+    return var, mean
+
+
+def sync_batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global SyncBN statistics of an NCHW activation: (biased variance,
+    mean) per channel over (N, H, W) of every rank's batch, as JAX's BN
+    takes them over the batch sharded along the mesh (dd3d_tpu
+    layers.py:90-112). Each rank writes its count, mean and biased variance
+    into its own row of a (W, 3, C) zero tensor, and ONE all-reduce (sum),
+    whose backward all-reduces the gradient (`AllReduceSum`), hands every
+    rank all rows; `combine_moments` pools them. An empty activation
+    contributes count 0."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    count = x.numel() // x.shape[1]
+    if count:
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    else:
+        var = mean = x.new_zeros(x.shape[1]) + x.sum()  # keeps the graph
+    own = torch.stack([torch.full_like(mean, float(count)), mean, var])
+    rows = F.pad(own[None], (0, 0, 0, 0, rank, world - 1 - rank))
+    sync_batch_moments.calls += 1
+    return combine_moments(AllReduceSum.apply(rows))
+
+
+sync_batch_moments.calls = 0  # all-reduces issued in forward passes
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks, with the gradient summed over the
+    ranks in turn: each rank's loss depends on every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        return grad
 
 
 def make_norm(norm: str, features: int) -> Optional[_NormStats]:

@@ -9,10 +9,11 @@ TPU.QUANT_SCALES_PATH=scales.json` (from `python -m
 dd3d_tpu_torch.calibrate_int8`) it serves the static-int8 configuration.
 
 Counterpart of scripts/predict.py: images go through the port's copy of the
-JAX package's inference mapper and collate (`dd3d_tpu_torch/data/`: numpy,
-cv2 and PIL, ResizeShortestEdge at INPUT.RESIZE.MIN_SIZE_TEST, intrinsics
-rescaled, canvas padded to the backbone's size divisibility), then through
-the port's model and decode.
+JAX package's mapper and collate in inference mode (`dd3d_tpu_torch/data/`:
+the port's own PNG reader and PIL-exact resize, ResizeShortestEdge at
+INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to the
+backbone's size divisibility), then through the port's model and decode.
+It runs on the card; `--device cpu` runs it on the CPU.
 `--ckpt` is a reference-named `.pth` state dict; without it the weights are
 random, drawn from `--seed`. Detections are written in original image
 coordinates. Visualization (`--vis`) is not ported yet.
@@ -71,28 +72,27 @@ def parse_overrides(pairs, cfg):
 
 
 def read_image_dicts(files, intrinsics):
-    """One dataset dict per image file (cv2 reads it once for its size)."""
-    import cv2
+    """One dataset dict per image file, its size from the PNG header."""
+    from dd3d_tpu_torch.data.imageio import png_size
 
     dicts = []
     for f in files:
-        img = cv2.imread(f)
-        if img is None:
-            raise FileNotFoundError(f)
+        with open(f, "rb") as fh:
+            height, width = png_size(fh.read(24))
         dicts.append({"file_name": f, "image_id": os.path.splitext(os.path.basename(f))[0], "intrinsics": intrinsics,
-                      "height": img.shape[0], "width": img.shape[1]})
+                      "height": height, "width": width})
     return dicts
 
 
 def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
-    """(chunk, batch, meta) per `batch_size` dicts, through the inference
-    mapper and collate (data/mapper.py): ResizeShortestEdge at
+    """(chunk, batch, meta) per `batch_size` dicts, through the mapper in
+    inference mode and collate (data/mapper.py): ResizeShortestEdge at
     INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to
     `size_divisibility`."""
-    from dd3d_tpu_torch.data.augmentations import build_test_resize
+    from dd3d_tpu_torch.data.augmentations import build_augmentation
     from dd3d_tpu_torch.data.mapper import DatasetMapper, collate_batch
 
-    mapper = DatasetMapper(build_test_resize(cfg))
+    mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False)
     rng = np.random.RandomState(0)
     for i in range(0, len(dicts), batch_size):
         chunk = dicts[i: i + batch_size]
@@ -121,7 +121,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--out", default="predictions.json")
     ap.add_argument("--score-thresh", type=float, default=0.0)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (default), or cpu")
     ap.add_argument("--seed", type=int, default=0, help="weight seed when no --ckpt is given")
     ap.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
     args = ap.parse_args(argv)
@@ -129,15 +129,18 @@ def main(argv=None):
     from dd3d_tpu_torch.configs import get_experiment_cfg
     from dd3d_tpu_torch.models.postprocess import get_inference_fn, unpack_detections
 
+    from dd3d_tpu_torch.utils.comm import resolve_device
+
+    device = resolve_device(args.device)
     cfg = get_experiment_cfg(args.experiment)
     parse_overrides(args.overrides, cfg)
     k = parse_intrinsics(args.intrinsics)
     files = list_images(args.images)
-    print(f"{len(files)} images, experiment {args.experiment}, device {args.device}")
+    print(f"{len(files)} images, experiment {args.experiment}, device {device}")
 
     dicts = read_image_dicts(files, k)
 
-    model = load_model(cfg, args.ckpt, args.seed, args.device)
+    model = load_model(cfg, args.ckpt, args.seed, device)
     infer_fn = get_inference_fn(model, cfg)
 
     results = []

@@ -11,6 +11,13 @@ the (clipped) gradient before the momentum, as optax's chain does. The lr
 of a step is the schedule at the count BEFORE the step. The mask is
 computed from each parameter's flax path (utils/convert_checkpoint.py),
 the names JAX's `_wd_mask` reads.
+
+SOLVER.ACCUMULATE_GRAD_BATCHES = k > 1 is JAX's optax.MultiSteps
+(dd3d_tpu/training/optim.py:142-143): the update applies the mean of k
+micro-batch gradients (the train step scales each backward by 1/k and the
+gradients add up in .grad), once every k micro-batches; `count`, and with
+it the schedule, advances only on an applied update. `mini_step` counts the
+micro-batches taken since the last one.
 """
 from typing import Dict, List, Sequence
 
@@ -54,10 +61,14 @@ class Optimizer:
     number of steps taken (the schedule's input); `step()` reads the
     parameters' .grad and never syncs with the host."""
 
+    mini_step = 0  # micro-batches since the last applied update
+
     def __init__(self, cfg, model: torch.nn.Module):
         sol = cfg.SOLVER
-        if int(sol.get("ACCUMULATE_GRAD_BATCHES", 1)) > 1:
-            raise NotImplementedError("SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is not ported")
+        self.accumulate = int(sol.get("ACCUMULATE_GRAD_BATCHES", 1))
+        if self.accumulate < 1:
+            raise ValueError(f"SOLVER.ACCUMULATE_GRAD_BATCHES={self.accumulate}")
+        self.mini_step = 0
         self.schedule = warmup_multistep_schedule(sol.BASE_LR, sol.STEPS, sol.GAMMA, sol.WARMUP_FACTOR,
                                                   sol.WARMUP_ITERS, sol.WARMUP_METHOD)
         self.clip_value = self.clip_norm = 0.0
@@ -100,11 +111,21 @@ class Optimizer:
         self.sgd.zero_grad(set_to_none=True)
 
     def state_dict(self):
-        return {"sgd": self.sgd.state_dict(), "count": self.count}
+        """The SGD state and count, and between two applied updates the
+        micro-batch count and the gradients accumulated so far (optax keeps
+        them in MultiSteps' state)."""
+        state = {"sgd": self.sgd.state_dict(), "count": self.count, "mini_step": self.mini_step}
+        if self.mini_step:
+            state["acc_grads"] = [None if p.grad is None else p.grad.detach().clone() for p in self.params]
+        return state
 
     def load_state_dict(self, state) -> None:
         self.sgd.load_state_dict(state["sgd"])
         self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+        if "acc_grads" in state:
+            for p, g in zip(self.params, state["acc_grads"]):
+                p.grad = None if g is None else g.to(p.device)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

@@ -88,21 +88,57 @@ def test_operand_padding_leaves_the_dw_unchanged(w, ci, co, offset):
         assert pad_operands(x, dy) == (x, dy)  # nothing to pad, nothing copied
 
 
+def excess_over_tolerance(got, want, rtol, atol):
+    """max(|got - want| / (atol + rtol |want|)): at most 1 where
+    np.testing.assert_allclose(got, want, rtol, atol) passes."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
 def test_conv2d_s1_same_matches_custom_vjp():
-    """Value, dx and dW of sum(sin(conv)) against JAX's custom_vjp with the
-    Pallas dW in interpret mode."""
+    """Value, dx and dW of sum(sin(conv)) through the port's Conv2dS1Same and
+    through JAX's custom_vjp with the Pallas dW in interpret mode, each held
+    to an f64 oracle (torch's f64 conv and autograd) at the tolerances of
+    the two sides' old direct comparison: value rtol 1e-5; dx and dW rtol
+    2e-5, atol 2e-4. Every message gives both sides' distances, so a failure
+    names the side that is off. JAX's side is compiled here, for this host's
+    CPU, with the persistent compilation cache off."""
     rng = np.random.RandomState(1)
     x = rng.randn(2, 16, 24, 12).astype(np.float32)
     wt = (rng.randn(5, 5, 12, 16) * 0.1).astype(np.float32)  # HWIO
-    va, (gxa, gwa) = jax.value_and_grad(lambda x, w: jnp.sum(jnp.sin(conv2d_s1_same(x, w, True))),
-                                        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(wt))
+
+    x64 = torch.from_numpy(x.astype(np.float64)).permute(0, 3, 1, 2).requires_grad_(True)
+    w64 = torch.from_numpy(wt.astype(np.float64).transpose(3, 2, 0, 1)).requires_grad_(True)
+    v64 = torch.sin(torch.nn.functional.conv2d(x64, w64, padding=2)).sum()
+    v64.backward()
+    oracle = {"value": float(v64.detach()), "dx": x64.grad.permute(0, 2, 3, 1).numpy(),
+              "dW": w64.grad.permute(2, 3, 1, 0).numpy()}
+
+    cache_on = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        va, (gxa, gwa) = jax.value_and_grad(lambda x, w: jnp.sum(jnp.sin(conv2d_s1_same(x, w, True))),
+                                            argnums=(0, 1))(jnp.asarray(x), jnp.asarray(wt))
+    finally:
+        jax.config.update("jax_enable_compilation_cache", cache_on)
+    jax_side = {"value": float(va), "dx": np.asarray(gxa), "dW": np.asarray(gwa)}
+
     xt = nchw_cl(x).requires_grad_(True)
     w = torch.from_numpy(np.ascontiguousarray(wt.transpose(3, 2, 0, 1))).requires_grad_(True)
     vb = torch.sin(Conv2dS1Same.apply(xt, w)).sum()
     vb.backward()
-    np.testing.assert_allclose(float(vb.detach()), float(va), rtol=1e-5)
-    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gxa), rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(w.grad.permute(2, 3, 1, 0).numpy(), np.asarray(gwa), rtol=2e-5, atol=2e-4)
+    port = {"value": float(vb.detach()), "dx": xt.grad.permute(0, 2, 3, 1).numpy(),
+            "dW": w.grad.permute(2, 3, 1, 0).numpy()}
+
+    tol = {"value": (1e-5, 0.0), "dx": (2e-5, 2e-4), "dW": (2e-5, 2e-4)}
+    excess = {side: {k: excess_over_tolerance(got[k], oracle[k], *tol[k]) for k in oracle}
+              for side, got in (("port", port), ("JAX", jax_side))}
+    report = "; ".join(f"{k}: port {excess['port'][k]:.3g}, JAX {excess['JAX'][k]:.3g}" for k in oracle)
+    report = f"distance from the f64 oracle, in units of the tolerance (pass <= 1): {report}"
+    for k in oracle:
+        assert excess["port"][k] <= 1.0, f"the port's {k} is off. {report}"
+    for k in oracle:
+        assert excess["JAX"][k] <= 1.0, f"JAX's {k} is off. {report}"
 
 
 def test_conv2d_s1_same_skips_dx_of_the_image():

@@ -116,16 +116,20 @@ def test_port_runs_without_jax(tmp_path):
     """Build the port's model and run bf16 inference, then calibrate and serve
     static int8 with bench.py's overrides, then take a bf16 train step through
     `train` with the stem's weight gradient routed to its kernel, then map
-    and collate a PNG through `predict.iter_batches`, in a fresh interpreter:
-    no jax or flax module, and nothing of the JAX package `dd3d_tpu`, may be
-    imported on the way (the GPU machine has no jax; the port keeps its own
-    copy of what it needs)."""
+    and collate a PNG through `predict.iter_batches`, then write the port's
+    KITTI fixture and take one batch of its train loader, in a fresh
+    interpreter: no jax or flax module, and nothing of the JAX package
+    `dd3d_tpu`, may be imported on the way, and cv2 and PIL are blocked (the
+    GPU machine has neither jax nor cv2; the port keeps its own copy of what
+    it needs and reads images itself)."""
     import cv2
 
     png = str(tmp_path / "frame.png")
     cv2.imwrite(png, np.random.RandomState(0).randint(0, 256, (90, 250, 3), dtype=np.uint8))
     code = (
-        "import sys, torch\n"
+        "import sys\n"
+        "sys.modules['cv2'] = sys.modules['PIL'] = None  # importing either raises ImportError\n"
+        "import torch\n"
         "from dd3d_tpu_torch.configs import get_experiment_cfg\n"
         "from dd3d_tpu_torch.models import build_model\n"
         "from dd3d_tpu_torch.models.calibrate import prepare_static_scales\n"
@@ -154,7 +158,20 @@ def test_port_runs_without_jax(tmp_path):
         f"dicts = read_image_dicts([{png!r}], np.eye(3))\n"
         "(_, batch, meta), = iter_batches(cfg, dicts, 1, 128)\n"
         "assert batch['image'].shape == (1, 384, 1152, 3) and batch['image_size'].tolist() == [[384, 1067]]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dd3d_tpu'))\n"
+        "from dd3d_tpu_torch.overfit_smoke import make_fixture\n"
+        "from dd3d_tpu_torch.data.build import TrainDataLoader\n"
+        "from dd3d_tpu_torch.data.catalog import register_datasets\n"
+        "cfg = get_experiment_cfg('dd3d_kitti_dla34_overfit')\n"
+        f"cfg.DATASET_ROOT = make_fixture({str(tmp_path / 'kitti')!r}, n_images=2)\n"
+        "cfg.INPUT.RESIZE.MIN_SIZE_TRAIN, cfg.SOLVER.IMS_PER_BATCH = [96], 2\n"
+        "cfg.DATALOADER.TRAIN.USE_PROCESS_POOL, cfg.DATALOADER.TRAIN.NUM_WORKERS = False, 2\n"
+        "register_datasets(cfg)\n"
+        "it = iter(TrainDataLoader(cfg))\n"
+        "batch, meta = next(it)\n"
+        "it.close()\n"
+        "assert batch['image'].shape == (2, 128, 384, 3) and batch['gt_valid'].any(), batch['image'].shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dd3d_tpu')\n"
+        "             or (m.split('.')[0] in ('cv2', 'PIL') and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

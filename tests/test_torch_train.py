@@ -405,7 +405,11 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
     assert mgr.restore(model, opt) == 3 and mgr.restore(model, opt, step=2) == 2
 
 
-def test_unported_training_options_raise():
+def test_unported_training_options_raise(tmp_path):
+    """TPU.REMAT, W&B and the dataloader visualization raise;
+    SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is ported (tests/test_torch_accumulate.py)."""
+    from dd3d_tpu_torch.utils.events import EventStorage
+
     cfg = small_cfg()
     model = build_model(cfg)
     cfg.TPU.REMAT = "full"
@@ -413,8 +417,12 @@ def test_unported_training_options_raise():
         make_train_step(cfg, model, popt.Optimizer(cfg, model))
     cfg.TPU.REMAT = "none"
     cfg.SOLVER.ACCUMULATE_GRAD_BATCHES = 2
-    with pytest.raises(NotImplementedError, match="ACCUMULATE"):
-        popt.Optimizer(cfg, model)
+    assert popt.Optimizer(cfg, model).accumulate == 2
+    with pytest.raises(NotImplementedError, match="WANDB"):
+        EventStorage(str(tmp_path), wandb_enabled=True)
+    cfg.VIS.DATALOADER_PERIOD = 2  # inside max_iter: the visualization would run
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(cfg, [], model=model, device="cpu", max_iter=3, output_dir=str(tmp_path))
 
 
 def report_distances():

@@ -3,6 +3,9 @@ reference-named state dict with random values, loaded into both the JAX
 package (through its converter) and the PyTorch port (through the port's
 converter), at fp32."""
 import contextlib
+import os
+import socket
+import time
 
 import jax
 import jax.numpy as jnp
@@ -106,3 +109,38 @@ def torch_threads(n: int = 2):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_gloo(fn, world: int, *args, out_dir, timeout_s: float = 240.0, join_group: bool = True):
+    """Run `fn(*args)` in `world` processes spawned by torch.multiprocessing,
+    joined in a gloo process group on a free localhost port (rendezvous
+    bounded by tests/torch_dist_workers.RENDEZVOUS_TIMEOUT_S), and return
+    their results in rank order. `fn` lives in tests/torch_dist_workers.py
+    (no jax in the spawned processes). With `join_group=False` the body joins
+    the group itself from torchrun's environment variables, which are set
+    either way. Raises if a process fails, or if they have not all ended
+    within `timeout_s`, after killing them."""
+    import torch.multiprocessing as mp
+
+    from tests.torch_dist_workers import _child
+
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.spawn(_child, args=(world, free_port(), str(out_dir), fn, args, join_group), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} gloo ranks did not end within {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
