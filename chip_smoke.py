@@ -9,12 +9,14 @@ bench.py's static int8 (QUANT_MIN_CH=32, QUANT_UNFOLDED), through
 `build_model` -> [`prepare_static_scales`] -> `get_inference_fn` ->
 `infer(images, intrinsics)`, its training path, through
 `build_model` -> `train(cfg, batches, model)` with TPU.PALLAS_STEM_DW, with
-seeded random weights and seeded synthetic batches, and its training CLI
+seeded random weights and seeded synthetic batches, its training CLI
 on image files (`python -m dd3d_tpu_torch.train` under torch.distributed.run
-on the port's KITTI-format fixture), and fails loudly (non-zero exit) if any
+on the port's KITTI-format fixture), and its evaluation (EVAL_ONLY,
+`inference_on_dataset`, the KITTI-3D and COCO-2D evaluators, the R40 engine;
+the overfit run trained and scored), and fails loudly (non-zero exit) if any
 phase fails. The four CUDA sources (five kernels: NMS is two) and the host
-image code (csrc/imageio.cpp, g++) are built first, one compiler process
-each, all at once.
+code (csrc/imageio.cpp, csrc/kitti_eval.cpp with OpenMP, g++) are built
+first, one compiler process each, all at once.
 
 1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
    against the plain PyTorch version on the card, exactly, at N from 1 to
@@ -70,7 +72,32 @@ each, all at once.
     directory at step 8 for 2 more steps;
 15. timing: the train loader alone in images/s (thread path and process
     pool), and the CLI's median step time with the loader against the same
-    steps on synthetic batches at the same resize bucket, in one process.
+    steps on synthetic batches at the same resize bucket, in one process;
+16. evaluation: `python -m dd3d_tpu_torch.train +experiments=
+    dd3d_kitti_dla34_overfit EVAL_ONLY=True MODEL.CKPT=<phase 14's ckpt>
+    TEST.AUG.ENABLED=False DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0` under
+    torch.distributed.run (the checkpoint's scores lie below the default
+    0.05; at 0 every image keeps its 100 detections) writes
+    kitti_predictions.json and logs the kitti_3d/... and COCO results, with
+    at least one NMS kernel launch a batch; then, in this process on the
+    same loader's batches, `inference_on_dataset` through the NMS kernel and
+    with the plain suppression gives identical per-image detections and
+    results dicts;
+17. the overfit run: `python -m dd3d_tpu_torch.overfit_smoke --iters 400
+    --n-images 8 --int8-ab` (TPU.PALLAS_STEM_DW) trains batch 4 at
+    384x1280 and scores itself: finite AP, the Car Moderate AP3D and BEV at
+    0.5, ms a step, the int8 arm's worst |dAP|, and each arm's kernel
+    launches (the int8 arm must launch the quantize and int8 conv kernels,
+    both evaluations NMS, the training the dW kernel twice a step). No
+    minimum AP is gated: two runs (45.05 each) are too few to set a floor,
+    and the AP is still climbing here (0.00 after 200 steps);
+18. evaluation at the size of a test set: phase 17's trained checkpoint
+    over a 200-frame fixture (its first 8 frames are the training set), 50
+    batches of 4 at 384x1280: the loader alone, then `inference_on_dataset`
+    through the NMS kernel and with the plain suppression, which must give
+    identical per-image detections and results dicts; eval images/s
+    (loader, forward, decode, evaluators), each evaluator's host seconds and
+    the R40 engine's.
 
 Before the last line, the card's name and power limit and one JSON line of
 the four kernels: launches on the main path, error against the plain
@@ -81,9 +108,9 @@ that call's ms.
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
 
-`chip_smoke.py --cli-rank ARGS` and `--cli-timing ARGS` are phases 14 and 15
-inside the process that torch.distributed.run starts; they are not run by
-hand.
+`chip_smoke.py --cli-rank ARGS`, `--cli-timing ARGS` and `--eval-only ARGS`
+are phases 14, 15 and 16's CLIs, each inside the process that
+torch.distributed.run starts; they are not run by hand.
 """
 import json
 import os
@@ -661,15 +688,22 @@ def cudnn_bf16_conv(xq, wq, stride, pad):
 
 def device_ms_by_kernel(fn, reps, profiler):
     """{kernel name: device ms a call of `fn`}, from one profiler window over
-    `reps` calls (after one call outside it)."""
+    `reps` calls (after one call outside it). The profiler now and then
+    records no device activity in a window: that window is taken again, and
+    after a second empty one `fn` is timed with CUDA events as one entry."""
     fn()
     torch.cuda.synchronize()
-    with profiler() as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps
-            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+    for _ in range(2):
+        with profiler() as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {e.key: (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+                     / reps for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+        if sum(by_kernel.values()) > 0:
+            return by_kernel
+    log("  the profiler recorded no device time in two windows: CUDA events instead")
+    return {"all kernels (CUDA events)": cuda_ms(fn, reps)}
 
 
 def device_ms(fn, reps, profiler):
@@ -1109,16 +1143,20 @@ def phase13_train_timing(device, stem_cases):
 
 CLI_STEPS = 8
 TIMING_STEPS = 12
+CAR_AP3D = "kitti_3d/kitti_box3d_r40/Car_Moderate_0.5"
+OVERFIT_ITERS = 400  # the overfit run's steps of batch 4 (phase 17; ~120 s on the card)
+EVAL_IMAGES = 200  # frames of phase 18's test set (50 batches of 4)
 TIMING_BUCKET = 384  # KITTI frames at short side 384: a 384x1280 canvas, phase 13's shape
 
 
 def cli_overrides(root, out_root, max_iter, *extra):
     """The CLI's arguments: dd3d_kitti_dla34_overfit at full width from the
     fixture, the stem dW on the kernel, checkpoints every 4 steps, no
-    evaluation or visualization (not ported)."""
+    periodic test, the final test without test-time augmentation (not
+    ported), no visualization (not ported)."""
     return ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}", f"OUTPUT_ROOT={out_root}",
             "TPU.PALLAS_STEM_DW=True", f"SOLVER.MAX_ITER={max_iter}", "SOLVER.CHECKPOINT_PERIOD=4",
-            "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", *extra]
+            "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False", *extra]
 
 
 def recording_train_steps(steps):
@@ -1199,7 +1237,8 @@ def cli_timing(argv):
 
 def run_cli(mode, args, timeout_s=600):
     """`chip_smoke.py <mode> args` under torch.distributed.run on one card;
-    returns the parsed CLI_RESULT line. The child's log tail is printed."""
+    returns the parsed CLI_RESULT line, with the child's whole output under
+    "log". The child's log tail is printed."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
            os.path.abspath(__file__), mode, *args]
     t0 = time.time()
@@ -1213,6 +1252,7 @@ def run_cli(mode, args, timeout_s=600):
         raise AssertionError(f"{mode}: no CLI_RESULT line")
     out = json.loads(result[0][len("CLI_RESULT "):])
     out["seconds"] = time.time() - t0
+    out["log"] = proc.stdout + proc.stderr
     return out
 
 
@@ -1244,7 +1284,9 @@ def phase14_cli(tmp):
     res = run_cli("--cli-rank", cli_overrides(root, os.path.join(tmp, "out"), CLI_STEPS))
     run_dir = res["output_dir"]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]  # the last step's (the loop logs every 20 and at the end)
+        all_rows = [json.loads(line) for line in f]
+    rows = [r for r in all_rows if "total_loss" in r]  # the last step's (the loop logs every 20 and at the end)
+    tests = [r for r in all_rows if "total_loss" not in r]  # the final test's results
     buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
     steps = CheckpointManager(os.path.join(run_dir, "ckpt")).steps()
     log(f"phase14 CLI: {len(res['shapes'])} steps of batch {BATCH} in {res['seconds']:.1f} s (process start, "
@@ -1259,6 +1301,9 @@ def phase14_cli(tmp):
         raise AssertionError(f"phase14: {len(res['losses'])} steps of {CLI_STEPS}, or a loss not finite")
     if [r["step"] for r in rows] != [CLI_STEPS] or not all(np.isfinite(v) for r in rows for v in r.values()):
         raise AssertionError(f"phase14: metrics.jsonl holds {rows}")
+    if [r["step"] for r in tests] != [CLI_STEPS] or not np.isfinite(tests[0].get(CAR_AP3D, np.nan)):
+        raise AssertionError(f"phase14: no final test results at step {CLI_STEPS} in metrics.jsonl")
+    log(f"phase14 final test at step {CLI_STEPS}: {CAR_AP3D} = {tests[0][CAR_AP3D]:.4f}")
     if len(buckets) < 2:
         raise AssertionError(f"phase14: one resize bucket in {CLI_STEPS} steps: {buckets}")
     if res["dw_launches"] != 2 * CLI_STEPS:
@@ -1280,7 +1325,7 @@ def phase14_cli(tmp):
     if state.step != CLI_STEPS + 2 or state.optimizer.count != CLI_STEPS + 2:
         raise AssertionError("phase14: train() did not resume at step 8 and take 2 more steps")
     log("phase14 ok")
-    return res["dw_launches"], res["syncbn_forward_allreduces"] // CLI_STEPS, root
+    return res["dw_launches"], res["syncbn_forward_allreduces"] // CLI_STEPS, root, run_dir
 
 
 def loader_images_per_s(root, use_processes, batches=6):
@@ -1328,9 +1373,278 @@ def phase15_cli_timing(tmp, root, card):
     return ips, loader_med, synth_med
 
 
+def eval_only(argv):
+    """Phase 16's CLI inside torch.distributed.run: the CLI's main with
+    EVAL_ONLY, the NMS kernel's launch count set to 0 just before and read
+    just after, printed as one CLI_RESULT line."""
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
+    from dd3d_tpu_torch.train import main as train_main
+
+    greedy_nms.launches = 0
+    out_dir = train_main(argv)
+    torch.cuda.synchronize()
+    print("CLI_RESULT " + json.dumps({"output_dir": out_dir, "nms_launches": greedy_nms.launches}), flush=True)
+
+
+def same_results(a, b) -> bool:
+    """Results dicts equal key for key and value for value, NaN equal to NaN
+    (a COCO area range without ground truth reads NaN)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) and list(a) == list(b) and all(
+            same_results(a[k], b[k]) for k in a)
+    return a == b or (isinstance(a, float) and isinstance(b, float) and np.isnan(a) and np.isnan(b))
+
+
+def same_detections(a, b) -> bool:
+    """Per-image detection dicts equal: the same images in the same order,
+    each field exactly."""
+    return len(a) == len(b) and all(p.keys() == q.keys() and all(
+        np.array_equal(np.asarray(p[k]), np.asarray(q[k])) for k in p) for p, q in zip(a, b))
+
+
+class Recorder:
+    """An evaluator that keeps the per-image detections it is given."""
+
+    def reset(self):
+        self.dets = []
+
+    def process(self, per_image):
+        self.dets += per_image
+
+    def evaluate(self):
+        return {}
+
+
+class TimedEvaluator:
+    """An evaluator's host seconds in `process` and in `evaluate`."""
+
+    def __init__(self, evaluator):
+        self.evaluator, self.process_s, self.evaluate_s = evaluator, 0.0, 0.0
+
+    def reset(self):
+        self.evaluator.reset()
+
+    def process(self, per_image):
+        t0 = time.perf_counter()
+        self.evaluator.process(per_image)
+        self.process_s += time.perf_counter() - t0
+
+    def evaluate(self):
+        t0 = time.perf_counter()
+        out = self.evaluator.evaluate()
+        self.evaluate_s += time.perf_counter() - t0
+        return out
+
+
+def kernel_and_plain(model, cfg, loader, phase):
+    """inference_on_dataset over `loader`, through the NMS kernel (its count
+    set to 0 just before, read just after) and then with the plain
+    suppression, each with a Recorder beside the dataset's evaluators. The
+    per-image detections must be equal exactly and the results dicts key for
+    key; the plain turn must launch no NMS kernel. Returns, per turn,
+    (results, seconds, NMS launches, detections, {evaluator: (process s,
+    evaluate s)}, the R40 engine's seconds)."""
+    from dd3d_tpu_torch.evaluators import get_evaluator
+    from dd3d_tpu_torch.evaluators.kitti_3d import KITTIEvaluationEngine
+    from dd3d_tpu_torch.models.postprocess import inference_on_dataset
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+
+    engine_s = []
+    engine_evaluate = KITTIEvaluationEngine.evaluate
+
+    def timed_engine(self, *args):
+        t0 = time.perf_counter()
+        out = engine_evaluate(self, *args)
+        engine_s.append(time.perf_counter() - t0)
+        return out
+
+    turns = {}
+    KITTIEvaluationEngine.evaluate = timed_engine
+    try:
+        for turn, suppress in (("kernel", None), ("plain", greedy_nms_plain)):
+            evaluators = [TimedEvaluator(ev) for ev in get_evaluator(cfg, cfg.DATASETS.TEST.NAME)]
+            recorder = Recorder()
+            greedy_nms.launches = 0
+            t0 = time.perf_counter()
+            results = inference_on_dataset(model, cfg, loader, evaluators + [recorder], suppress=suppress)
+            seconds = time.perf_counter() - t0
+            parts = {type(ev.evaluator).__name__: (ev.process_s, ev.evaluate_s) for ev in evaluators}
+            turns[turn] = (results, seconds, greedy_nms.launches, recorder.dets, parts, engine_s[-1])
+    finally:
+        KITTIEvaluationEngine.evaluate = engine_evaluate
+    (res_k, _, launches, dets_k, _, _), (res_p, _, plain_launches, dets_p, _, _) = turns["kernel"], turns["plain"]
+    kept = sum(len(d["scores"]) for d in dets_k)
+    log(f"{phase} inference_on_dataset, NMS kernel and plain suppression: {len(dets_k)} images, {kept} detections "
+        f"kept, NMS kernel launches {launches} / {plain_launches} for {len(loader)} batches; detections identical: "
+        f"{same_detections(dets_k, dets_p)}, results identical: {same_results(res_k, res_p)}")
+    if len(dets_k) != len(loader.sampler) or kept == 0:
+        raise AssertionError(f"{phase}: {len(dets_k)} images of {len(loader.sampler)}, {kept} detections")
+    if not same_detections(dets_k, dets_p):
+        raise AssertionError(f"{phase}: detections through the NMS kernel and with the plain suppression differ")
+    if not same_results(res_k, res_p):
+        raise AssertionError(f"{phase}: results through the NMS kernel and with the plain suppression differ")
+    if launches < len(loader) or plain_launches != 0:
+        raise AssertionError(f"{phase}: NMS kernel launches {launches} / {plain_launches} for {len(loader)} batches")
+    if not np.isfinite(res_k["kitti_3d"]["kitti_box3d_r40/Car_Moderate_0.5"]):
+        raise AssertionError(f"{phase}: the Car AP is not finite")
+    return turns
+
+
+def phase16_eval(tmp, root, run_dir, device):
+    """EVAL_ONLY through the CLI (under torch.distributed.run) from phase
+    14's checkpoint, then inference_on_dataset in this process on the same
+    loader's batches through the NMS kernel and with the plain suppression:
+    identical detections and results, at least one kernel launch a batch."""
+    from dd3d_tpu_torch.data.build import build_test_dataloader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.train import flatten_results
+    from dd3d_tpu_torch.training.checkpoint import load_weights
+
+    ckpt = os.path.join(run_dir, "ckpt")
+    # 10 steps from He-initialized weights score every box below the 0.05
+    # pre-NMS threshold: at 0 the NMS kernel and the evaluators get real work
+    cfg = loader_cfg(root, **{"TEST.AUG.ENABLED": False, "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH": 0.0})
+    register_datasets(cfg)
+    loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
+    n_images, n_batches = len(loader.sampler), len(loader)
+
+    res = run_cli("--eval-only", ["+experiments=dd3d_kitti_dla34_overfit", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}",
+                                  "TEST.AUG.ENABLED=False", "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0",
+                                  f"DATASET_ROOT={root}", f"OUTPUT_ROOT={os.path.join(tmp, 'out_eval')}"])
+    out_dir = res["output_dir"]
+    with open(os.path.join(out_dir, "kitti_predictions.json")) as f:
+        n_predictions = len(json.load(f))
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        cli_rows = [json.loads(line) for line in f]
+    logged = [k for k in (CAR_AP3D, "bbox/AP") if f"{k} = " in res["log"]]
+    log(f"phase16 EVAL_ONLY CLI from {ckpt} ({res['seconds']:.1f} s, process start and model included): "
+        f"{n_predictions} predictions in kitti_predictions.json, NMS kernel launches {res['nms_launches']} for "
+        f"{n_batches} batch(es) of {n_images} images; logged {logged}; {CAR_AP3D} = "
+        f"{cli_rows[-1].get(CAR_AP3D, float('nan')):.4f}")
+    if n_predictions == 0 or len(logged) != 2 or len(cli_rows) != 1 or "bbox/AP" not in cli_rows[0]:
+        raise AssertionError("phase16: the EVAL_ONLY CLI did not write and log its results")
+    if res["nms_launches"] < n_batches:
+        raise AssertionError(f"phase16: {res['nms_launches']} NMS kernel launches for {n_batches} batches")
+
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    step = load_weights(model, ckpt)
+    turns = kernel_and_plain(model.to(device), cfg, loader, "phase16")
+    res_k = turns["kernel"][0]
+    cli = {k: v for k, v in cli_rows[0].items() if k not in ("step", "ts")}
+    log(f"phase16 ok: checkpoint step {step}; kernel and plain identical ({len(flatten_results(res_k))} metrics); "
+        f"in-process results equal the CLI's: {same_results(flatten_results(res_k), cli)}")
+    return turns["kernel"][2]
+
+
+def phase18_eval_scale(tmp, overfit_dir, device, card):
+    """Evaluation at the size of a test set: the overfit run's trained
+    checkpoint over EVAL_IMAGES frames of the fixture (the first 8 are the
+    frames it trained on), batch 4 at 384x1280, bf16. The loader alone, then
+    inference_on_dataset through the NMS kernel and with the plain
+    suppression (kernel_and_plain's checks): images/s, each evaluator's
+    seconds and the R40 engine's."""
+    from dd3d_tpu_torch.data.build import build_test_dataloader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_plain
+    from dd3d_tpu_torch.overfit_smoke import make_fixture, overfit_cfg
+    from dd3d_tpu_torch.training.checkpoint import load_weights
+
+    t0 = time.time()
+    root = make_fixture(os.path.join(tmp, "fixture_eval"), n_images=EVAL_IMAGES)
+    write_s = time.time() - t0
+    cfg = overfit_cfg(root, OVERFIT_ITERS)
+    register_datasets(cfg)
+    loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    step = load_weights(model, os.path.join(overfit_dir, "ckpt"))
+    model = model.to(device)
+
+    t0 = time.perf_counter()
+    batches = [batch for batch, _meta in loader]
+    loader_s = time.perf_counter() - t0
+    for suppress in (None, greedy_nms_plain):  # warm-up at the batch's shape: cuDNN, the kernels
+        get_inference_fn(model, cfg, suppress=suppress)(batches[0]["image"], batches[0]["intrinsics"])
+    del batches
+    torch.cuda.synchronize()
+
+    turns = kernel_and_plain(model, cfg, loader, "phase18")
+    res, sec, launches, dets, parts, r40_s = turns["kernel"]
+    n = len(dets)
+    ips = {turn: n / t[1] for turn, t in turns.items()}
+    kitti = res["kitti_3d"]
+    log(f"phase18 on {card}: the overfit checkpoint (step {step}) over {n} frames (written in {write_s:.1f} s), "
+        f"{len(loader)} batches of {cfg.TEST.IMS_PER_BATCH} at short side {cfg.INPUT.RESIZE.MIN_SIZE_TEST}, "
+        f"{cfg.TPU.COMPUTE_DTYPE}: "
+        f"{ips['kernel']:.2f} images/s with the NMS kernel ({sec:.3f} s: loader, forward, decode, evaluators), "
+        f"{ips['plain']:.2f} with the plain suppression; the loader alone {n / loader_s:.2f} images/s "
+        f"({loader_s:.3f} s); {sum(len(d['scores']) for d in dets)} detections kept; NMS kernel launches {launches}")
+    log(f"phase18 host seconds of the kernel turn by evaluator (process, evaluate): "
+        + ", ".join(f"{k} {p:.4f} / {e:.4f}" for k, (p, e) in parts.items())
+        + f"; the R40 engine {r40_s:.4f} s of KITTI3DEvaluator.evaluate")
+    log(f"phase18 AP over {n} frames: {CAR_AP3D} {kitti['kitti_box3d_r40/Car_Moderate_0.5']:.2f}, "
+        f"BEV {kitti['kitti_bev_r40/Car_Moderate_0.5']:.2f}, COCO bbox/AP {res['bbox']['AP']:.2f}")
+    log("phase18 ok")
+    return {"images_per_s": ips["kernel"], "plain_images_per_s": ips["plain"], "loader_images_per_s": n / loader_s,
+            "r40_s": r40_s, "parts": parts, "nms_launches": launches, "n_images": n}
+
+
+def phase17_overfit(tmp, root, card):
+    """The overfit run: `python -m dd3d_tpu_torch.overfit_smoke --iters
+    OVERFIT_ITERS --n-images 8 --int8-ab` on the fixture with the stem dW on
+    its kernel: its AP, ms a step, the int8 arm's worst |dAP| and each
+    arm's kernel launches."""
+    out_dir = os.path.join(tmp, "out_overfit")
+    cmd = [sys.executable, "-m", "dd3d_tpu_torch.overfit_smoke", "--iters", str(OVERFIT_ITERS), "--n-images", "8",
+           "--int8-ab", "--root", root, "--output-dir", out_dir, "TPU.PALLAS_STEM_DW=True"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.time() - t0
+    lines = proc.stdout.splitlines()
+    for line in [ln for ln in lines if not ln.startswith("INT8 AB: kitti")] + proc.stderr.splitlines()[-6:]:
+        log(f"  | {line[:220]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase17: the overfit run exited {proc.returncode}")
+
+    def value(prefix):
+        found = [ln for ln in lines if ln.startswith(prefix)]
+        return float(found[-1].rsplit("=", 1)[1]) if found else float("nan")
+
+    launches = {}
+    for ln in lines:
+        if ln.startswith("KERNEL LAUNCHES "):
+            arm, counts = ln[len("KERNEL LAUNCHES "):].split(": ")
+            launches[arm] = {k: int(v) for k, v in (c.split("=") for c in counts.split())}
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    windows = [r for r in rows if "imgs_per_sec" in r]
+    ms_step = 4 / windows[-1]["imgs_per_sec"] * 1e3 if windows else float("nan")  # batch 4
+    ap3d, bev, dap = (value("OVERFIT RESULT: Car Moderate AP3D@0.5"), value("OVERFIT RESULT: Car Moderate BEV@0.5"),
+                      value("INT8 AB RESULT: worst |dAP|"))
+    log(f"phase17 overfit run on {card}: {OVERFIT_ITERS} steps of batch 4 at 384x1280 in {seconds:.1f} s "
+        f"(process start, loader, evaluations included); {ms_step:.2f} ms a step over the last window of 20 "
+        f"(steps {windows[-1]['step'] if windows else '-'}); Car Moderate AP3D@0.5 {ap3d:.2f}, BEV@0.5 {bev:.2f}; "
+        f"int8 worst |dAP| {dap:.2f}; kernel launches {launches}")
+    if not (np.isfinite(ap3d) and np.isfinite(bev) and np.isfinite(dap)):
+        raise AssertionError("phase17: an AP is not finite")
+    int8 = launches.get("int8", {})
+    if int8.get("quantize_int8", 0) == 0 or int8.get("int8_conv", 0) == 0 or int8.get("greedy_nms", 0) < 2:
+        raise AssertionError(f"phase17: the int8 arm did not launch the int8 kernels and NMS: {int8}")
+    if launches.get("bf16", {}).get("greedy_nms", 0) < 2:
+        raise AssertionError(f"phase17: the bf16 evaluation launched NMS {launches.get('bf16')} times for 2 batches")
+    if launches.get("train", {}).get("conv_dw_s1_same") != 2 * OVERFIT_ITERS:
+        raise AssertionError(f"phase17: training launched the dW kernel {launches.get('train')} times")
+    log("phase17 ok")
+    return {"ap3d": ap3d, "bev": bev, "dap": dap, "ms_step": ms_step, "seconds": seconds, "launches": launches,
+            "output_dir": out_dir}
+
+
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] in ("--cli-rank", "--cli-timing"):
-        (cli_rank if sys.argv[1] == "--cli-rank" else cli_timing)(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] in ("--cli-rank", "--cli-timing", "--eval-only"):
+        {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only}[sys.argv[1]](sys.argv[2:])
         return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1342,7 +1656,8 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "imageio.cpp")  # one compiler each
+    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "imageio.cpp",
+                    "kitti_eval.cpp")  # one compiler each
     log(f"kernels built in {time.time() - t0:.2f} s")
 
     nms_err, random_nms = phase1_kernel(device)
@@ -1381,9 +1696,14 @@ def main():
     train_ms, train_peak, dw_ms = phase13_train_timing(device, stem_cases)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        cli_dw_launches, syncbn_per_step, root = phase14_cli(tmp)
+        cli_dw_launches, syncbn_per_step, root, run_dir = phase14_cli(tmp)
         torch.cuda.synchronize()
         loader_ips, cli_ms, synth_ms = phase15_cli_timing(tmp, root, card)
+        torch.cuda.synchronize()
+        eval_nms_launches = phase16_eval(tmp, root, run_dir, device)
+        torch.cuda.synchronize()
+        overfit = phase17_overfit(tmp, root, card)
+        evaluation = phase18_eval_scale(tmp, overfit["output_dir"], device, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -1401,6 +1721,12 @@ def main():
     log(f"timing on {card}: train loader alone {loader_ips[False]:.1f} images/s (threads), {loader_ips[True]:.1f} "
         f"images/s (process pool); CLI step {cli_ms:.2f} ms with the loader vs {synth_ms:.2f} ms on synthetic "
         f"batches at bucket {TIMING_BUCKET}; SyncBN {syncbn_per_step} all-reduces a forward (as many in backward)")
+    log(f"timing on {card}: evaluation {evaluation['images_per_s']:.2f} images/s over {evaluation['n_images']} "
+        f"frames (loader, forward, decode, evaluators; the loader alone {evaluation['loader_images_per_s']:.2f}), "
+        f"the R40 engine {evaluation['r40_s']:.4f} s; NMS launches on the eval path {eval_nms_launches} (phase 16), "
+        f"{evaluation['nms_launches']} (phase 18); overfit run {OVERFIT_ITERS} steps: "
+        f"{overfit['ms_step']:.2f} ms a step of batch 4, Car Moderate AP3D@0.5 {overfit['ap3d']:.2f}, BEV@0.5 "
+        f"{overfit['bev']:.2f}, int8 worst |dAP| {overfit['dap']:.2f}, its arms' launches {overfit['launches']}")
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
              "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],

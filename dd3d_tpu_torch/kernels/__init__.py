@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels and its host C++ code.
 
 Each source under dd3d_tpu_torch/csrc/ has a plain C interface. A `.cu`
-source is compiled with nvcc for sm_90a, the host image code (`imageio.cpp`)
-with g++, into a shared library under dd3d_tpu_torch/kernels/_build/ (listed
-in .gitignore), named by a hash of the source and the flags, on first use in
-a process, and loaded with ctypes. Nothing is built when a module is
-imported.
+source is compiled with nvcc for sm_90a, the host code (`imageio.cpp`, the
+image reader; `kitti_eval.cpp`, the KITTI R40 engine) with g++ and OpenMP,
+into a shared library under dd3d_tpu_torch/kernels/_build/ (listed in
+.gitignore), named by a hash of the source and the flags, on first use in a
+process, and loaded with ctypes. Nothing is built when a module is imported,
+and a failed build raises: no prebuilt library stands in.
 """
 import ctypes
 import hashlib
@@ -18,7 +19,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "kernels", "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC")
-GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# The host code with the JAX package's flags for its R40 engine
+# (dd3d_tpu/evaluators/native/__init__.py:28).
+GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _LOADED = {}
 
@@ -40,7 +43,7 @@ def _compiler(source: str):
         return _nvcc(), NVCC_FLAGS
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found; the port's host image code is built on first use")
+        raise RuntimeError(f"g++ not found; the port's host code ({source}) is built on first use")
     return gxx, GXX_FLAGS
 
 

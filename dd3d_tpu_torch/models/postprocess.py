@@ -1,7 +1,10 @@
-"""Serving entry: images in, fixed-size detections out; and the host-side
-unpacking of those detections into per-image dicts. Counterpart of
-dd3d_tpu/models/postprocess.py (`get_inference_fn`, `unpack_detections`).
+"""Serving entry: images in, fixed-size detections out; the host-side
+unpacking of those detections into per-image dicts; and the evaluation loop
+over a test loader. Counterpart of dd3d_tpu/models/postprocess.py
+(`get_inference_fn`, `unpack_detections`, `inference_on_dataset`).
 """
+import queue
+import threading
 from typing import Dict, List
 
 import numpy as np
@@ -88,3 +91,71 @@ def unpack_detections(det: Dict[str, np.ndarray], batch: Dict[str, np.ndarray], 
             })
         out.append(item)
     return out
+
+
+def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None, suppress=None):
+    """Run the model over a test loader of (batch, meta), feed the
+    evaluators, and return their merged results (cf. d2's
+    inference_on_dataset as scripts/train.py:196 uses it). A producer
+    thread runs the loader two batches ahead, so mapping overlaps the
+    forward; an exception in the loader is raised here. `model` may be a
+    DistributedDataParallel wrapper: its module runs. Each rank evaluates the
+    batches of its own loader on its own card, and every rank must reach
+    the evaluators' `evaluate` (a gather). `suppress` is passed on to
+    `get_inference_fn`.
+
+    The prediction visualization (`visualize_dir`) is not ported: set, it
+    raises."""
+    if visualize_dir is not None:
+        raise NotImplementedError("visualize_dir: the prediction visualization is not ported (the visualizers, "
+                                  "ROADMAP §1 item 3)")
+    infer = get_inference_fn(getattr(model, "module", model), cfg, suppress=suppress)
+    for ev in evaluators:
+        ev.reset()
+
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def producer():
+        try:
+            for item in dataloader:
+                if stop.is_set():
+                    return
+                put(item)
+        except Exception as e:  # handed to the consumer, which raises it
+            put(e)
+        finally:
+            put(None)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, Exception):
+                raise item
+            batch, meta = item
+            det = infer(batch["image"], batch["intrinsics"])
+            per_image = unpack_detections(det, batch, meta)
+            for ev in evaluators:
+                ev.process(per_image)
+    finally:
+        stop.set()
+        thread.join(timeout=5)
+
+    results = {}
+    for ev in evaluators:
+        r = ev.evaluate()
+        if r:
+            results.update(r)
+    return results

@@ -1,13 +1,28 @@
-"""The synthetic KITTI-format fixture of the overfit smoke experiment, the
-port's counterpart of scripts/overfit_smoke.py::make_fixture (:36-85): the
-same calib, label and split files, and the same pixels, written without
-cv2 (data/imageio.write_png). Only the fixture is ported; the overfit
-training and evaluation run need the evaluation slice (ROADMAP §1 item 3).
+"""The overfit smoke experiment, the port's counterpart of
+scripts/overfit_smoke.py (the reference's `dd3d_kitti_dla34_overfit`
+validation recipe, README.md:147-155): write a synthetic KITTI-format
+fixture (calib, labels, split, and images with a rendered car at each
+ground-truth box; `make_fixture`, equal to scripts/overfit_smoke.py:36-85
+and written without cv2, data/imageio.write_png), train
+`dd3d_kitti_dla34` on it until the model reproduces it, then run the whole
+evaluation stack on it (test loader, forward, decode, NMS kernel, the
+KITTI-3D and COCO-2D evaluators, the C++ R40 engine) and print the Car
+Moderate AP. With `--int8-ab` the same weights are evaluated again in
+static int8, calibrated on the eval loader's batches, and the per-metric
+difference is printed.
 
-    python -m dd3d_tpu_torch.overfit_smoke --root /tmp/fixture --n-images 8
+    python -m dd3d_tpu_torch.overfit_smoke [--iters 400] [--n-images 8] [--int8-ab] [KEY=VALUE ...]
+    python -m dd3d_tpu_torch.overfit_smoke --root /tmp/fixture --n-images 8 --fixture-only
+
+KEY=VALUE overrides apply after the experiment's own. Each kernel's launch
+count over the training and over each evaluation is printed (`KERNEL
+LAUNCHES`). A rerun with the same `--output-dir` resumes from its latest
+checkpoint (`--skip-train` evaluates that checkpoint without training).
 """
 import argparse
+import logging
 import os
+import tempfile
 
 import numpy as np
 
@@ -86,12 +101,136 @@ def make_fixture(root: str, n_images: int = 4):
     return root
 
 
+def overfit_cfg(root: str, iters: int, overrides=()):
+    """dd3d_kitti_dla34 trained and tested on the fixture's train split
+    (scripts/overfit_smoke.py:116-135), then the KEY=VALUE `overrides`."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.train import parse_overrides
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34")
+    cfg.DATASET_ROOT = root
+    cfg.DATASETS.TRAIN.NAME = "kitti_3d_train"
+    cfg.DATASETS.TEST.NAME = "kitti_3d_train"
+    cfg.SOLVER.IMS_PER_BATCH = 4
+    cfg.SOLVER.MAX_ITER = iters
+    cfg.SOLVER.BASE_LR = 0.002
+    cfg.SOLVER.WARMUP_ITERS = 100
+    cfg.SOLVER.STEPS = [iters * 9 // 10]
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 10.0
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.TEST.IMS_PER_BATCH = 4
+    # one static shape: train and eval at min side 384
+    cfg.INPUT.RESIZE.MIN_SIZE_TRAIN = [384]
+    cfg.INPUT.RESIZE.MIN_SIZE_TEST = 384
+    cfg.DATALOADER.TRAIN.NUM_WORKERS = 4
+    cfg.DATALOADER.TRAIN.SAMPLER = "TrainingSampler"
+    return parse_overrides(overrides, cfg)
+
+
+def kernel_launches() -> dict:
+    """The launch counts of the port's kernel wrappers."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    return {k.__name__: k.launches for k in (greedy_nms, quantize_int8, int8_conv, conv_dw_s1_same)}
+
+
+def counted(arm: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), printing the kernels launched inside it."""
+    before = kernel_launches()
+    out = fn(*args, **kwargs)
+    after = kernel_launches()
+    print(f"KERNEL LAUNCHES {arm}: " + " ".join(f"{k}={after[k] - before[k]}" for k in after), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--root", required=True)
+    parser.add_argument("--iters", type=int, default=400)
+    parser.add_argument("--root", default=os.path.join(tempfile.gettempdir(), "dd3d_overfit_fixture"))
+    parser.add_argument("--output-dir", default=os.path.join(tempfile.gettempdir(), "dd3d_overfit_out"))
+    parser.add_argument("--min-ap", type=float, default=0.0, help="fail below this Moderate AP")
     parser.add_argument("--n-images", type=int, default=4, help="fixture size; >4 varies car pose over a grid")
-    args = parser.parse_args(argv)
-    print(make_fixture(args.root, n_images=args.n_images))
+    parser.add_argument("--int8-ab", action="store_true",
+                        help="after the bf16 eval, evaluate again in static int8 (calibrated on the eval "
+                             "loader's batches, QUANT_MIN_CH 32) and print each metric's dAP")
+    parser.add_argument("--max-dap", type=float, default=None, help="with --int8-ab: fail if any |dAP| exceeds this")
+    parser.add_argument("--quant-unfolded", action="store_true",
+                        help="with --int8-ab: also quantize the norm-free predictor convs (TPU.QUANT_UNFOLDED)")
+    parser.add_argument("--skip-train", action="store_true",
+                        help="evaluate the latest checkpoint in the output directory instead of training")
+    parser.add_argument("--fixture-only", action="store_true", help="write the fixture, print its root, and stop")
+    parser.add_argument("--device", default="cuda", help="cuda (default), or cpu")
+    parser.add_argument("overrides", nargs="*", help="KEY=VALUE config overrides")
+    args = parser.parse_intermixed_args(argv)
+
+    make_fixture(args.root, n_images=args.n_images)
+    if args.fixture_only:
+        print(args.root)
+        return None
+
+    import torch
+
+    from dd3d_tpu_torch.data.build import build_test_dataloader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.models.calibrate import prepare_static_scales
+    from dd3d_tpu_torch.train import do_test, do_train
+    from dd3d_tpu_torch.training.checkpoint import CheckpointManager
+    from dd3d_tpu_torch.utils.comm import resolve_device
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = overfit_cfg(args.root, args.iters, args.overrides)
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    register_datasets(cfg)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+
+    if args.skip_train:
+        model = model.to(device)
+        step = CheckpointManager(os.path.join(args.output_dir, "ckpt")).restore(model)
+        if step is None:
+            raise SystemExit(f"--skip-train: no checkpoint in {args.output_dir}/ckpt")
+    else:
+        state = counted("train", do_train, cfg, model, args.output_dir, device)
+        model, step = state.model, state.step
+    results = counted("bf16", do_test, cfg, model, args.output_dir, step=step)
+
+    kitti = results.get("kitti_3d", {})
+    ap = max((v for k, v in kitti.items() if "Car_Moderate_0.5" in k and "box3d" in k), default=float("nan"))
+    bev = max((v for k, v in kitti.items() if "Car_Moderate_0.5" in k and "bev" in k), default=float("nan"))
+    print(f"OVERFIT RESULT: Car Moderate AP3D@0.5 = {ap:.2f}")
+    print(f"OVERFIT RESULT: Car Moderate BEV@0.5 = {bev:.2f}", flush=True)
+
+    if args.int8_ab:
+        # Same weights and evaluation stack; quantization is the only change.
+        # Calibration uses the eval loader's own batches, as a deployment
+        # calibrates on representative frames.
+        loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
+        calib_images = [batch["image"] for batch, _ in loader]
+        ab_cfg = cfg.clone()
+        if args.quant_unfolded:
+            ab_cfg.TPU.QUANT_UNFOLDED = True
+        icfg = prepare_static_scales(ab_cfg, model, calib_images, tag="overfit_ab")
+        icfg.TPU.QUANT_MIN_CH = 32  # the shipped gate (bench.py)
+        kitti8 = counted("int8", do_test, icfg, model, args.output_dir, step=step).get("kitti_3d", {})
+        print("INT8 AB: metric  bf16  int8  dAP")
+        worst = 0.0
+        for k in sorted(kitti):
+            d = kitti8.get(k, float("nan")) - kitti[k]
+            worst = max(worst, abs(d))
+            print(f"INT8 AB: {k} {kitti[k]:.2f} {kitti8.get(k, float('nan')):.2f} {d:+.2f}")
+        print(f"INT8 AB RESULT: worst |dAP| = {worst:.2f}", flush=True)
+        if args.max_dap is not None and worst > args.max_dap:
+            raise SystemExit(f"int8 |dAP| {worst:.2f} > allowed {args.max_dap}")
+
+    if ap < args.min_ap:
+        raise SystemExit(f"AP {ap:.2f} < required {args.min_ap}")
+    return results
 
 
 if __name__ == "__main__":

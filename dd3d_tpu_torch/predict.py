@@ -101,14 +101,16 @@ def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
 
 
 def load_model(cfg, ckpt, seed: int, device):
-    """The port's model: a reference-named `.pth` state dict, or random
-    weights drawn from `seed` when `ckpt` is empty."""
+    """The port's model: a reference-named `.pth` state dict or a checkpoint
+    directory (training/checkpoint.load_weights), or random weights drawn
+    from `seed` when `ckpt` is empty."""
     from dd3d_tpu_torch.models import build_model
+
+    from dd3d_tpu_torch.training.checkpoint import load_weights
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     if ckpt:
-        sd = torch.load(ckpt, map_location="cpu")
-        model.load_state_dict(sd.get("model", sd), strict=True)
+        load_weights(model, ckpt)
     return model.to(device)
 
 

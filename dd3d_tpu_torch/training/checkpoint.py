@@ -2,7 +2,8 @@
 dd3d_tpu/training/checkpoint.py: `torch.save` of the model's state dict
 (parameters and BN statistics), the optimizer's (momentum buffers and the
 schedule count) and the step, one file a step; the last `max_to_keep` are
-kept, and `restore` loads the latest."""
+kept, and `restore` loads the latest. `load_weights` loads a model's weights
+from such a directory or from a reference-named state dict file."""
 import os
 import re
 from typing import List, Optional
@@ -10,6 +11,7 @@ from typing import List, Optional
 import torch
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+REMOTE_PREFIXES = ("http://", "https://", "s3://", "gs://")  # not fetched: the port needs no network
 
 
 class CheckpointManager:
@@ -36,14 +38,36 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
 
-    def restore(self, model: torch.nn.Module, optimizer, step: Optional[int] = None) -> Optional[int]:
-        """Load checkpoint `step` (default: the latest) into `model` and
-        `optimizer`; returns its step, or None when there is none."""
+    def restore(self, model: torch.nn.Module, optimizer=None, step: Optional[int] = None) -> Optional[int]:
+        """Load checkpoint `step` (default: the latest) into `model` and, when
+        one is given, `optimizer`; returns its step, or None when there is
+        none."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         device = next(model.parameters()).device
         payload = torch.load(self._path(step), map_location=device, weights_only=True)
         model.load_state_dict(payload["model"])
-        optimizer.load_state_dict(payload["optimizer"])
+        if optimizer is not None:
+            optimizer.load_state_dict(payload["optimizer"])
         return int(payload["step"])
+
+
+def load_weights(model: torch.nn.Module, path: str) -> Optional[int]:
+    """Load weights into `model` from `path`: a checkpoint directory of
+    `CheckpointManager` (its latest step; returned), or a state dict with
+    the reference's names in a `.pth` / `.pt` file (a {"model": ...}
+    payload too; None is returned). Remote paths are not fetched."""
+    if path.startswith(REMOTE_PREFIXES):
+        raise NotImplementedError(f"{path}: remote checkpoints are not fetched (no network); give a local .pth/.pt "
+                                  "file or a checkpoint directory")
+    if os.path.isdir(path):
+        step = CheckpointManager(path).restore(model)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {path}")
+        return step
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
+    model.load_state_dict(sd.get("model", sd), strict=True)
+    return None

@@ -8,8 +8,9 @@ SOLVER.CHECKPOINT_PERIOD saved on rank 0 and restored on every rank, the
 eval hook every TEST.EVAL_PERIOD, and a raise when the loss diverges.
 
 The dataloader visualization (VIS.DATALOADER_ENABLED) draws with cv2, which
-the port does not use: it is not ported (ROADMAP §1 item 3), and a run
-whose visualization period falls inside MAX_ITER raises at its start.
+the port does not use: it is not ported yet (the visualizers, ROADMAP §1
+item 3), and a run whose visualization period falls inside MAX_ITER raises
+at its start.
 """
 import itertools
 import logging
@@ -135,7 +136,8 @@ def check_unported_options(cfg, max_iter: int, writes_output: bool) -> None:
     if writes_output and bool(vis.get("DATALOADER_ENABLED", False)) and 0 < period <= max_iter:
         raise NotImplementedError(
             f"VIS.DATALOADER_ENABLED with VIS.DATALOADER_PERIOD={period} inside SOLVER.MAX_ITER={max_iter}: the "
-            "dataloader visualization is not ported (ROADMAP §1 item 3); set VIS.DATALOADER_ENABLED=False")
+            "dataloader visualization is not ported (the visualizers, ROADMAP §1 item 3); set "
+            "VIS.DATALOADER_ENABLED=False")
 
 
 def train(cfg, data_iter: Iterable, model: Optional[torch.nn.Module] = None, state: Optional[TrainState] = None,

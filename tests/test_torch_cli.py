@@ -5,9 +5,11 @@ of scripts/train.py) and the device rule of its entry points:
   environment, as `python -m torch.distributed.run --nproc-per-node 2`
   sets it) trains 2 steps of dd3d_kitti_dla34_overfit at full width on the
   port's fixture at a tiny resize, into one timestamped run directory:
-  metrics.jsonl from rank 0 only, finite losses, the checkpoint of step 2;
-- what is not ported raises before anything is built: EVAL_ONLY, a
-  TEST.EVAL_PERIOD inside MAX_ITER, the dataloader visualization, W&B;
+  metrics.jsonl from rank 0 only, finite losses, the checkpoint of step 2,
+  and the final test's results;
+- what is not ported raises before anything is built: test-time
+  augmentation in EVAL_ONLY and in the final test after training, the
+  dataloader visualization, W&B;
 - without a card, the CLI, `train()`, `predict` and `calibrate_int8` raise
   unless the CPU is asked for (`torch.cuda.is_available` is patched to
   False, so the check is the same on a machine with a card).
@@ -39,7 +41,8 @@ def cli_args(root, out_root, *extra):
             f"OUTPUT_ROOT={out_root}", "INPUT.RESIZE.MIN_SIZE_TRAIN=[64]", "SOLVER.IMS_PER_BATCH=2",
             "SOLVER.MAX_ITER=2", "SOLVER.CHECKPOINT_PERIOD=2", "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False",
             "TPU.COMPUTE_DTYPE='float32'", "DATALOADER.TRAIN.USE_PROCESS_POOL=False",
-            "DATALOADER.TRAIN.NUM_WORKERS=1", *extra]
+            "DATALOADER.TRAIN.NUM_WORKERS=1", "TEST.AUG.ENABLED=False", "INPUT.RESIZE.MIN_SIZE_TEST=64",
+            "TEST.IMS_PER_BATCH=2", "DATALOADER.TEST.NUM_WORKERS=1", *extra]
 
 
 def test_cli_trains_two_steps_on_two_gloo_ranks(fixture_root, tmp_path):
@@ -50,8 +53,11 @@ def test_cli_trains_two_steps_on_two_gloo_ranks(fixture_root, tmp_path):
     run_dir = dirs[0]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
-    assert [r["step"] for r in rows] == [2]  # the last step; rank 0 alone writes
-    assert all(np.isfinite(r["total_loss"]) and r["loss_finite"] == 1.0 for r in rows)
+    train_rows = [r for r in rows if "total_loss" in r]
+    assert [r["step"] for r in train_rows] == [2]  # the last step; rank 0 alone writes
+    assert all(np.isfinite(r["total_loss"]) and r["loss_finite"] == 1.0 for r in train_rows)
+    test_rows = [r for r in rows if "total_loss" not in r]  # the final test, on both ranks' shards
+    assert [r["step"] for r in test_rows] == [2] and "kitti_3d/kitti_box3d_r40/Car_Moderate_0.5" in test_rows[0]
     assert CheckpointManager(os.path.join(run_dir, "ckpt")).steps() == [2]
     payload = torch.load(os.path.join(run_dir, "ckpt", "ckpt_00000002.pt"), weights_only=True)
     assert payload["step"] == 2 and payload["optimizer"]["count"] == 2
@@ -60,13 +66,16 @@ def test_cli_trains_two_steps_on_two_gloo_ranks(fixture_root, tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("EVAL_ONLY=True", "EVAL_ONLY"),
-    ("TEST.EVAL_PERIOD=1", "EVAL_PERIOD"),
+    ("TEST.EVAL_PERIOD=1", "the final test after training"),
     ("VIS.DATALOADER_ENABLED=True", "VIS.DATALOADER_ENABLED"),
     ("WANDB.ENABLED=True", "WANDB"),
 ])
 def test_cli_raises_on_what_is_not_ported(fixture_root, tmp_path, override, match):
+    """With TEST.AUG.ENABLED (the KITTI experiments' default), EVAL_ONLY and
+    the final test after training would run test-time augmentation."""
     with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(cli_args(fixture_root, str(tmp_path), "VIS.DATALOADER_PERIOD=1", override))
+        train_cli.main(cli_args(fixture_root, str(tmp_path), "VIS.DATALOADER_PERIOD=1", "TEST.AUG.ENABLED=True",
+                                override))
     assert not os.listdir(tmp_path)  # nothing was built or written
 
 

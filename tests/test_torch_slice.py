@@ -117,9 +117,13 @@ def test_port_runs_without_jax(tmp_path):
     static int8 with bench.py's overrides, then take a bf16 train step through
     `train` with the stem's weight gradient routed to its kernel, then map
     and collate a PNG through `predict.iter_batches`, then write the port's
-    KITTI fixture and take one batch of its train loader, in a fresh
-    interpreter: no jax or flax module, and nothing of the JAX package
-    `dd3d_tpu`, may be imported on the way, and cv2 and PIL are blocked (the
+    KITTI fixture and take one batch of its train loader, then run the
+    native R40 engine and the KITTI-3D and COCO-2D evaluators on the
+    fixture, in a fresh interpreter: no jax or flax module, and nothing of
+    the JAX package `dd3d_tpu`, may be imported on the way, the JAX
+    package's engine library (dd3d_tpu/evaluators/native/libkitti_eval.so)
+    must not be mapped, only the port's own build, and cv2 and PIL are
+    blocked (the
     GPU machine has neither jax nor cv2; the port keeps its own copy of what
     it needs and reads images itself)."""
     import cv2
@@ -170,6 +174,21 @@ def test_port_runs_without_jax(tmp_path):
         "batch, meta = next(it)\n"
         "it.close()\n"
         "assert batch['image'].shape == (2, 128, 384, 3) and batch['gt_valid'].any(), batch['image'].shape\n"
+        "from dd3d_tpu_torch.data.catalog import DatasetCatalog\n"
+        "from dd3d_tpu_torch.evaluators import get_evaluator\n"
+        "from dd3d_tpu_torch.evaluators.native import d3_box_overlap\n"
+        "box = np.array([[0.0, 1.0, 10.0, 4.0, 1.5, 1.6, 0.1]])\n"
+        "assert d3_box_overlap(box, box)[0, 0] > 1 - 1e-12\n"
+        "empty = {'classes': np.zeros(0, int), 'scores': np.zeros(0), 'scores_3d': np.zeros(0),\n"
+        "         'boxes2d': np.zeros((0, 4)), 'quat': np.zeros((0, 4)), 'tvec': np.zeros((0, 3)), 'size': np.zeros((0, 3))}\n"
+        "evaluators = get_evaluator(cfg, 'kitti_3d_train')\n"
+        "for ev in evaluators:\n"
+        "    ev.process([{'image_id': d['image_id'], **empty} for d in DatasetCatalog.get('kitti_3d_train')])\n"
+        "results = [ev.evaluate() for ev in evaluators]\n"
+        "assert results[1]['kitti_3d']['kitti_box3d_r40/Car_Moderate_0.5'] == 0.0, results\n"
+        "import os\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libkitti_eval_' in maps and os.path.join('dd3d_tpu', 'evaluators') not in maps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dd3d_tpu')\n"
         "             or (m.split('.')[0] in ('cv2', 'PIL') and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"

@@ -173,3 +173,95 @@ def cli_rank(argv):
     from dd3d_tpu_torch.train import main
 
     return main(argv)
+
+
+# --- evaluation ----------------------------------------------------------------
+
+def seeded_detections(dataset_dicts, seed: int = 0):
+    """Per-image detections in the evaluators' input schema (the dicts of
+    `unpack_detections`), made from the dataset's ground truth so that AP
+    is neither 0 nor 100: each ground-truth box jittered (3D centre by
+    ~0.4 m, size by up to 10 %, 2D box by ~3 px; scores 0.5-1), two false
+    positives an image at random places and classes (scores 0-0.6), and the
+    first image's ground truth missed."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, d in enumerate(dataset_dicts):
+        annos = [] if i == 0 else d.get("annotations", [])
+        n, k = len(annos), 2
+        vec = np.asarray([a["bbox3d"] for a in annos], np.float64).reshape(n, 10)
+        quat = np.concatenate([vec[:, :4], rng.normal(size=(k, 4))])
+        quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+        tvec = np.concatenate([vec[:, 4:7] + rng.normal(0, 0.4, (n, 3)),
+                               rng.uniform([-10, 0.5, 10], [10, 2, 50], (k, 3))])
+        size = np.concatenate([vec[:, 7:] * rng.uniform(0.9, 1.1, (n, 3)), rng.uniform(0.5, 4, (k, 3))])
+        corner = rng.uniform([0, 100], [1100, 300], (k, 2))
+        boxes2d = np.concatenate([np.asarray([a["bbox"] for a in annos], np.float64).reshape(n, 4)
+                                  + rng.normal(0, 3, (n, 4)),
+                                  np.concatenate([corner, corner + rng.uniform(20, 150, (k, 2))], axis=1)])
+        scores = np.concatenate([rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.6, k)]).astype(np.float32)
+        out.append({
+            "image_id": d["image_id"], "sample_id": d.get("sample_id"),
+            "classes": np.asarray([a["category_id"] for a in annos] + list(rng.randint(0, 5, k)), np.int64),
+            "scores": scores, "scores_3d": (scores * rng.uniform(0.5, 1.0, n + k)).astype(np.float32),
+            "boxes2d": boxes2d, "quat": quat.astype(np.float32), "tvec": tvec.astype(np.float32),
+            "size": size.astype(np.float32)})
+    return out
+
+
+def register_fixture(root: str):
+    """The port's KITTI datasets of the fixture at `root`; its train split's
+    dataset dicts."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.data.catalog import DatasetCatalog, register_datasets
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34_overfit")
+    cfg.DATASET_ROOT = root
+    register_datasets(cfg)
+    return DatasetCatalog.get("kitti_3d_train")
+
+
+def eval_rank(root: str, rank0_only: bool, out_dir: str):
+    """`seeded_detections` of the fixture, this rank's InferenceSampler
+    shard of them into the port's KITTI-3D (writing its JSON into
+    `out_dir`) and COCO-2D evaluators, then `evaluate` on every rank: the
+    results dicts, and the JSON predictions that rank 0 wrote (None on
+    the others)."""
+    import json
+
+    from dd3d_tpu_torch.data.samplers import InferenceSampler
+    from dd3d_tpu_torch.evaluators.coco2d import COCO2DEvaluator
+    from dd3d_tpu_torch.evaluators.kitti_3d import KITTI3DEvaluator
+
+    dets = seeded_detections(register_fixture(root))
+    shard = [dets[i] for i in InferenceSampler(len(dets), dist.get_rank(), dist.get_world_size())]
+    evaluators = [KITTI3DEvaluator("kitti_3d_train", output_dir=out_dir, rank0_only=rank0_only),
+                  COCO2DEvaluator("kitti_3d_train")]
+    for ev in evaluators:
+        ev.process(shard)
+    results = [ev.evaluate() for ev in evaluators]
+    path = os.path.join(out_dir, "kitti_predictions.json")
+    written = None
+    if dist.get_rank() == 0:
+        with open(path) as f:
+            written = json.load(f)
+    return {"results": results, "written": written, "n_local": len(shard)}
+
+
+def failing_eval_cli_rank(argv):
+    """dd3d_tpu_torch.train.main(argv) with its periodic test failing on
+    this rank: what main raised, as a string (every rank must raise rather
+    than skip the evaluators' gather, so that none waits in it)."""
+    import dd3d_tpu_torch.train as train_cli
+
+    def do_test(cfg, model, output_dir, step=None):
+        raise RuntimeError(f"eval failed at step {step}")
+
+    train_cli.do_test = do_test
+    try:
+        train_cli.main(argv)
+    except RuntimeError as e:
+        return str(e)
+    return None

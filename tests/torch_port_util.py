@@ -3,6 +3,7 @@ reference-named state dict with random values, loaded into both the JAX
 package (through its converter) and the PyTorch port (through the port's
 converter), at fp32."""
 import contextlib
+import math
 import os
 import socket
 import time
@@ -144,3 +145,20 @@ def run_gloo(fn, world: int, *args, out_dir, timeout_s: float = 240.0, join_grou
                 p.kill()
             p.join(timeout=10)
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def assert_identical(got, want, what=""):
+    """Evaluation results equal key for key and value for value (NaN equals
+    NaN: a COCO area range without ground truth reads NaN on both sides)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), what
+        for k in want:
+            assert_identical(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_identical(g, w, f"{what}/{i}")
+    elif isinstance(want, float) and math.isnan(want):
+        assert isinstance(got, float) and math.isnan(got), what
+    else:
+        assert got == want, (what, got, want)
