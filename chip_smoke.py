@@ -13,10 +13,11 @@ seeded random weights and seeded synthetic batches, its training CLI
 on image files (`python -m dd3d_tpu_torch.train` under torch.distributed.run
 on the port's KITTI-format fixture), and its evaluation (EVAL_ONLY,
 `inference_on_dataset`, the KITTI-3D and COCO-2D evaluators, the R40 engine;
-the overfit run trained and scored), and fails loudly (non-zero exit) if any
-phase fails. The four CUDA sources (five kernels: NMS is two) and the host
-code (csrc/imageio.cpp, csrc/kitti_eval.cpp with OpenMP, g++) are built
-first, one compiler process each, all at once.
+the overfit run trained and scored), its test-time augmentation and its
+drawings, and fails loudly (non-zero exit) if any phase fails. The four
+CUDA sources (five kernels: NMS is two) and the host code
+(csrc/imageio.cpp, csrc/kitti_eval.cpp with OpenMP, g++) are built first,
+one compiler process each, all at once.
 
 1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
    against the plain PyTorch version on the card, exactly, at N from 1 to
@@ -97,7 +98,29 @@ first, one compiler process each, all at once.
     through the NMS kernel and with the plain suppression, which must give
     identical per-image detections and results dicts; eval images/s
     (loader, forward, decode, evaluators), each evaluator's host seconds and
-    the R40 engine's.
+    the R40 engine's;
+19. the visualizers, on a machine without cv2: the training CLI with the
+    experiment's own TEST.AUG and VIS (4 steps, the dataloader period at 2)
+    draws the dataloader (each drawing differs from its undrawn batch
+    image at every ground-truth box) and, in its final test (plain, then
+    TTA, both in metrics.jsonl), the predictions; `predict --vis` with the
+    overfit checkpoint and `python -m dd3d_tpu_torch.visualize_dataloader`
+    write theirs, each read back with the port's PNG reader and checked
+    for its shape and its drawn boxes;
+20. test-time augmentation at full width on the overfit checkpoint over an
+    80-frame fixture, one chunk at TEST.IMS_PER_BATCH 80, five scales with
+    flip in five canvas buckets of 160 instances, 384x1152 to 640x1920:
+    (a) EVAL_ONLY through the CLI's main, bf16: the plain test, then the
+    TTA test (images/s, buckets, host seconds by part, peak memory,
+    launches, tta/ AP beside the plain AP; its prediction drawings drawn
+    at the cars); (b) the TTA test in static int8 (bench.py's overrides,
+    each bucket calibrated on its first batch): no scale miss, the
+    calibrated buckets, launches, images/s, worst |dAP| against bf16; (c)
+    on 8 frames, int8 TTA through the kernels and through their plain
+    versions: identical detections and results; the int8 conv kernel
+    against its plain version at the largest bucket's P3 tower conv
+    (timed beside cuDNN's bf16 conv and its bound) and at its level0 conv,
+    whose 3.1e9-element input the wrapper launches in two runs.
 
 Before the last line, the card's name and power limit and one JSON line of
 the four kernels: launches on the main path, error against the plain
@@ -108,9 +131,9 @@ that call's ms.
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
 
-`chip_smoke.py --cli-rank ARGS`, `--cli-timing ARGS` and `--eval-only ARGS`
-are phases 14, 15 and 16's CLIs, each inside the process that
-torch.distributed.run starts; they are not run by hand.
+`chip_smoke.py --cli-rank ARGS`, `--cli-timing ARGS`, `--eval-only ARGS` and
+`--vis-rank ARGS` are phases 14, 15, 16 and 19's CLIs, each inside the
+process that torch.distributed.run starts; they are not run by hand.
 """
 import json
 import os
@@ -1152,8 +1175,8 @@ TIMING_BUCKET = 384  # KITTI frames at short side 384: a 384x1280 canvas, phase 
 def cli_overrides(root, out_root, max_iter, *extra):
     """The CLI's arguments: dd3d_kitti_dla34_overfit at full width from the
     fixture, the stem dW on the kernel, checkpoints every 4 steps, no
-    periodic test, the final test without test-time augmentation (not
-    ported), no visualization (not ported)."""
+    periodic test, the final test without test-time augmentation (phase
+    20 runs it) and no dataloader drawing (phase 19 draws)."""
     return ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}", f"OUTPUT_ROOT={out_root}",
             "TPU.PALLAS_STEM_DW=True", f"SOLVER.MAX_ITER={max_iter}", "SOLVER.CHECKPOINT_PERIOD=4",
             "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False", *extra]
@@ -1642,9 +1665,421 @@ def phase17_overfit(tmp, root, card):
             "output_dir": out_dir}
 
 
+VIS_STEPS = 4  # phase 19's CLI run: steps of batch 8, the dataloader drawn at steps 2 and 4
+TTA_IMAGES = 80  # phase 20's frames: one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
+TTA_CHECK_IMAGES = 8  # phase 20(c): int8 TTA through the kernels and through their plain versions
+KITTI_INTRINSICS = "721.5377,721.5377,609.5593,172.854"
+# the canvas buckets of a 375x1242 frame at TEST.AUG.MIN_SIZES [320, 384, 448, 512, 576], one scale and its flip each
+TTA_BUCKETS = ("384x1152", "384x1280", "512x1536", "512x1792", "640x1920")
+
+
+def vis_rank(argv):
+    """Phase 19's CLI inside torch.distributed.run: the CLI's main, with each
+    dataloader drawing's undrawn batch image and valid ground-truth boxes
+    saved under `<output_dir>/undrawn/` (the drawing itself is the loop's),
+    printed as one CLI_RESULT line."""
+    import dd3d_tpu_torch.training.train_loop as train_loop
+    from dd3d_tpu_torch.train import main as train_main
+
+    real = train_loop._visualize_train_batch
+
+    def record(batch, output_dir, storage, max_n, step):
+        real(batch, output_dir, storage, max_n, step)
+        raw = os.path.join(output_dir, "undrawn")
+        os.makedirs(raw, exist_ok=True)
+        imgs, boxes, valid = (batch[k].cpu().numpy() for k in ("image", "gt_boxes2d", "gt_valid"))
+        for i in range(min(max_n, len(imgs))):
+            np.savez(os.path.join(raw, f"dataloader_step{step:06d}_{i}.npz"), image=imgs[i],
+                     boxes=boxes[i][valid[i].astype(bool)])
+
+    train_loop._visualize_train_batch = record
+    out_dir = train_main(argv)
+    torch.cuda.synchronize()
+    print("CLI_RESULT " + json.dumps({"output_dir": out_dir}), flush=True)
+
+
+def drawn_inside(drawn, undrawn, box, margin=3) -> bool:
+    """Whether `drawn` differs from `undrawn` within `margin` px of `box`."""
+    h, w = drawn.shape[:2]
+    x1, y1, x2, y2 = (int(v) for v in box)
+    r0, r1 = max(min(y1, y2) - margin, 0), min(max(y1, y2) + margin + 1, h)
+    c0, c1 = max(min(x1, x2) - margin, 0), min(max(x1, x2) + margin + 1, w)
+    return r0 < r1 and c0 < c1 and bool((drawn[r0:r1, c0:c1] != undrawn[r0:r1, c0:c1]).any())
+
+
+def phase19_visualizers(tmp, root, overfit_dir, card):
+    """The visualizers on a machine without cv2: the training CLI with the
+    experiment's own TEST.AUG and VIS (the dataloader period brought inside
+    VIS_STEPS) draws the dataloader and, in its final test, the predictions;
+    `predict --vis` and `python -m dd3d_tpu_torch.visualize_dataloader` write
+    theirs. Each file is read back with the port's PNG reader: its shape, and
+    that it differs from the undrawn frame where boxes are. (Phase 20's
+    EVAL_ONLY checks its prediction drawings the same way.)"""
+    from dd3d_tpu_torch.data.augmentations import resize_shortest_edge_dims
+    from dd3d_tpu_torch.data.build import build_train_dataloader
+    from dd3d_tpu_torch.data.catalog import DatasetCatalog, register_datasets
+    from dd3d_tpu_torch.data.imageio import read_image_bgr
+    from dd3d_tpu_torch.visualizers.draw import BEVImage
+
+    t0 = time.time()
+    res = run_cli("--vis-rank", ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}",
+                                 f"OUTPUT_ROOT={os.path.join(tmp, 'out_vis')}", "TPU.PALLAS_STEM_DW=True",
+                                 f"SOLVER.MAX_ITER={VIS_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={VIS_STEPS}",
+                                 "TEST.EVAL_PERIOD=0", f"VIS.DATALOADER_PERIOD={VIS_STEPS // 2}"])
+    run_dir = res["output_dir"]
+    vis = os.path.join(run_dir, "visualization")
+    files = sorted(os.listdir(vis))
+    loader_pngs = [f for f in files if f.startswith("dataloader_step")]
+    pred_pngs = [f for f in files if f.startswith("pred_")]
+    want = sorted(f"dataloader_step{s:06d}_{i}.png" for s in range(VIS_STEPS // 2, VIS_STEPS + 1, VIS_STEPS // 2)
+                  for i in range(BATCH))
+    cfg = loader_cfg(root)
+    register_datasets(cfg)
+    n_test = min(8, len(DatasetCatalog.get(cfg.DATASETS.TEST.NAME)))  # prediction drawings: 8 at most
+    if loader_pngs != want or len(pred_pngs) != n_test:
+        raise AssertionError(f"phase19: the CLI wrote {loader_pngs} and {pred_pngs}")
+    n_boxes = 0
+    for name in loader_pngs:
+        drawn = read_image_bgr(os.path.join(vis, name))
+        raw = np.load(os.path.join(run_dir, "undrawn", name[:-4] + ".npz"))
+        if drawn.shape != raw["image"].shape or drawn.shape[1] % 128:
+            raise AssertionError(f"phase19: {name} is {drawn.shape}, its batch image {raw['image'].shape}")
+        for box in raw["boxes"]:
+            n_boxes += 1
+            if not drawn_inside(drawn, raw["image"], box):
+                raise AssertionError(f"phase19: {name} is not drawn at its box {box}")
+    test_hw = resize_shortest_edge_dims(375, 1242, cfg.INPUT.RESIZE.MIN_SIZE_TEST, cfg.INPUT.RESIZE.MAX_SIZE_TEST)
+    for name in pred_pngs:
+        if read_image_bgr(os.path.join(vis, name)).shape != (*test_hw, 3):
+            raise AssertionError(f"phase19: {name} is not the {test_hw} network input")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    tests = [r for r in rows if "total_loss" not in r]
+    if [r["step"] for r in tests] != [VIS_STEPS] * 2 or CAR_AP3D not in tests[0] or not np.isfinite(
+            tests[1].get("tta/" + CAR_AP3D, np.nan)):
+        raise AssertionError(f"phase19: the final tests in metrics.jsonl: {[sorted(r)[:3] for r in tests]}")
+    log(f"phase19 CLI ({res['seconds']:.1f} s, {VIS_STEPS} steps, the final test plain then TTA): "
+        f"{len(loader_pngs)} dataloader drawings, each drawn at all {n_boxes} of its ground-truth boxes; "
+        f"{len(pred_pngs)} prediction drawings at {test_hw}; {CAR_AP3D} {tests[0][CAR_AP3D]:.4f}, tta/ "
+        f"{tests[1]['tta/' + CAR_AP3D]:.4f}")
+
+    images = os.path.join(root, "KITTI3D", "training", "image_2")
+    pred_dir, pred_json = os.path.join(tmp, "predict_vis"), os.path.join(tmp, "predict_vis.json")
+    cmd = [sys.executable, "-m", "dd3d_tpu_torch.predict", "--experiment", "dd3d_kitti_dla34", "--images", images,
+           "--intrinsics", KITTI_INTRINSICS, "--ckpt", os.path.join(overfit_dir, "ckpt"), "--out", pred_json,
+           "--vis", pred_dir, "--score-thresh", "0.3"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"phase19: predict --vis exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(pred_json) as f:
+        records = json.load(f)
+    empty_bev = BEVImage().data
+    n_det = 0
+    for rec in records:
+        frame = read_image_bgr(rec["file_name"])
+        drawn = read_image_bgr(os.path.join(pred_dir, rec["image_id"] + ".png"))
+        bev = read_image_bgr(os.path.join(pred_dir, rec["image_id"] + "_bev.png")) if rec["quat"] else None
+        n_det += len(rec["scores"])
+        if drawn.shape != frame.shape or any(not drawn_inside(drawn, frame, b) for b in rec["boxes2d"]):
+            raise AssertionError(f"phase19: predict --vis {rec['image_id']} is not drawn at its boxes")
+        if bev is not None and (bev.shape != empty_bev.shape or np.array_equal(bev, empty_bev)):
+            raise AssertionError(f"phase19: predict --vis {rec['image_id']}_bev.png is empty")
+    if n_det == 0 or len(os.listdir(pred_dir)) != len(records) + sum(bool(r["quat"]) for r in records):
+        raise AssertionError(f"phase19: predict --vis: {n_det} detections, files {sorted(os.listdir(pred_dir))}")
+    log(f"phase19 predict --vis: {len(records)} frames, {n_det} detections at score >= 0.3 from the overfit "
+        f"checkpoint, each frame drawn at its boxes, BEV images drawn")
+
+    loader_dir = os.path.join(tmp, "loader_vis")
+    n_vis = 4
+    cmd = [sys.executable, "-m", "dd3d_tpu_torch.visualize_dataloader", "--experiment", "dd3d_kitti_dla34_overfit",
+           "--num-images", str(n_vis), "--output-dir", loader_dir, f"DATASET_ROOT={root}"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"phase19: visualize_dataloader exited {proc.returncode}: {proc.stderr[-2000:]}")
+    loader = build_train_dataloader(cfg, batch_size=1, num_workers=1)
+    rng = np.random.RandomState(0)  # the CLI's sample stream
+    n_boxes = 0
+    for i, d in enumerate(loader.dataset_dicts[:n_vis]):
+        sample = loader.mapper(d, rng)
+        d2 = read_image_bgr(os.path.join(loader_dir, f"{i:04d}_D2DataloaderVisualizer.png"))
+        box3d = read_image_bgr(os.path.join(loader_dir, f"{i:04d}_Box3DDataloaderVisualizer.png"))
+        h, w = sample["image"].shape[:2]
+        if d2.shape != sample["image"].shape or any(not drawn_inside(d2, sample["image"], b)
+                                                    for b in sample["gt_boxes2d"]):
+            raise AssertionError(f"phase19: visualize_dataloader sample {i}: the 2D drawing")
+        side = (max(h, 1000) + 2, max(w, 1000) + 2)
+        n_gt = len(sample["gt_classes"])
+        n_boxes += n_gt
+        if box3d.shape != (side[0], 2 * side[1], 3) or n_gt and (np.array_equal(
+                box3d[:1000, side[1]:side[1] + 1000], empty_bev) or np.array_equal(box3d[:h, :w], sample["image"])):
+            raise AssertionError(f"phase19: visualize_dataloader sample {i}: the 3D drawing {box3d.shape}")
+    if n_boxes == 0:
+        raise AssertionError("phase19: visualize_dataloader drew no box")
+    log(f"phase19 visualize_dataloader: {n_vis} samples x 2 visualizers, drawn at their {n_boxes} boxes "
+        f"({time.time() - t0:.1f} s for the phase) on {card}")
+    log("phase19 ok")
+
+
+def zero_launches():
+    """Set the launch count of every kernel wrapper to 0."""
+    from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    for k in (greedy_nms, quantize_int8, int8_conv, conv_dw_s1_same):
+        k.launches = 0
+
+
+def phase20_tta(tmp, overfit_dir, device, card):
+    """Test-time augmentation at full width on the overfit checkpoint, over
+    TTA_IMAGES frames of the fixture (one chunk, five canvas buckets of 160
+    instances up to 640x1920): (a) EVAL_ONLY through the CLI's main with the
+    experiment's own TEST.AUG, bf16: the plain test, then the TTA test;
+    (b) the TTA test in static int8 (bench.py's overrides, calibrated per
+    bucket); (c) on TTA_CHECK_IMAGES frames, int8 TTA through the kernels and
+    through their plain versions: identical detections and results; (d) a
+    witness for (a)'s tta/ AP: bf16 TTA at the checkpoint's one training
+    scale, 384, without and with the flip, and at the five scales without
+    it, beside the plain test; the int8 conv kernel against its plain
+    version at the largest bucket's shapes. The launch counts of each TTA
+    pass are set to 0 just before it and read just after. Returns the
+    phase's numbers."""
+    import dd3d_tpu_torch.train as train_mod
+    from dd3d_tpu_torch.data.augmentations import resize_shortest_edge_dims
+    from dd3d_tpu_torch.data.catalog import DatasetCatalog
+    from dd3d_tpu_torch.data.imageio import read_image_bgr, resize_bilinear
+    from dd3d_tpu_torch.evaluators import get_evaluator
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.models import tta as tta_mod
+    from dd3d_tpu_torch.overfit_smoke import kernel_launches, make_fixture
+    from dd3d_tpu_torch.training.checkpoint import load_weights
+
+    t0 = time.time()
+    root = make_fixture(os.path.join(tmp, "fixture_tta"), n_images=TTA_IMAGES)
+    ckpt = os.path.join(overfit_dir, "ckpt")
+    log(f"phase20 fixture of {TTA_IMAGES} frames written in {time.time() - t0:.1f} s")
+    passes, instances = [], []
+    real_pass, real_infer = train_mod._do_test_tta, tta_mod.DD3DWithTTA.infer_batch
+
+    def measured_pass(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        out = real_pass(*args, **kwargs)
+        torch.cuda.synchronize()
+        passes.append({"seconds": time.perf_counter() - t, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "launches": kernel_launches(), "results": out})
+        return out
+
+    def recorded_infer(self, images, intrinsics):
+        instances.append(self)
+        return real_infer(self, images, intrinsics)
+
+    train_mod._do_test_tta, tta_mod.DD3DWithTTA.infer_batch = measured_pass, recorded_infer
+    try:
+        out_dir = train_mod.main(["+experiments=dd3d_kitti_dla34_overfit", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}",
+                                  f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train",
+                                  f"OUTPUT_ROOT={os.path.join(tmp, 'out_tta')}"])
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        bf16 = passes[-1]
+        tta = instances[-1]
+        buckets = {f"{h}x{w}": n for (h, w), n in tta.stats["buckets"].items()}
+        seconds = {k: round(v, 3) for k, v in tta.stats["seconds"].items()}
+        plain_ap, tta_ap = rows[0].get(CAR_AP3D, np.nan), rows[1].get("tta/" + CAR_AP3D, np.nan)
+        log(f"phase20(a) EVAL_ONLY, bf16, {TTA_IMAGES} frames on {card}: TTA pass {bf16['seconds']:.2f} s, "
+            f"{TTA_IMAGES / bf16['seconds']:.2f} images/s (frames read, resized, forward, merge, evaluators); "
+            f"buckets (instances) {buckets}; host seconds by part {seconds}; peak {bf16['peak_gib']:.2f} GiB; "
+            f"kernel launches in the TTA pass {bf16['launches']}; {CAR_AP3D} plain {plain_ap:.4f}, tta/ {tta_ap:.4f}; "
+            f"BEV plain {rows[0].get('kitti_3d/kitti_bev_r40/Car_Moderate_0.5', np.nan):.4f}, tta/ "
+            f"{rows[1].get('tta/kitti_3d/kitti_bev_r40/Car_Moderate_0.5', np.nan):.4f}")
+        if [r["step"] for r in rows] != [rows[0]["step"]] * 2 or not (np.isfinite(plain_ap) and np.isfinite(tta_ap)):
+            raise AssertionError("phase20(a): metrics.jsonl does not hold the plain then the tta/ results")
+        if list(buckets.values()) != [2 * TTA_IMAGES] * len(TTA_BUCKETS) or list(buckets) != list(TTA_BUCKETS):
+            raise AssertionError(f"phase20(a): buckets {buckets}")
+        vis = os.path.join(out_dir, "visualization")
+        preds = sorted(os.listdir(vis))
+        cfg_a = loader_cfg(root)
+        gt = {d["image_id"]: d for d in DatasetCatalog.get("kitti_3d_train")}
+        drawn = 0
+        for name in preds:  # pred_<image_id>.png of the first 8 frames, the overfit run's training set
+            d = gt[name[len("pred_"):-len(".png")]]
+            h, w = resize_shortest_edge_dims(d["height"], d["width"], cfg_a.INPUT.RESIZE.MIN_SIZE_TEST,
+                                             cfg_a.INPUT.RESIZE.MAX_SIZE_TEST)
+            undrawn = resize_bilinear(read_image_bgr(d["file_name"]), h, w)
+            img = read_image_bgr(os.path.join(vis, name))
+            s = h / d["height"]
+            drawn += img.shape == undrawn.shape and all(
+                drawn_inside(img, undrawn, np.asarray(a["bbox"]) * s, margin=6) for a in d["annotations"])
+        if len(preds) != min(8, TTA_IMAGES) or drawn == 0:
+            raise AssertionError(f"phase20(a): prediction drawings {preds}, {drawn} drawn at their cars")
+        log(f"phase20(a) EVAL_ONLY wrote {len(preds)} prediction drawings at {h}x{w}, {drawn} of them drawn at "
+            "their ground-truth cars (boxes at score >= 0.3)")
+
+        cfg8 = loader_cfg(root, **{"DATASETS.TEST.NAME": "kitti_3d_train", "TPU.QUANT_INT8": True,
+                                   "TPU.QUANT_MIN_CH": 32, "TPU.QUANT_UNFOLDED": True})
+        model = build_model(cfg8, generator=torch.Generator().manual_seed(SEED))
+        step = load_weights(model, ckpt)
+        model = model.to(device)
+        train_mod.do_test(cfg8, model, os.path.join(tmp, "out_tta_int8"), step=step, use_tta=True)
+        int8, tta8 = passes[-1], instances[-1]
+        kitti_b = {k: v for k, v in train_mod.flatten_results(bf16["results"]).items() if "/kitti_3d/" in k}
+        kitti_i = {k: v for k, v in train_mod.flatten_results(int8["results"]).items() if "/kitti_3d/" in k}
+        dap = max(abs(kitti_i[k] - kitti_b[k]) for k in kitti_b)
+        calibrated = [f"{h}x{w}" for h, w in tta8.stats["calibrated"]]
+        log(f"phase20(b) static int8 TTA, {TTA_IMAGES} frames on {card}: {int8['seconds']:.2f} s, "
+            f"{TTA_IMAGES / int8['seconds']:.2f} images/s; calibrated buckets {calibrated} "
+            f"(host seconds by part {({k: round(v, 3) for k, v in tta8.stats['seconds'].items()})}); scale misses "
+            f"{len(tta8.quant.misses)}; peak {int8['peak_gib']:.2f} GiB; kernel launches {int8['launches']}; "
+            f"tta/ {CAR_AP3D} {kitti_i['tta/' + CAR_AP3D]:.4f} against bf16 {kitti_b['tta/' + CAR_AP3D]:.4f}; "
+            f"worst |dAP| over the {len(kitti_b)} KITTI metrics {dap:.4f}")
+        if tta8.quant.misses or calibrated != list(buckets):
+            raise AssertionError(f"phase20(b): {len(tta8.quant.misses)} scale misses, calibrated {calibrated}")
+        if int8["launches"]["quantize_int8"] == 0 or int8["launches"]["int8_conv"] == 0:
+            raise AssertionError(f"phase20(b): the int8 kernels did not launch: {int8['launches']}")
+        if not np.isfinite(dap):
+            raise AssertionError("phase20(b): an AP is not finite")
+    finally:
+        train_mod._do_test_tta, tta_mod.DD3DWithTTA.infer_batch = real_pass, real_infer
+
+    dicts = DatasetCatalog.get("kitti_3d_train")[:TTA_CHECK_IMAGES]
+    images = [read_image_bgr(d["file_name"]) for d in dicts]
+    ks = [np.asarray(d["intrinsics"], np.float64).reshape(3, 3) for d in dicts]
+    arms = {}
+    for arm, plain in (("kernel", False), ("plain", True)):
+        wrapper = tta_mod.DD3DWithTTA(cfg8, model, int8_plain=plain)
+        zero_launches()
+        t = time.perf_counter()
+        merged = wrapper.infer_batch(images, ks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        dets = [{"image_id": d["image_id"], **m} for d, m in zip(dicts, merged)]
+        evaluators = get_evaluator(cfg8, "kitti_3d_train")
+        for ev in evaluators:
+            ev.reset()
+            ev.process(dets)
+        results = {}
+        for ev in evaluators:
+            results.update(ev.evaluate() or {})
+        arms[arm] = (dets, results, kernel_launches(), seconds, len(wrapper.quant.misses))
+    (dk, rk, lk, sk, mk), (dp, rp, lp, sp, mp) = arms["kernel"], arms["plain"]
+    log(f"phase20(c) int8 TTA on {TTA_CHECK_IMAGES} frames, kernels against plain versions: detections identical "
+        f"{same_detections(dk, dp)} ({sum(len(d['scores']) for d in dk)} merged), results identical "
+        f"{same_results(rk, rp)}; launches {lk} / {lp}; {sk:.2f} s / {sp:.2f} s; scale misses {mk} / {mp}")
+    if not (same_detections(dk, dp) and same_results(rk, rp)):
+        raise AssertionError("phase20(c): int8 TTA through the kernels and through the plain versions differ")
+    if lk["int8_conv"] == 0 or lk["quantize_int8"] == 0 or lp["int8_conv"] or lp["quantize_int8"] or mk or mp:
+        raise AssertionError(f"phase20(c): launches {lk} / {lp}, misses {mk} / {mp}")
+    del model
+    witness = phase20_tta_witness(root, ckpt, {"plain": plain_ap, "tta": tta_ap}, device, card)
+    conv = phase20_int8_conv_largest_bucket(device, card)
+    log("phase20 ok")
+    return {"witness": witness, "bf16_images_per_s": TTA_IMAGES / bf16["seconds"], "int8_images_per_s": TTA_IMAGES / int8["seconds"],
+            "buckets": buckets, "peak_gib": bf16["peak_gib"], "int8_peak_gib": int8["peak_gib"], "dap": dap,
+            "plain_ap": plain_ap, "tta_ap": tta_ap, "bf16_launches": bf16["launches"],
+            "int8_launches": int8["launches"], "conv": conv}
+
+
+def phase20_tta_witness(root, ckpt, ap3d, device, card):
+    """Phase 20(d): the bf16 TTA test over the same TTA_IMAGES frames and
+    checkpoint at TEST.AUG.MIN_SIZES [384] (the one scale the checkpoint
+    trained at, and the plain test's) without and with the flip, and at
+    the experiment's five scales without it; each arm's tta/ AP3D@0.5 and
+    BEV@0.5 beside (a)'s plain and five-scale-with-flip ones. The arms
+    separate the flip and the scales in (a)'s tta/ AP."""
+    import dd3d_tpu_torch.train as train_mod
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.training.checkpoint import load_weights
+
+    cfg = loader_cfg(root, **{"DATASETS.TEST.NAME": "kitti_3d_train"})
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    step = load_weights(model, ckpt)
+    model = model.to(device)
+    bev = CAR_AP3D.replace("kitti_box3d_r40", "kitti_bev_r40")
+    arms = {}
+    for name, min_sizes, flip in (("384", [384], False), ("384+flip", [384], True),
+                                  ("5 scales", list(cfg.TEST.AUG.MIN_SIZES), False)):
+        cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.FLIP = min_sizes, flip
+        flat = train_mod.flatten_results(train_mod.do_test(cfg, model, None, step=step, use_tta=True))
+        arms[name] = (flat["tta/" + CAR_AP3D], flat["tta/" + bev])
+    log(f"phase20(d) bf16 TTA arms over {TTA_IMAGES} frames on {card}, Car Moderate AP3D@0.5 / BEV@0.5: "
+        + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in arms.items())
+        + f"; (a): plain {ap3d['plain']:.4f}, 5 scales+flip {ap3d['tta']:.4f} (AP3D)")
+    if not all(np.isfinite(v) for ab in arms.values() for v in ab):
+        raise AssertionError(f"phase20(d): an AP is not finite: {arms}")
+    del model
+    torch.cuda.empty_cache()
+    return arms
+
+
+def phase20_int8_conv_largest_bucket(device, card):
+    """The int8 conv kernel at the largest TTA bucket (160 x 640 x 1920):
+    the P3 tower conv (160, 80, 240, 256) -> 256 3x3 against its plain
+    version (accumulators exactly, the bf16 epilogue bit for bit), timed
+    beside cuDNN's bf16 conv and its bound; and level0's 3x3 16 -> 16 at full
+    resolution (3.1e9 input elements, past the kernel's 2^31: launched on two
+    runs of 80 images) against the plain version on the runs' edge images."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    b = 2 * TTA_IMAGES
+    xq = torch.randint(-127, 128, (b, 80, 240, 256), generator=gen, dtype=torch.int8).to(device)
+    wq = torch.randint(-127, 128, (256, 3, 3, 256), generator=gen, dtype=torch.int8).to(device)
+    scale = (torch.rand(256, generator=gen) * 1e-3 + 1e-5).to(device)
+    bias = torch.randn(256, generator=gen).to(device)
+    acc = int8_conv_acc_plain(xq, wq, 1, 1)
+    ones = torch.ones(256, device=device)
+    got_acc = int8_conv(xq, wq, ones, None, 1, 1, torch.float32)
+    if int(acc.abs().max()) >= 2 ** 24 or not torch.equal(got_acc, acc.float()):
+        raise AssertionError("phase20: the int8 conv kernel's accumulators differ at the largest bucket's P3 conv")
+    del got_acc
+    want = dequant_plain(acc, scale, bias, torch.bfloat16)
+    del acc
+    got = int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase20: the int8 conv kernel's bf16 epilogue differs (max {err})")
+    del got, want
+    torch.cuda.synchronize()
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    k_ms = device_ms(lambda: int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16), 5, prof)
+    c_ms = device_ms(cudnn_bf16_conv(xq, wq, 1, 1), 5, prof)
+    p_ms = cuda_ms(lambda: dequant_plain(int8_conv_acc_plain(xq, wq, 1, 1), scale, bias, torch.bfloat16), 1)
+    bnd, by = int8_conv_bound(xq, wq, 1, 1)
+    log(f"phase20 int8 conv at the largest bucket's P3 tower conv ({b}, 80, 240, 256) -> 256 3x3 on {card}: "
+        f"accumulators and bf16 epilogue equal to the plain version; device time kernel {k_ms:.4f} ms, cuDNN bf16 "
+        f"{c_ms:.4f} ms, plain {p_ms:.2f} ms (CUDA events), bound {bnd:.4f} ms by {by} ({bnd / k_ms:.2f} of the "
+        f"kernel's time)")
+    del xq
+    x0 = torch.randint(-127, 128, (b, 640, 1920, 16), generator=gen, dtype=torch.int8).to(device)
+    w0 = torch.randint(-127, 128, (16, 3, 3, 16), generator=gen, dtype=torch.int8).to(device)
+    s0 = (torch.rand(16, generator=gen) * 1e-3 + 1e-5).to(device)
+    before = int8_conv.launches
+    out0 = int8_conv(x0, w0, s0, None, 1, 1, torch.bfloat16)
+    runs = int8_conv.launches - before
+    for i in (0, b // 2 - 1, b // 2, b - 1):
+        ref = dequant_plain(int8_conv_acc_plain(x0[i:i + 1], w0, 1, 1), s0, None, torch.bfloat16)
+        if not torch.equal(out0[i:i + 1], ref):
+            raise AssertionError(f"phase20: the int8 conv split over 2^31 elements differs at image {i}")
+    log(f"phase20 int8 conv at level0 of the largest bucket ({b}, 640, 1920, 16) -> 16 3x3: {runs} launches, images "
+        f"0, {b // 2 - 1}, {b // 2}, {b - 1} equal to the plain version")
+    if runs != 2:
+        raise AssertionError(f"phase20: {runs} launches for a {x0.numel()}-element input")
+    del x0, out0
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "cudnn_ms": c_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+
+
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] in ("--cli-rank", "--cli-timing", "--eval-only"):
-        {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only}[sys.argv[1]](sys.argv[2:])
+    modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
+    if len(sys.argv) > 1 and sys.argv[1] in modes:
+        modes[sys.argv[1]](sys.argv[2:])
         return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1704,6 +2139,9 @@ def main():
         torch.cuda.synchronize()
         overfit = phase17_overfit(tmp, root, card)
         evaluation = phase18_eval_scale(tmp, overfit["output_dir"], device, card)
+        torch.cuda.synchronize()
+        phase19_visualizers(tmp, root, overfit["output_dir"], card)
+        tta = phase20_tta(tmp, overfit["output_dir"], device, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -1727,6 +2165,16 @@ def main():
         f"{evaluation['nms_launches']} (phase 18); overfit run {OVERFIT_ITERS} steps: "
         f"{overfit['ms_step']:.2f} ms a step of batch 4, Car Moderate AP3D@0.5 {overfit['ap3d']:.2f}, BEV@0.5 "
         f"{overfit['bev']:.2f}, int8 worst |dAP| {overfit['dap']:.2f}, its arms' launches {overfit['launches']}")
+    conv = tta["conv"]
+    log(f"timing on {card}: TTA at full width over {TTA_IMAGES} frames, 5 scales with flip, buckets "
+        f"{tta['buckets']}: bf16 {tta['bf16_images_per_s']:.2f} images/s (peak {tta['peak_gib']:.2f} GiB), static "
+        f"int8 {tta['int8_images_per_s']:.2f} images/s (peak {tta['int8_peak_gib']:.2f} GiB, worst |dAP| "
+        f"{tta['dap']:.4f}); {CAR_AP3D} plain {tta['plain_ap']:.4f}, tta/ {tta['tta_ap']:.4f}, at 384 "
+        f"{tta['witness']['384'][0]:.4f}, 384+flip {tta['witness']['384+flip'][0]:.4f}, 5 scales without flip "
+        f"{tta['witness']['5 scales'][0]:.4f}; launches on the TTA "
+        f"path bf16 {tta['bf16_launches']}, int8 {tta['int8_launches']}; the int8 conv at the 640x1920 bucket's P3 "
+        f"conv {conv['ms']:.4f} ms (cuDNN bf16 {conv['cudnn_ms']:.4f}, bound {conv['bound_ms']:.4f} by "
+        f"{conv['bound_by']})")
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
              "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],

@@ -22,16 +22,17 @@ import torch
 from dd3d_tpu_torch.models.layers import quant_scope, quant_spec_from_cfg
 
 
-def capture_scales(cfg, model, image_batches):
+def capture_scales(cfg, model, image_batches, plain: bool = False):
     """{conv_path: {shape_tag: act_amax}} (Python floats) over
     `image_batches`, each (B, H, W, 3) images (numpy or torch; moved to the
     model's device). Quantization is forced on with dynamic scales, so the
     observed activations follow the deployed (quantized-upstream) regime;
-    the other TPU.QUANT_* keys are the caller's."""
+    the other TPU.QUANT_* keys are the caller's. `plain` runs the int8
+    kernels' plain versions."""
     calib_cfg = cfg.clone()
     calib_cfg.TPU.QUANT_INT8 = True
     calib_cfg.TPU.QUANT_SCALES_PATH = ""  # dynamic scales during calibration
-    spec = quant_spec_from_cfg(calib_cfg)
+    spec = quant_spec_from_cfg(calib_cfg, plain=plain)
     model.eval()
     device = model.pixel_mean.device
     running, n = {}, 0

@@ -93,7 +93,7 @@ def unpack_detections(det: Dict[str, np.ndarray], batch: Dict[str, np.ndarray], 
     return out
 
 
-def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None, suppress=None):
+def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None, max_vis: int = 8, suppress=None):
     """Run the model over a test loader of (batch, meta), feed the
     evaluators, and return their merged results (cf. d2's
     inference_on_dataset as scripts/train.py:196 uses it). A producer
@@ -104,11 +104,11 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
     the evaluators' `evaluate` (a gather). `suppress` is passed on to
     `get_inference_fn`.
 
-    The prediction visualization (`visualize_dir`) is not ported: set, it
-    raises."""
-    if visualize_dir is not None:
-        raise NotImplementedError("visualize_dir: the prediction visualization is not ported (the visualizers, "
-                                  "ROADMAP §1 item 3)")
+    With `visualize_dir`, the first `max_vis` images of this loader get a
+    prediction drawing, `<visualize_dir>/pred_<image_id>.png`: the network
+    input (the resized image), its 2D boxes rescaled to it and its 3D
+    wireframes, at score >= 0.3 (dd3d_tpu/models/postprocess.py:184-297,
+    whose copy to W&B through `put_image` is not ported)."""
     infer = get_inference_fn(getattr(model, "module", model), cfg, suppress=suppress)
     for ev in evaluators:
         ev.reset()
@@ -137,6 +137,7 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
+    n_vis = 0
     try:
         while True:
             item = q.get()
@@ -149,6 +150,8 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
             per_image = unpack_detections(det, batch, meta)
             for ev in evaluators:
                 ev.process(per_image)
+            if visualize_dir is not None and n_vis < max_vis:
+                n_vis += visualize_predictions(batch, meta, per_image, visualize_dir, max_vis - n_vis)
     finally:
         stop.set()
         thread.join(timeout=5)
@@ -159,3 +162,29 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
         if r:
             results.update(r)
     return results
+
+
+def visualize_predictions(batch, meta, per_image, visualize_dir: str, max_n: int) -> int:
+    """Draw the detections of the first `max_n` images of a test batch on
+    their network inputs (boxes kept at score >= 0.3, 2D boxes rescaled
+    from the original resolution to the input's) and save them as
+    `pred_<image_id>.png`; returns the number drawn."""
+    from dd3d_tpu_torch.visualizers.draw import draw_boxes2d, draw_boxes3d, save_vis
+
+    images = np.asarray(batch["image"])
+    sizes = np.asarray(batch["image_size"])
+    intrinsics = np.asarray(batch["intrinsics"])
+    n = 0
+    for i, d in enumerate(per_image[:max_n]):
+        h, w = sizes[i]
+        img = images[i, :h, :w].astype(np.uint8)
+        sx = w / max(meta[i].get("width") or w, 1)
+        sy = h / max(meta[i].get("height") or h, 1)
+        keep = d["scores"] >= 0.3
+        vis = draw_boxes2d(img, d["boxes2d"][keep] * [sx, sy, sx, sy], d["classes"][keep], d["scores"][keep])
+        if "quat" in d:
+            vis = draw_boxes3d(vis, d["quat"][keep], d["tvec"][keep], d["size"][keep], intrinsics[i],
+                               d["classes"][keep])
+        save_vis(vis, visualize_dir, f"pred_{d['image_id']}")
+        n += 1
+    return n

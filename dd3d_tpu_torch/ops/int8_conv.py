@@ -8,7 +8,9 @@ the TPU. PyTorch has no int8 convolution on CUDA.
   exactly in int32, then `out = cast_out(f32(acc) * scale[o])` and, with a
   bias, `out = out + cast_out(bias[o])` in `out_dtype` (layers.py:276 and
   :364-365). Returns NHWC (B, Ho, Wo, O). For CUDA tensors it launches the
-  kernel (or raises); for CPU tensors it runs the plain PyTorch version,
+  kernel (or raises), once per run of images when a tensor would exceed the
+  kernel's 2^31 elements (`batch_chunks`: a TTA bucket of 160 instances at
+  640x1920 does); for CPU tensors it runs the plain PyTorch version,
   `int8_conv_plain`.
 - `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax)`:
   the counterpart of `_int8_conv` as a whole (plus the bias), on the port's
@@ -128,20 +130,37 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opt
     ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}, stride {stride}, pad {pad}")
-    if max(xq.numel(), wq.numel(), b * ho * wo * o) > _MAX_ELEMENTS:
-        raise ValueError("a tensor exceeds the kernel's 2^31-element limit")
+    if wq.numel() > _MAX_ELEMENTS:
+        raise ValueError("the weight exceeds the kernel's 2^31-element limit")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
+    c = xq.shape[3]
     out = torch.empty((b, ho, wo, o), dtype=out_dtype, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = _library().dd3d_int8_conv(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, xq.shape[3], o, kh, kw, stride, pad, stream)
-    if err != 0:
-        raise RuntimeError(f"int8 conv kernel launch failed: error {err}")
-    int8_conv.launches += 1
+        for i0, i1 in batch_chunks(b, max(h * w * c, ho * wo * o)):
+            # each chunk's images start 16-byte aligned: h*w*c is a multiple of 16
+            err = _library().dd3d_int8_conv(
+                xq[i0:i1].data_ptr(), wq.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
+                out[i0:i1].data_ptr(), int(out_dtype == torch.bfloat16), i1 - i0, h, w, c, o, kh, kw, stride, pad,
+                stream)
+            if err != 0:
+                raise RuntimeError(f"int8 conv kernel launch failed: error {err}")
+            int8_conv.launches += 1
     return out
+
+
+def batch_chunks(batch: int, per_image: int, limit: int = _MAX_ELEMENTS):
+    """[(start, stop)] splitting `batch` images into as few equal-sized
+    runs as keep each run's `per_image * images` elements within `limit`
+    (the kernel's 32-bit indexing): one launch a run. The images of a conv
+    are independent, so the runs give the whole batch's result."""
+    if per_image > limit:
+        raise ValueError("one image exceeds the kernel's 2^31-element limit")
+    per_run = max(1, limit // per_image)
+    runs = -(-batch // per_run)
+    size = -(-batch // runs)
+    return [(i, min(i + size, batch)) for i in range(0, batch, size)]
 
 
 int8_conv.launches = 0

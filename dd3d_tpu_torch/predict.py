@@ -16,7 +16,9 @@ backbone's size divisibility), then through the port's model and decode.
 It runs on the card; `--device cpu` runs it on the CPU.
 `--ckpt` is a reference-named `.pth` state dict; without it the weights are
 random, drawn from `--seed`. Detections are written in original image
-coordinates. Visualization (`--vis`) is not ported yet.
+coordinates. With `--vis DIR` each frame is drawn with its kept detections
+(2D boxes with class and score, 3D wireframes) into DIR/<image_id>.png, and
+its BEV view into DIR/<image_id>_bev.png (scripts/predict.py:184-201).
 """
 import argparse
 import ast
@@ -122,6 +124,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None, help="reference-named .pth state dict")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--out", default="predictions.json")
+    ap.add_argument("--vis", default=None, help="directory for the drawn frames and BEV PNGs")
     ap.add_argument("--score-thresh", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", help="cuda (default), or cpu")
     ap.add_argument("--seed", type=int, default=0, help="weight seed when no --ckpt is given")
@@ -170,6 +173,30 @@ def main(argv=None):
     with open(args.out, "w") as f:
         json.dump(results, f)
     print(f"wrote {args.out} ({sum(len(r['scores']) for r in results)} detections)")
+    if args.vis:
+        write_visualizations(results, k, args.vis)
+        print(f"visualizations in {args.vis}")
+    return results
+
+
+def write_visualizations(records, intrinsics, out_dir: str):
+    """Each record's frame with its detections drawn (2D boxes labelled with
+    class name and score; the 3D wireframes), `<image_id>.png`, and, when it
+    has 3D boxes, its BEV view, `<image_id>_bev.png`."""
+    from dd3d_tpu_torch.data.imageio import read_image_bgr
+    from dd3d_tpu_torch.visualizers.draw import BEVImage, draw_boxes2d, draw_boxes3d, save_vis
+
+    os.makedirs(out_dir, exist_ok=True)
+    for rec in records:
+        img = draw_boxes2d(read_image_bgr(rec["file_name"]), np.asarray(rec["boxes2d"], np.float64).reshape(-1, 4),
+                           classes=np.asarray(rec["classes"]), scores=np.asarray(rec["scores"]),
+                           class_names=KITTI_CLASSES)
+        if "quat" in rec and len(rec["quat"]):
+            quat, tvec, size = (np.asarray(rec[key]) for key in ("quat", "tvec", "size"))
+            img = draw_boxes3d(img, quat, tvec, size, intrinsics, classes=np.asarray(rec["classes"]))
+            bev = BEVImage().render_boxes3d(quat, tvec, size, classes=np.asarray(rec["classes"]))
+            save_vis(bev.data, out_dir, f"{rec['image_id']}_bev")
+        save_vis(img, out_dir, rec["image_id"])
 
 
 if __name__ == "__main__":

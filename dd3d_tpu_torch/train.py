@@ -2,29 +2,36 @@
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         -m dd3d_tpu_torch.train +experiments=dd3d_kitti_dla34_overfit \\
-        DATASET_ROOT=/path/to/fixture TEST.AUG.ENABLED=False [KEY=VALUE ...] [--device cpu]
+        DATASET_ROOT=/path/to/fixture [KEY=VALUE ...] [--device cpu]
     python -m dd3d_tpu_torch.train +experiments=dd3d_kitti_dla34_overfit EVAL_ONLY=True \\
-        MODEL.CKPT=<checkpoint directory or .pth> TEST.AUG.ENABLED=False DATASET_ROOT=...
+        MODEL.CKPT=<checkpoint directory or .pth> DATASET_ROOT=...
 
 One process a card under torch.distributed.run (NCCL; gloo with
 `--device cpu`), or one process alone without it. The flow of
-scripts/train.py:46-213: compose the config (experiment delta + dotted-key
+scripts/train.py:46-293: compose the config (experiment delta + dotted-key
 overrides), register the datasets, make a timestamped output directory under
 OUTPUT_ROOT, build the model, then either
 - EVAL_ONLY: load MODEL.CKPT (a checkpoint directory of the port, or a
-  reference-named `.pth`/`.pt` state dict) and `do_test`; or
+  reference-named `.pth`/`.pt` state dict), `do_test`, and with
+  TEST.AUG.ENABLED the test-time-augmented test after it; or
 - `do_train`: the KITTI train loader with this rank's stream
   (data/build.py) into `train()` (training/train_loop.py: DDP with global
-  SyncBN, checkpoints, metrics.jsonl), with `do_test` every TEST.EVAL_PERIOD
-  steps, then the final `do_test` on the trained model.
+  SyncBN, checkpoints, metrics.jsonl, the dataloader drawings under
+  VIS.DATALOADER_ENABLED), with `do_test` every TEST.EVAL_PERIOD steps,
+  then the final `do_test` on the trained model and, with
+  TEST.AUG.ENABLED, the final test-time-augmented test.
 
 `do_test` runs each rank's shard of DATASETS.TEST.NAME through
 `inference_on_dataset` (forward, decode, NMS kernel) into the KITTI-3D and
-COCO-2D evaluators, logs the results, and appends them to metrics.jsonl.
+COCO-2D evaluators, draws the predictions of its first 8 images into
+`<output_dir>/visualization` (as the JAX package does, whatever
+VIS.PREDICTIONS_ENABLED says), logs the results, and appends them to
+metrics.jsonl. `do_test(use_tta=True)` runs each rank's shard through
+models/tta.DD3DWithTTA in chunks of TEST.IMS_PER_BATCH / world size images;
+its results carry the `tta/` prefix.
 
-Not ported: test-time augmentation (TEST.AUG.ENABLED raises; ROADMAP §1
-item 8), the visualizations (the visualizers, ROADMAP §1 item 3: the
-dataloader's raises, the predictions' is skipped with a warning) and W&B.
+Not ported: W&B, and what the model's path does not have (the rotated BEV
+NMS, nuScenes: ROADMAP §1 items 7 and 9).
 """
 import argparse
 import ast
@@ -32,6 +39,7 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from dd3d_tpu_torch.utils import comm
@@ -61,21 +69,16 @@ def parse_overrides(pairs, cfg):
 
 
 def check_unported(cfg) -> None:
-    """Raise before anything is built for what the CLI does not have: the
-    dataloader visualization of a training run, W&B, test-time augmentation
-    (EVAL_ONLY and the final test after training would run it), and a
-    remote MODEL.CKPT."""
+    """Raise before anything is built for what the CLI does not have: W&B,
+    the rotated BEV NMS (the tests would run it), and a remote MODEL.CKPT."""
     from dd3d_tpu_torch.training.checkpoint import REMOTE_PREFIXES
-    from dd3d_tpu_torch.training.train_loop import check_unported_options
 
-    if not cfg.EVAL_ONLY:
-        check_unported_options(cfg, int(cfg.SOLVER.MAX_ITER), writes_output=True)
     if cfg.get("WANDB", {}).get("ENABLED", False):
         raise NotImplementedError("WANDB.ENABLED: W&B mirroring is not ported; metrics go to metrics.jsonl")
-    if cfg.TEST.AUG.ENABLED:
+    if cfg.DD3D.INFERENCE.DO_BEV_NMS:
         run = "EVAL_ONLY=True" if cfg.EVAL_ONLY else "the final test after training"
-        raise NotImplementedError(f"TEST.AUG.ENABLED=True: {run} would run test-time augmentation, which is not "
-                                  "ported (ROADMAP §1 item 8); set TEST.AUG.ENABLED=False")
+        raise NotImplementedError(f"DD3D.INFERENCE.DO_BEV_NMS: {run} would run the rotated BEV NMS, which is not "
+                                  "ported (ROADMAP §1 item 7)")
     ckpt = str(cfg.MODEL.CKPT or "")
     if cfg.EVAL_ONLY and ckpt.startswith(REMOTE_PREFIXES):
         raise NotImplementedError(f"MODEL.CKPT={ckpt}: remote checkpoints are not fetched (no network); give a "
@@ -107,23 +110,62 @@ def do_train(cfg, model, output_dir, device):
                  eval_hook=eval_hook if int(cfg.TEST.EVAL_PERIOD) > 0 else None)
 
 
-def do_test(cfg, model, output_dir, step=None):
+def do_test(cfg, model, output_dir, step=None, use_tta=False):
     """Evaluate `model` (or a DistributedDataParallel wrapper's module) on
     this rank's shard of DATASETS.TEST.NAME; every rank gets the merged
     results, which are logged and, on rank 0, appended to
-    `<output_dir>/metrics.jsonl` at `step`."""
+    `<output_dir>/metrics.jsonl` at `step`. Each rank draws the predictions
+    of its first 8 images into `<output_dir>/visualization`. `use_tta` runs
+    the test-time-augmented test instead (`_do_test_tta`)."""
     from dd3d_tpu_torch.data.build import build_test_dataloader
     from dd3d_tpu_torch.evaluators import get_evaluator
     from dd3d_tpu_torch.models.postprocess import inference_on_dataset
 
     dataset_name = cfg.DATASETS.TEST.NAME
+    if use_tta:
+        return _do_test_tta(cfg, model, dataset_name, output_dir, step)
     loader = build_test_dataloader(cfg, dataset_name=dataset_name, shard_idx=comm.get_rank(),
                                    num_shards=comm.get_world_size())
     evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
-    if cfg.get("VIS", {}).get("PREDICTIONS_ENABLED", False):
-        LOG.warning("VIS.PREDICTIONS_ENABLED: the prediction visualization is not ported (the visualizers, ROADMAP §1 "
-                    "item 3); no prediction images are written")
-    results = inference_on_dataset(model, cfg, loader, evaluators)
+    vis_dir = os.path.join(output_dir, "visualization") if output_dir else None
+    results = inference_on_dataset(model, cfg, loader, evaluators, visualize_dir=vis_dir)
+    _log_results(results, output_dir, step)
+    return results
+
+
+def _do_test_tta(cfg, model, dataset_name, output_dir, step=None):
+    """The test-time-augmented test (scripts/train.py:216-293): this rank's
+    InferenceSampler shard of the dataset, read as uint8 frames in chunks of
+    TEST.IMS_PER_BATCH / world size, through DD3DWithTTA.infer_batch into
+    the evaluators; the results carry the `tta/` prefix."""
+    from dd3d_tpu_torch.data.catalog import DatasetCatalog
+    from dd3d_tpu_torch.data.imageio import read_image_bgr
+    from dd3d_tpu_torch.data.samplers import InferenceSampler
+    from dd3d_tpu_torch.evaluators import get_evaluator
+    from dd3d_tpu_torch.models.tta import DD3DWithTTA
+
+    tta = DD3DWithTTA(cfg, model)
+    evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
+    for ev in evaluators:
+        ev.reset()
+    dicts = DatasetCatalog.get(dataset_name)
+    dicts = [dicts[i] for i in InferenceSampler(len(dicts), comm.get_rank(), comm.get_world_size())]
+    chunk_size = max(1, int(cfg.TEST.IMS_PER_BATCH) // comm.get_world_size())
+    for c in range(0, len(dicts), chunk_size):
+        chunk = dicts[c:c + chunk_size]
+        images = [read_image_bgr(d["file_name"]) for d in chunk]
+        ks = [np.asarray(d["intrinsics"], np.float64).reshape(3, 3) for d in chunk]
+        dets = [{"image_id": d["image_id"], "sample_id": d.get("sample_id"), **out}
+                for d, out in zip(chunk, tta.infer_batch(images, ks))]
+        for ev in evaluators:
+            ev.process(dets)
+    results = {}
+    for ev in evaluators:
+        r = ev.evaluate()
+        if r:
+            results.update({f"tta/{k}": v for k, v in r.items()})
+    LOG.info("TTA canvas buckets (instances): %s; host seconds %s", dict(tta.stats["buckets"]),
+             {k: round(v, 3) for k, v in tta.stats["seconds"].items()})
     _log_results(results, output_dir, step)
     return results
 
@@ -198,10 +240,13 @@ def main(argv=None):
         model = build_model(cfg, generator=torch.Generator().manual_seed(0))
         if cfg.EVAL_ONLY:
             step = load_weights(model, cfg.MODEL.CKPT) if cfg.MODEL.CKPT else None
-            do_test(cfg, model.to(device), output_dir, step=step)
-            return output_dir
-        state = do_train(cfg, model, output_dir, device)
-        do_test(cfg, state.model, output_dir, step=state.step)
+            model = model.to(device)
+        else:
+            state = do_train(cfg, model, output_dir, device)
+            model, step = state.model, state.step
+        do_test(cfg, model, output_dir, step=step)
+        if cfg.TEST.AUG.ENABLED:  # the final test with TTA, like the reference (scripts/train.py:75-77)
+            do_test(cfg, model, output_dir, step=step, use_tta=True)
         return output_dir
     finally:
         comm.cleanup()

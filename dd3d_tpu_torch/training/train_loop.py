@@ -5,12 +5,9 @@ when a process group is initialized (parallel/mesh.py), the train step,
 scalar metrics every `log_period` (the only host sync) into
 `<output_dir>/metrics.jsonl` on rank 0 (utils/events.py), checkpoints every
 SOLVER.CHECKPOINT_PERIOD saved on rank 0 and restored on every rank, the
-eval hook every TEST.EVAL_PERIOD, and a raise when the loss diverges.
-
-The dataloader visualization (VIS.DATALOADER_ENABLED) draws with cv2, which
-the port does not use: it is not ported yet (the visualizers, ROADMAP §1
-item 3), and a run whose visualization period falls inside MAX_ITER raises
-at its start.
+eval hook every TEST.EVAL_PERIOD, a raise when the loss diverges, and, on
+rank 0 of a run with an output directory, the dataloader visualization
+(VIS.DATALOADER_ENABLED) every VIS.DATALOADER_PERIOD steps.
 """
 import itertools
 import logging
@@ -127,17 +124,42 @@ def close_iterator(it) -> None:
             pass  # still running in a worker thread; it exits via its stop event
 
 
-def check_unported_options(cfg, max_iter: int, writes_output: bool) -> None:
-    """Raise at the start of a run for what the port's loop does not have:
-    the dataloader visualization of a run that writes an output directory,
-    when its period falls inside `max_iter`."""
-    vis = cfg.get("VIS", {})
-    period = int(vis.get("DATALOADER_PERIOD", 0))
-    if writes_output and bool(vis.get("DATALOADER_ENABLED", False)) and 0 < period <= max_iter:
-        raise NotImplementedError(
-            f"VIS.DATALOADER_ENABLED with VIS.DATALOADER_PERIOD={period} inside SOLVER.MAX_ITER={max_iter}: the "
-            "dataloader visualization is not ported (the visualizers, ROADMAP §1 item 3); set "
-            "VIS.DATALOADER_ENABLED=False")
+def _visualize_train_batch(batch, output_dir, storage, max_n: int, step: int) -> None:
+    """Draw the ground-truth 2D boxes and 3D wireframes of the first `max_n`
+    images of a train batch into `<output_dir>/visualization/
+    dataloader_step{step:06d}_{i}.png`, and hand each drawing to
+    `storage.put_image` (dd3d_tpu/training/train_loop.py:91-128; the
+    reference's periodic dataloader visualization, scripts/train.py:168-183).
+    The 10-vector ground truth is decoded through the inverse intrinsics:
+    tvec = K^-1 [u, v, 1] * depth."""
+    import os
+
+    from dd3d_tpu_torch.visualizers.draw import draw_boxes2d, draw_boxes3d, save_vis
+
+    def fetch(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    imgs = fetch(batch["image"])
+    boxes2d = fetch(batch["gt_boxes2d"])
+    classes = fetch(batch["gt_classes"])
+    boxes3d = fetch(batch["gt_boxes3d"])
+    valid = fetch(batch["gt_valid"])
+    intrinsics = fetch(batch["intrinsics"])
+
+    vis_dir = os.path.join(output_dir, "visualization")
+    for i in range(min(max_n, len(imgs))):
+        sel = valid[i].astype(bool)
+        img = np.clip(imgs[i], 0, 255).astype(np.uint8)
+        vis = draw_boxes2d(img, boxes2d[i][sel], classes[i][sel])
+        vec = boxes3d[i][sel]
+        if vec.shape[-1] == 10:
+            inv_k = np.linalg.inv(intrinsics[i].astype(np.float64))
+            uv1 = np.concatenate([vec[:, 4:6], np.ones((len(vec), 1))], axis=1)
+            tvec = (uv1 @ inv_k.T) * vec[:, 6:7]
+            vis = draw_boxes3d(vis, vec[:, :4], tvec, vec[:, 7:10], intrinsics[i], classes[i][sel])
+        save_vis(vis, vis_dir, f"dataloader_step{step:06d}_{i}")
+        if storage is not None:
+            storage.put_image(f"dataloader/{i}", vis, caption=f"step={step}")
 
 
 def train(cfg, data_iter: Iterable, model: Optional[torch.nn.Module] = None, state: Optional[TrainState] = None,
@@ -150,7 +172,6 @@ def train(cfg, data_iter: Iterable, model: Optional[torch.nn.Module] = None, sta
     With a process group the model trains in DistributedDataParallel and
     `data_iter` yields this rank's local batches."""
     max_iter = max_iter or cfg.SOLVER.MAX_ITER
-    check_unported_options(cfg, max_iter, bool(output_dir))
     if state is None:
         device = resolve_device(device)
         state = create_train_state(cfg, model if model is not None else build_model(cfg), device)
@@ -165,6 +186,9 @@ def train(cfg, data_iter: Iterable, model: Optional[torch.nn.Module] = None, sta
     storage = EventStorage(output_dir, wandb_enabled=bool(cfg.get("WANDB", {}).get("ENABLED", False))) \
         if output_dir and is_main_process() else None
     world = get_world_size()
+    vis_cfg = cfg.get("VIS", {})
+    vis_period = int(vis_cfg.get("DATALOADER_PERIOD", 0)) \
+        if output_dir and bool(vis_cfg.get("DATALOADER_ENABLED", False)) and is_main_process() else 0
     source = iter(data_iter)
     dev_iter = device_prefetch(itertools.islice(source, max(max_iter - state.step, 0)), device)
     try:
@@ -193,6 +217,9 @@ def train(cfg, data_iter: Iterable, model: Optional[torch.nn.Module] = None, sta
                 t0 = time.time()
                 window_imgs = 0
 
+            if vis_period > 0 and (it + 1) % vis_period == 0:
+                _visualize_train_batch(batch, output_dir, storage,
+                                       max_n=int(vis_cfg.get("DATALOADER_MAX_NUM_SAMPLES", 10)), step=it + 1)
             if ckpt is not None and is_main_process() and (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
                 ckpt.save(it + 1, state.model, state.optimizer)
             if eval_hook is not None and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:

@@ -5,14 +5,15 @@ Rebuild of the reference's EventStorage (tridet/utils/events.py:11-21) and
 its console/JSON writers (scripts/train.py:159-162). The training loop
 opens one on rank 0 only, so a run writes one `metrics.jsonl`. W&B
 mirroring is not ported (the port does not depend on wandb):
-`wandb_enabled=True` raises.
+`wandb_enabled=True` raises, and `put_image`, which mirrors a drawing to
+W&B in the JAX package, does nothing (the PNG that visualizers.save_vis
+writes is the record).
 """
 import json
 import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
-
 
 class EventStorage:
     def __init__(self, output_dir: Optional[str] = None, wandb_enabled: bool = False):
@@ -33,6 +34,11 @@ class EventStorage:
             self._file.write(json.dumps({"step": step, "ts": time.time(),
                                          **{k: float(v) for k, v in scalars.items()}}) + "\n")
             self._file.flush()
+
+    def put_image(self, name: str, image, caption: Optional[str] = None):
+        """The counterpart of dd3d_tpu/utils/events.py:73, which mirrors a
+        drawing (HWC uint8) to W&B when it is enabled; without W&B, as
+        always in the port, it does nothing."""
 
     def latest(self) -> Dict[str, float]:
         return {k: v[-1][1] for k, v in self._history.items()}

@@ -67,15 +67,17 @@ def test_cli_trains_two_steps_on_two_gloo_ranks(fixture_root, tmp_path):
 @pytest.mark.parametrize("override,match", [
     ("EVAL_ONLY=True", "EVAL_ONLY"),
     ("TEST.EVAL_PERIOD=1", "the final test after training"),
-    ("VIS.DATALOADER_ENABLED=True", "VIS.DATALOADER_ENABLED"),
+    ("VIS.DATALOADER_ENABLED=True", "DO_BEV_NMS"),
     ("WANDB.ENABLED=True", "WANDB"),
 ])
 def test_cli_raises_on_what_is_not_ported(fixture_root, tmp_path, override, match):
-    """With TEST.AUG.ENABLED (the KITTI experiments' default), EVAL_ONLY and
-    the final test after training would run test-time augmentation."""
+    """With DD3D.INFERENCE.DO_BEV_NMS, EVAL_ONLY and the final test after
+    training would run the rotated BEV NMS, which is not ported; W&B is not
+    ported either. The dataloader drawing and test-time augmentation are
+    (they do not raise)."""
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(cli_args(fixture_root, str(tmp_path), "VIS.DATALOADER_PERIOD=1", "TEST.AUG.ENABLED=True",
-                                override))
+                                "DD3D.INFERENCE.DO_BEV_NMS=True", override))
     assert not os.listdir(tmp_path)  # nothing was built or written
 
 

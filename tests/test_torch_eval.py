@@ -16,7 +16,8 @@
 - inference_on_dataset with converted weights on the fixture at a small
   test resize: per-image detections within test_torch_slice.py's
   tolerances of the JAX package's, and each side's detections give
-  identical results through the other side's evaluators.
+  identical results through the other side's evaluators; its prediction
+  drawings (visualize_dir) pixel for pixel the JAX package's.
 """
 import json
 import os
@@ -354,13 +355,38 @@ def test_detections_give_identical_results_on_both_evaluators(inference_runs, si
     assert set(got) == {"bbox", "kitti_3d"} and all(np.isfinite(v) for v in got["kitti_3d"].values())
 
 
-def test_visualize_dir_raises(fixture_root):
-    from dd3d_tpu_torch.models import build_model
-    from dd3d_tpu_torch.models.postprocess import inference_on_dataset
+def test_visualize_dir_draws_what_jax_draws(fixture_root, tmp_path, monkeypatch):
+    """inference_on_dataset(visualize_dir=..., max_vis=5) over batches of 4:
+    the first five images' pred_<image_id>.png, pixel for pixel what the
+    JAX package's inference_on_dataset draws (with cv2) from the same
+    detections (its inference function stubbed to return the port's)."""
+    import cv2
 
-    _, pcfg = both_cfgs(fixture_root)
-    with pytest.raises(NotImplementedError, match="visualizers"):
-        inference_on_dataset(build_model(pcfg), pcfg, [], [], visualize_dir="vis")
+    import dd3d_tpu.models.postprocess as jax_postprocess
+    from dd3d_tpu.data.build import TestDataLoader as JaxTestDataLoader
+    from dd3d_tpu_torch.data.build import TestDataLoader
+    from dd3d_tpu_torch.data.imageio import read_image_bgr
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn, inference_on_dataset
+    from tests.torch_port_util import both_models, detection_state_dict
+
+    o = {"TPU.COMPUTE_DTYPE": "float32", "TEST.IMS_PER_BATCH": 4, "INPUT.RESIZE.MIN_SIZE_TEST": 96,
+         "DATALOADER.TEST.NUM_WORKERS": 2}
+    jcfg, pcfg = both_cfgs(fixture_root, **o)
+    _, _, pm = both_models(jcfg, detection_state_dict())
+    with torch_threads(4):
+        inference_on_dataset(pm, pcfg, TestDataLoader(pcfg), [], visualize_dir=str(tmp_path / "port"), max_vis=5)
+        infer = get_inference_fn(pm, pcfg)
+        monkeypatch.setattr(jax_postprocess, "get_inference_fn", lambda *a, **k: (
+            lambda variables, images, intrinsics: {key: v.numpy() for key, v in infer(images, intrinsics).items()}))
+        monkeypatch.setattr(jax, "local_device_count", lambda: 1)
+        jax_postprocess.inference_on_dataset(None, jcfg, None, JaxTestDataLoader(jcfg), [],
+                                             visualize_dir=str(tmp_path / "jax"), max_vis=5)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == [f"pred_{i:06d}_camera_2.png" for i in range(5)]
+    for name in names:
+        got = read_image_bgr(str(tmp_path / "port" / name))
+        assert got.shape == (96, 318, 3)  # the network input, 375x1242 resized to short side 96
+        np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "jax" / name)))
 
 
 def test_loader_exception_reaches_the_caller(fixture_root):

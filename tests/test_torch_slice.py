@@ -119,7 +119,8 @@ def test_port_runs_without_jax(tmp_path):
     and collate a PNG through `predict.iter_batches`, then write the port's
     KITTI fixture and take one batch of its train loader, then run the
     native R40 engine and the KITTI-3D and COCO-2D evaluators on the
-    fixture, in a fresh interpreter: no jax or flax module, and nothing of
+    fixture, then run test-time augmentation and draw with every
+    visualizer, in a fresh interpreter: no jax or flax module, and nothing of
     the JAX package `dd3d_tpu`, may be imported on the way, the JAX
     package's engine library (dd3d_tpu/evaluators/native/libkitti_eval.so)
     must not be mapped, only the port's own build, and cv2 and PIL are
@@ -186,6 +187,22 @@ def test_port_runs_without_jax(tmp_path):
         "    ev.process([{'image_id': d['image_id'], **empty} for d in DatasetCatalog.get('kitti_3d_train')])\n"
         "results = [ev.evaluate() for ev in evaluators]\n"
         "assert results[1]['kitti_3d']['kitti_box3d_r40/Car_Moderate_0.5'] == 0.0, results\n"
+        "from dd3d_tpu_torch.models.tta import DD3DWithTTA\n"
+        "from dd3d_tpu_torch.visualizers import get_dataloader_visualizer, get_predictions_visualizer\n"
+        "from dd3d_tpu_torch.visualizers.draw import save_vis\n"
+        "tcfg = get_experiment_cfg('dd3d_kitti_dla34')\n"
+        "tcfg.TEST.AUG.MIN_SIZES, tcfg.DD3D.FCOS2D.INFERENCE.POST_NMS_TOPK = [64], 5\n"
+        "tmodel = build_model(tcfg, generator=torch.Generator().manual_seed(0))\n"
+        "tta = DD3DWithTTA(tcfg, tmodel)\n"
+        "frame = np.random.RandomState(1).randint(0, 256, (70, 200, 3)).astype(np.uint8)\n"
+        "merged, = tta.infer_batch([frame], [np.eye(3) * 100])\n"
+        "assert len(merged['scores_3d']) == 5 and dict(tta.stats['buckets']) == {(128, 256): 2}, merged\n"
+        "sample = TrainDataLoader(cfg).mapper(DatasetCatalog.get('kitti_3d_train')[0], np.random.RandomState(0))\n"
+        "for name in ('d2_visualizer', 'box3d_visualizer'):\n"
+        f"    save_vis(get_dataloader_visualizer(cfg, name, 'kitti_3d_train').visualize(sample), {str(tmp_path / 'vis')!r}, name)\n"
+        "det = dict(merged, scores=merged['scores'] * 0 + 1, scores_3d=merged['scores_3d'] * 0 + 1)\n"
+        "assert get_predictions_visualizer(cfg, 'box3d_visualizer', 'kitti_3d_train', '').visualize(\n"
+        "    frame, det, np.eye(3) * 100).shape == (1002, 2004, 3)\n"
         "import os\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libkitti_eval_' in maps and os.path.join('dd3d_tpu', 'evaluators') not in maps\n"

@@ -406,8 +406,9 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """TPU.REMAT, W&B and the dataloader visualization raise;
-    SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is ported (tests/test_torch_accumulate.py)."""
+    """TPU.REMAT and W&B raise; SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is
+    ported (tests/test_torch_accumulate.py), and so is the dataloader
+    visualization (tests/test_torch_eval_cli.py)."""
     from dd3d_tpu_torch.utils.events import EventStorage
 
     cfg = small_cfg()
@@ -420,9 +421,6 @@ def test_unported_training_options_raise(tmp_path):
     assert popt.Optimizer(cfg, model).accumulate == 2
     with pytest.raises(NotImplementedError, match="WANDB"):
         EventStorage(str(tmp_path), wandb_enabled=True)
-    cfg.VIS.DATALOADER_PERIOD = 2  # inside max_iter: the visualization would run
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, [], model=model, device="cpu", max_iter=3, output_dir=str(tmp_path))
 
 
 def report_distances():
