@@ -14,7 +14,9 @@ on image files (`python -m dd3d_tpu_torch.train` under torch.distributed.run
 on the port's KITTI-format fixture), and its evaluation (EVAL_ONLY,
 `inference_on_dataset`, the KITTI-3D and COCO-2D evaluators, the R40 engine;
 the overfit run trained and scored), its test-time augmentation and its
-drawings, and fails loudly (non-zero exit) if any phase fails. The four
+drawings, then the same paths of dd3d_kitti_v99 (VoVNet V-99-eSE + FPN
+P3-P6: serving in bf16 and static int8, the train step, the CLIs), and
+fails loudly (non-zero exit) if any phase fails. The four
 CUDA sources (five kernels: NMS is two) and the host code
 (csrc/imageio.cpp, csrc/kitti_eval.cpp with OpenMP, g++) are built first,
 one compiler process each, all at once.
@@ -120,13 +122,31 @@ one compiler process each, all at once.
     versions: identical detections and results; the int8 conv kernel
     against its plain version at the largest bucket's P3 tower conv
     (timed beside cuDNN's bf16 conv and its bound) and at its level0 conv,
-    whose 3.1e9-element input the wrapper launches in two runs.
+    whose 3.1e9-element input the wrapper launches in two runs;
+21. dd3d_kitti_v99 (V-99-eSE + FPN 256 + P3-P6, full width and depth,
+    randomize_state weights), bf16 serving of 4 batches of 8 at 384x1280:
+    phase 2's checks, the NMS kernel against the plain suppression
+    (identical detections), fp32 on the card against the CPU at batch 1
+    (1e-3), images/s, ms a batch, the profiler's device time and launches
+    a batch, peak memory;
+22. its static int8 in scripts/bench_v99.py's settings (QUANT_MIN_CH 32,
+    scales from 2 batches): phase 7 at every distinct int8 conv site of
+    this path, the quantize kernel at stage 2's concat input, phase 8's
+    path checks, int8 against bf16 in turns, and the int8 sites summed
+    against cuDNN's bf16 conv and the bound;
+23. its bf16 train step at batch 8, 384x1280, on seeded synthetic batches:
+    finite losses, ms a step over 8 timed steps, peak memory, launches;
+24. its CLIs on the 8-frame fixture: `train` for 4 steps of batch 8
+    (TPU.PALLAS_STEM_DW on: no dW launch on VoVNet), EVAL_ONLY from its
+    checkpoint with the NMS kernel and the plain suppression in turns
+    (identical), `predict` on a 375x1200 frame (a 384x1280 canvas, as JAX
+    pads) and `calibrate_int8`.
 
 Before the last line, the card's name and power limit and one JSON line of
-the four kernels: launches on the main path, error against the plain
-version, ms, the plain version's ms, the bound (bytes or operations at the
-published H100 peaks) and, where one PyTorch call computes the same thing,
-that call's ms.
+the four kernels: launches on the main paths (DLA-34's and V2-99's),
+error against the plain version, ms, the plain version's ms, the bound
+(bytes or operations at the published H100 peaks) and, where one PyTorch
+call computes the same thing, that call's ms.
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
@@ -303,7 +323,7 @@ def make_batches(device):
     return images, intrinsics
 
 
-def phase2_serve(cfg, model, images, intrinsics):
+def phase2_serve(cfg, model, images, intrinsics, phase="phase2"):
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
 
@@ -326,23 +346,23 @@ def phase2_serve(cfg, model, images, intrinsics):
     for i, det in enumerate(dets):
         for k, v in det.items():
             if v.shape[:2] != (BATCH, d):
-                raise AssertionError(f"phase2 batch {i}: {k} has shape {tuple(v.shape)}")
+                raise AssertionError(f"{phase} batch {i}: {k} has shape {tuple(v.shape)}")
             if v.is_floating_point() and not torch.isfinite(v).all():
-                raise AssertionError(f"phase2 batch {i}: {k} is not finite")
-        log(f"phase2 batch {i}: valid NMS candidates per image {candidates[i].tolist()}, "
+                raise AssertionError(f"{phase} batch {i}: {k} is not finite")
+        log(f"{phase} batch {i}: valid NMS candidates per image {candidates[i].tolist()}, "
             f"surviving suppression {survivors[i].tolist()}, detections {det['valid'].sum(dim=1).tolist()}")
         if int(candidates[i].min()) < 100:
-            raise AssertionError("phase2: fewer than 100 valid NMS candidates in an image")
+            raise AssertionError(f"{phase}: fewer than 100 valid NMS candidates in an image")
     if launches < N_BATCHES:
-        raise AssertionError(f"phase2: NMS kernel launched {launches} times for {N_BATCHES} batches")
+        raise AssertionError(f"{phase}: NMS kernel launched {launches} times for {N_BATCHES} batches")
     if all(torch.equal(c, k) for c, k in zip(candidates, survivors)):
-        raise AssertionError("phase2: NMS suppressed nothing; the check would be trivial")
-    log(f"phase2 ok: {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, NMS kernel launches {launches} "
+        raise AssertionError(f"{phase}: NMS suppressed nothing; the check would be trivial")
+    log(f"{phase} ok: {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, NMS kernel launches {launches} "
         f"({time.time() - t0:.2f} s incl. first-call set-up)")
     return launches, inputs[0]
 
 
-def phase3_plain_path(cfg, model, images, intrinsics):
+def phase3_plain_path(cfg, model, images, intrinsics, phase="phase3"):
     from dd3d_tpu_torch.models.dd3d import dd3d_inference
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_plain
 
@@ -353,11 +373,11 @@ def phase3_plain_path(cfg, model, images, intrinsics):
     torch.cuda.synchronize()
     for k in det_k:
         if not torch.equal(det_k[k], det_p[k]):
-            raise AssertionError(f"phase3: {k} differs between the kernel path and the plain path")
-    log(f"phase3 ok: kernel-path and plain-path detections identical ({int(det_k['valid'].sum())} kept)")
+            raise AssertionError(f"{phase}: {k} differs between the kernel path and the plain path")
+    log(f"{phase} ok: kernel-path and plain-path detections identical ({int(det_k['valid'].sum())} kept)")
 
 
-def phase4_fp32(cfg, device):
+def phase4_fp32(cfg, device, shape=(2, 128, 384), phase="phase4"):
     """Tolerance: both sides are fp32, summed in other orders by cuDNN and by
     the CPU's convolutions (a few ulps per layer over ~40 layers), so each
     head output must agree to 1e-3 of its own largest magnitude."""
@@ -367,7 +387,7 @@ def phase4_fp32(cfg, device):
     cpu_model = build(cfg, "cpu")
     gpu_model = build(cfg, device)
     rng = np.random.RandomState(SEED + 2)
-    images = torch.from_numpy(rng.randint(0, 256, (2, 128, 384, 3), dtype=np.uint8))
+    images = torch.from_numpy(rng.randint(0, 256, (*shape, 3), dtype=np.uint8))
     with torch.inference_mode():
         ref = cpu_model(images)
         out = gpu_model(images.to(device))
@@ -379,8 +399,8 @@ def phase4_fp32(cfg, device):
             rel = err / max(float(b.abs().max()), 1e-12)
             worst = max(worst, rel)
             if rel > 1e-3:
-                raise AssertionError(f"phase4: {k} level {lvl}: max |card - cpu| = {err} ({rel:.2e} relative)")
-    log(f"phase4 ok: fp32 card vs CPU head outputs, worst relative error {worst:.3e} (limit 1e-3)")
+                raise AssertionError(f"{phase}: {k} level {lvl}: max |card - cpu| = {err} ({rel:.2e} relative)")
+    log(f"{phase} ok: fp32 card vs CPU head outputs, worst relative error {worst:.3e} (limit 1e-3)")
 
 
 def serving_ms(infer, images, intrinsics):
@@ -537,13 +557,13 @@ def phase6_quantize(device):
     return max_err, (serving, cases[0][2])
 
 
-def int8_conv_sites(model, images):
+def int8_conv_sites(model, images, unfolded=True):
     """Every distinct int8 conv the static-int8 path reaches on `images`, as
     {(B, H, W, C, O, k, stride): count per forward}: one forward with every
     eligible conv quantized (QUANT_MIN_CH=0, the calibration regime, which
-    adds the stem and the 16-channel convs to the serving set) and the
-    predictors too (QUANT_UNFOLDED), recording the shapes that reach
-    int8_conv_dequant."""
+    adds the stem and the 16-channel convs to the serving set) and, with
+    `unfolded` (QUANT_UNFOLDED), the predictors too, recording the shapes
+    that reach int8_conv_dequant."""
     import dd3d_tpu_torch.models.layers as L
 
     sites = {}
@@ -556,14 +576,15 @@ def int8_conv_sites(model, images):
 
     L.int8_conv_dequant = record
     try:
-        with torch.inference_mode(), L.quant_scope(L.QuantSpec(enabled=True, min_ch=0, unfolded=True, plain=True)):
+        with torch.inference_mode(), L.quant_scope(L.QuantSpec(enabled=True, min_ch=0, unfolded=unfolded,
+                                                                plain=True)):
             model(images)
     finally:
         L.int8_conv_dequant = real
     return sites
 
 
-def phase7_int8_conv(model, images):
+def phase7_int8_conv(model, images, unfolded=True, phase="phase7"):
     """int8_conv kernel vs plain on the card at every conv shape of the int8
     path at the serving size: int32 accumulators exactly (scale 1, f32 out,
     every |acc| below 2^24 so f32 holds it exactly) and the dequant epilogue
@@ -573,7 +594,7 @@ def phase7_int8_conv(model, images):
     from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
 
     t0 = time.time()
-    sites = int8_conv_sites(model, images)
+    sites = int8_conv_sites(model, images, unfolded)
     gen = torch.Generator().manual_seed(SEED + 4)
     device = images.device
     max_err, timing_case, cases = 0.0, None, []
@@ -585,7 +606,7 @@ def phase7_int8_conv(model, images):
         bias = torch.randn(o, generator=gen).to(device)
         acc = int8_conv_acc_plain(xq, wq, stride, pad)
         if int(acc.abs().max()) >= 2 ** 24:
-            raise AssertionError("phase7: accumulators beyond 2^24 would not be checked exactly in f32")
+            raise AssertionError(f"{phase}: accumulators beyond 2^24 would not be checked exactly in f32")
         ones = torch.ones(o, device=device)
         checks = [("acc", int8_conv(xq, wq, ones, None, stride, pad, torch.float32), acc.float())]
         for dt in (torch.bfloat16, torch.float32):
@@ -595,18 +616,18 @@ def phase7_int8_conv(model, images):
         errs = []
         for name, got, want in checks:
             if got.shape != want.shape:
-                raise AssertionError(f"phase7 {name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+                raise AssertionError(f"{phase} {name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
             errs.append(float((got.float() - want.float()).abs().max()))
             if not torch.equal(got, want):
-                raise AssertionError(f"phase7 (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} {name}: "
+                raise AssertionError(f"{phase} (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} {name}: "
                                      f"kernel and plain differ, max |diff| = {errs[-1]}")
         max_err = max(max_err, *errs)
-        log(f"phase7 (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward: accumulators, "
+        log(f"{phase} (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward: accumulators, "
             f"bf16 and f32 epilogues equal (tolerance 0)")
         cases.append(((b, h, w, c, o, k, stride), count, (xq, wq, scale, bias, stride, pad)))
         if (c, o, k, h) == (256, 256, 3, HEIGHT // 8):  # a tower conv at P3
             timing_case = cases[-1][2]
-    log(f"phase7 ok: {len(sites)} conv shapes, {sum(sites.values())} int8 convs a forward "
+    log(f"{phase} ok: {len(sites)} conv shapes, {sum(sites.values())} int8 convs a forward "
         f"({time.time() - t0:.2f} s incl. the kernel build)")
     return max_err, sites, cases, timing_case
 
@@ -627,7 +648,7 @@ def top_scores(det, n=50):
     return torch.sort(det["scores"].float().reshape(-1), descending=True).values[:n]
 
 
-def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites):
+def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, phase="phase8"):
     """The static-int8 serving path: calibrate on 2 batches with
     prepare_static_scales, serve N_BATCHES batches through get_inference_fn,
     check every kernel's launch count and that no scale missed; the same
@@ -641,9 +662,9 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites):
     from dd3d_tpu_torch.ops.quantize import quantize_int8
 
     t0 = time.time()
-    cfg = prepare_static_scales(int8_cfg(), model, images[:2], tag="chip_smoke")
+    cfg = prepare_static_scales(base_cfg or int8_cfg(), model, images[:2], tag="chip_smoke")
     torch.cuda.synchronize()
-    log(f"phase8 calibrated on 2 batches of {BATCH} ({time.time() - t0:.2f} s)")
+    log(f"{phase} calibrated on 2 batches of {BATCH} ({time.time() - t0:.2f} s)")
     min_ch = cfg.TPU.QUANT_MIN_CH
     per_forward = sum(n for (_, _, _, c, _, _, _), n in sites.items() if c >= min_ch)
 
@@ -654,41 +675,41 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites):
     dets = [infer(im, intrinsics) for im in images]
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
-    log(f"phase8 served {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, static int8: launches {launches}, "
+    log(f"{phase} served {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, static int8: launches {launches}, "
         f"{per_forward} quantized convs a forward")
     expected = per_forward * N_BATCHES
     if launches["quantize_int8"] != expected or launches["int8_conv"] != expected:
-        raise AssertionError(f"phase8: expected {expected} quantize and int8 conv launches, got {launches}")
+        raise AssertionError(f"{phase}: expected {expected} quantize and int8 conv launches, got {launches}")
     if launches["greedy_nms"] != N_BATCHES:
-        raise AssertionError(f"phase8: NMS kernel launched {launches['greedy_nms']} times for {N_BATCHES} batches")
+        raise AssertionError(f"{phase}: NMS kernel launched {launches['greedy_nms']} times for {N_BATCHES} batches")
     if infer.quant.misses:
-        raise AssertionError(f"phase8: static scales missed {infer.quant.misses[:5]}")
+        raise AssertionError(f"{phase}: static scales missed {infer.quant.misses[:5]}")
     d = cfg.DD3D.FCOS2D.INFERENCE.POST_NMS_TOPK
     for i, det in enumerate(dets):
         for k, v in det.items():
             if v.shape[:2] != (BATCH, d):
-                raise AssertionError(f"phase8 batch {i}: {k} has shape {tuple(v.shape)}")
+                raise AssertionError(f"{phase} batch {i}: {k} has shape {tuple(v.shape)}")
             if v.is_floating_point() and not torch.isfinite(v).all():
-                raise AssertionError(f"phase8 batch {i}: {k} is not finite")
+                raise AssertionError(f"{phase} batch {i}: {k} is not finite")
         if int(det["valid"].sum(dim=1).min()) == 0:
-            raise AssertionError(f"phase8 batch {i}: an image has no detection")
+            raise AssertionError(f"{phase} batch {i}: an image has no detection")
 
     det_p = get_inference_fn(model, cfg, suppress=greedy_nms_plain, int8_plain=True)(images[0], intrinsics)
     torch.cuda.synchronize()
     for k in dets[0]:
         if not torch.equal(dets[0][k], det_p[k]):
-            raise AssertionError(f"phase8: {k} differs between the int8 kernel path and the int8 plain path")
-    log(f"phase8 int8 kernel-path and plain-path detections identical ({int(det_p['valid'].sum())} kept)")
+            raise AssertionError(f"{phase}: {k} differs between the int8 kernel path and the int8 plain path")
+    log(f"{phase} int8 kernel-path and plain-path detections identical ({int(det_p['valid'].sum())} kept)")
 
     det_b = get_inference_fn(model, bf16_cfg)(images[0], intrinsics)
     sa, sb = top_scores(det_b), top_scores(dets[0])
     drift = float((sa - sb).abs().mean())
     mass = abs(float(sa.sum()) - float(sb.sum())) / max(float(sa.sum()), 1e-6)
-    log(f"phase8 int8 vs bf16, top-50 scores of batch 0: mean |diff| {drift:.4f} (limit 0.05), "
+    log(f"{phase} int8 vs bf16, top-50 scores of batch 0: mean |diff| {drift:.4f} (limit 0.05), "
         f"relative score mass {mass:.4f} (limit 0.25)")
     if drift >= 0.05 or mass >= 0.25:
-        raise AssertionError("phase8: int8 detections drift too far from bf16")
-    log(f"phase8 ok ({time.time() - t0:.2f} s)")
+        raise AssertionError(f"{phase}: int8 detections drift too far from bf16")
+    log(f"{phase} ok ({time.time() - t0:.2f} s)")
     return cfg, launches
 
 
@@ -738,7 +759,7 @@ def device_ms(fn, reps, profiler):
     return sum(device_ms_by_kernel(fn, reps, profiler).values())
 
 
-def int8_conv_sites_timing(cases, min_ch):
+def int8_conv_sites_timing(cases, min_ch, phase="phase9"):
     """Device time of the int8 conv wrapper (its kernel, and the channel
     padding copy at the stem; bf16 out with bias, as served) and of cuDNN's
     bf16 conv, each in its own profiler window, at every conv shape of
@@ -755,7 +776,7 @@ def int8_conv_sites_timing(cases, min_ch):
         k_ms = device_ms(lambda: int8_conv(xq, wq, scale, bias, stride, pad, torch.bfloat16), 10, prof)
         c_ms = device_ms(cudnn_bf16_conv(xq, wq, stride, pad), 10, prof)
         bnd, by = int8_conv_bound(xq, wq, stride, pad)
-        log(f"phase9 int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward, device time: "
+        log(f"{phase} int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} x{count}/forward, device time: "
             f"kernel {k_ms:.4f} ms, cuDNN bf16 {c_ms:.4f} ms, bound {bnd:.5f} ms by {by} ({bnd / k_ms:.2f} of it)")
         for key in ("serving", "all") if c >= min_ch else ("all",):
             acc = sums[key]
@@ -764,7 +785,7 @@ def int8_conv_sites_timing(cases, min_ch):
             acc[2] += count * bnd
             acc[3] += count
     for key, (k_sum, c_sum, b_sum, n) in sums.items():
-        log(f"phase9 int8 convs a forward, {key} ({n} convs), device time: kernel {k_sum:.3f} ms, cuDNN bf16 "
+        log(f"{phase} int8 convs a forward, {key} ({n} convs), device time: kernel {k_sum:.3f} ms, cuDNN bf16 "
             f"{c_sum:.3f} ms, bound {b_sum:.3f} ms (count x ms summed over shapes)")
     return sums
 
@@ -1219,6 +1240,8 @@ def cli_rank(argv):
 
     steps = []
     recording_train_steps(steps)
+    if f"+experiments={V99}" in argv:
+        build_damped_models()
     conv_dw.conv_dw_s1_same.launches = 0
     sync_batch_moments.calls = 0
     out_dir = train_main(argv)
@@ -1279,11 +1302,11 @@ def run_cli(mode, args, timeout_s=600):
     return out
 
 
-def loader_cfg(root, **overrides):
+def experiment_cfg(name, **overrides):
+    """The experiment's config with {dotted key: value} overrides."""
     from dd3d_tpu_torch.configs import get_experiment_cfg
 
-    cfg = get_experiment_cfg("dd3d_kitti_dla34_overfit")
-    cfg.DATASET_ROOT = root
+    cfg = get_experiment_cfg(name)
     for key, value in overrides.items():
         node = cfg
         *parents, leaf = key.split(".")
@@ -1291,6 +1314,10 @@ def loader_cfg(root, **overrides):
             node = node[part]
         node[leaf] = value
     return cfg
+
+
+def loader_cfg(root, **overrides):
+    return experiment_cfg("dd3d_kitti_dla34_overfit", DATASET_ROOT=root, **overrides)
 
 
 def phase14_cli(tmp):
@@ -2076,6 +2103,272 @@ def phase20_int8_conv_largest_bucket(device, card):
     return {"ms": k_ms, "cudnn_ms": c_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
 
 
+# --- dd3d_kitti_v99: V-99-eSE + FPN 256 + P3-P6 at full width and depth (phases 21-24)
+
+V99 = "dd3d_kitti_v99"
+V99_TRAIN_STEPS = 8  # phase 23's timed steps
+V99_CLI_STEPS = 4  # phase 24's CLI run
+
+
+def v99_cfg(**overrides):
+    return experiment_cfg(V99, **overrides)
+
+
+def damp_identity_blocks(model, factor=0.1):
+    """Scale the concat norm's affine of every OSA block that adds its input
+    back by `factor`, in place. With He-initialized convs each such block
+    doubles its input's spread, ~2^13 over V-99's 13 of them, and the first
+    train step's gradient norm overflows f32; a trained checkpoint has no
+    such growth, and at 0.1 the trunk keeps features of order one."""
+    from dd3d_tpu_torch.models.vovnet import OSAModule
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, OSAModule) and m.identity:
+                m.concat.norm.weight.mul_(factor)
+                m.concat.norm.bias.mul_(factor)
+    return model
+
+
+def build_damped_models():
+    """Make `build_model` damp the OSA identity blocks of the models it
+    builds, in this process (phase 24's training CLI, which builds its own)."""
+    import dd3d_tpu_torch.models as models
+
+    real = models.build_model
+    models.build_model = lambda cfg, generator=None: damp_identity_blocks(real(cfg, generator))
+
+
+def v99_int8_cfg():
+    """scripts/bench_v99.py:20-28's serving configuration: static int8 with
+    QUANT_MIN_CH 32 (the predictors stay in bf16: no QUANT_UNFOLDED)."""
+    return v99_cfg(**{"TPU.QUANT_INT8": True, "TPU.QUANT_MIN_CH": 32})
+
+
+def serving_profile(infer, images, intrinsics, reps=3):
+    """(device ms a batch, kernel launches a batch) of `infer` under the
+    profiler, over `reps` batches after one outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    infer(images[0], intrinsics)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            infer(images[i % len(images)], intrinsics)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in kernels)
+    return busy / 1e3 / reps, sum(e.count for e in kernels) / reps
+
+
+def phase21_v99_serve(device, images, intrinsics, card):
+    """bf16 serving of dd3d_kitti_v99 at batch 8, 384x1280, weights from
+    randomize_state: phase 2's checks (shapes, finiteness, NMS candidates,
+    launches), phase 3's (the NMS kernel and the plain suppression give
+    identical detections), phase 4's (fp32 on the card within 1e-3 of the
+    CPU's, at batch 1, 384x1280), and images/s, ms a batch, the profiler's
+    device time and launches a batch, and peak memory. Returns (model, cfg,
+    NMS launches, images/s)."""
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+
+    t0 = time.time()
+    cfg = v99_cfg()
+    model = build(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase21 {V99}: {cfg.FE.BACKBONE.NAME}, FPN {cfg.FE.FPN.OUT_CHANNELS}, levels {model.strides}, "
+        f"{n_params / 1e6:.2f} M parameters, built in {time.time() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    launches, _ = phase2_serve(cfg, model, images, intrinsics, phase="phase21")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase3_plain_path(cfg, model, images, intrinsics, phase="phase21")
+    phase4_fp32(v99_cfg(), device, shape=(1, HEIGHT, WIDTH), phase="phase21")
+    infer = get_inference_fn(model, cfg)
+    med, p25, p75 = serving_ms(infer, images, intrinsics)
+    dev_ms, n_kernels = serving_profile(infer, images, intrinsics)
+    log(f"phase21 timing on {card}: bf16 serving, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.3f} ms/batch "
+        f"(p25 {p25:.3f}, p75 {p75:.3f}) = {BATCH / med * 1e3:.2f} images/s; profiler: {dev_ms:.3f} ms of device "
+        f"time and {n_kernels:.0f} kernel launches a batch (device busy {dev_ms / med:.3f} of the host's ms); "
+        f"peak memory {peak:.2f} GiB; NMS kernel launches {launches}")
+    log(f"phase21 ok ({time.time() - t0:.2f} s)")
+    return model, cfg, launches, BATCH / med * 1e3
+
+
+V99_QUANT_SHAPE = (BATCH, HEIGHT // 4, WIDTH // 4, 768)  # stage 2's concat input, the largest int8 activation
+
+
+def phase22_v99_int8(model, bf16_cfg, images, intrinsics, device, card):
+    """Static int8 of dd3d_kitti_v99 in scripts/bench_v99.py's settings, with
+    scales from 2 batches: phase 7 at every distinct int8 conv site of this
+    path (bit for bit), the quantize kernel against its plain version at
+    stage 2's concat input, phase 8's path checks (launches, no scale miss,
+    kernel and plain int8 detections identical, drift against bf16), int8
+    against bf16 in turns in images/s, and the int8 sites summed against
+    cuDNN's bf16 conv and the bound. Returns (launches by kernel, max error
+    of the conv sites, of the quantize check, images/s {int8, bf16}, sums)."""
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
+
+    t0 = time.time()
+    conv_err, sites, cases, _ = phase7_int8_conv(model, images[0], unfolded=False, phase="phase22")
+    gen = torch.Generator().manual_seed(SEED + 21)
+    x = (torch.randn(V99_QUANT_SHAPE, generator=gen) * 3).to(device, torch.bfloat16)
+    quant_err = 0.0
+    for scale in (x.float().abs().amax() / 127, torch.tensor(0.5)):
+        xs = scale.reshape(1).float().to(device)
+        got, want = quantize_int8(x, xs), quantize_int8_plain(x, xs)
+        quant_err = max(quant_err, float((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase22: the quantize kernel and its plain version differ at {V99_QUANT_SHAPE}")
+    log(f"phase22 quantize kernel at {V99_QUANT_SHAPE} bf16, dynamic and static scales: equal to the plain version")
+    cfg8, launches = phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=v99_int8_cfg(),
+                                      phase="phase22")
+    paths = {"int8": get_inference_fn(model, cfg8), "bf16": get_inference_fn(model, bf16_cfg)}
+    runs = {"int8": [], "bf16": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        runs[name].append(serving_ms(paths[name], images, intrinsics)[0])
+    ips = {name: BATCH / (np.mean(ms) / 1e3) for name, ms in runs.items()}
+    log(f"phase22 timing on {card}: serving in turns (int8, bf16, bf16, int8), median ms/batch int8 "
+        f"{runs['int8'][0]:.3f} / {runs['int8'][1]:.3f}, bf16 {runs['bf16'][0]:.3f} / {runs['bf16'][1]:.3f}: "
+        f"static int8 {ips['int8']:.2f} images/s, bf16 {ips['bf16']:.2f} images/s")
+    sums = int8_conv_sites_timing(cases, cfg8.TPU.QUANT_MIN_CH, phase="phase22")
+    log(f"phase22 ok ({time.time() - t0:.2f} s)")
+    return launches, conv_err, quant_err, ips, sums
+
+
+def phase23_v99_train(device, card):
+    """The bf16 train step of dd3d_kitti_v99 at batch 8, 384x1280, on seeded
+    synthetic batches (He-initialized convs, seeded norm statistics, the
+    identity blocks damped):
+    finite losses, ms a step over V99_TRAIN_STEPS timed steps, peak memory,
+    the profiler's launches and device time a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    t0 = time.time()
+    cfg = v99_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, damp_identity_blocks(build_train_model(cfg, "cpu")), device)
+    batches = [to_device(b, device) for b in train_batches(cfg, 3, BATCH, HEIGHT, WIDTH, SEED + 23)]
+    step = make_train_step(cfg, state.model, state.optimizer)
+    metrics = [step(batches[0])]
+    torch.cuda.synchronize()
+    times = []
+    for i in range(V99_TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics.append(step(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        if m["loss_finite"] != 1.0 or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"phase23 step {i + 1}: a metric is not finite: {m}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+               for e in kernels) / 1e3
+    med = float(np.median(times))
+    log("phase23 total loss by step: " + ", ".join(f"{m['total_loss']:.3f}" for m in metrics))
+    log(f"phase23 timing on {card}: {V99} bf16 train step, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.2f} ms "
+        f"(p25 {np.percentile(times, 25):.2f}, p75 {np.percentile(times, 75):.2f}) over {V99_TRAIN_STEPS} steps = "
+        f"{BATCH / med * 1e3:.2f} images/s; peak memory {peak:.2f} GiB; profiler over {len(batches)} steps: "
+        f"{busy / len(batches):.2f} ms of device time a step, busy share {busy / wall_ms:.3f}, "
+        f"{sum(e.count for e in kernels) / len(batches):.0f} kernel launches a step")
+    log(f"phase23 ok ({time.time() - t0:.2f} s)")
+    return med, peak
+
+
+def phase24_v99_clis(tmp, device, card):
+    """The CLIs under dd3d_kitti_v99 on the port's fixture (8 frames): the
+    training CLI for V99_CLI_STEPS steps of batch 8 (its model's identity
+    blocks damped as phase 23's; the resize buckets,
+    TPU.PALLAS_STEM_DW on, which launches nothing on this trunk), EVAL_ONLY
+    from its checkpoint, then inference_on_dataset through the NMS kernel
+    and with the plain suppression (identical detections and results);
+    `predict` on a 375x1200 frame, whose canvas is 384x1280 as in JAX; and
+    `calibrate_int8`. Returns (NMS launches of EVAL_ONLY)."""
+    from dd3d_tpu_torch.data.build import build_test_dataloader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.data.imageio import write_png
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+    from dd3d_tpu_torch.predict import iter_batches, read_image_dicts
+    from dd3d_tpu_torch.training.checkpoint import CheckpointManager, load_weights
+
+    t0 = time.time()
+    root = make_fixture(os.path.join(tmp, "v99_fixture"), n_images=8)
+    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
+    res = run_cli("--cli-rank", [f"+experiments={V99}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'v99_out')}",
+                                 f"SOLVER.MAX_ITER={V99_CLI_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={V99_CLI_STEPS}",
+                                 "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", "TPU.PALLAS_STEM_DW=True"])
+    ckpt = os.path.join(res["output_dir"], "ckpt")
+    buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
+    log(f"phase24 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s (process start and "
+        f"model included), canvases {buckets}, losses " + ", ".join(f"{v:.3f}" for v in res["losses"])
+        + f"; dW kernel launches {res['dw_launches']}; checkpoints {CheckpointManager(ckpt).steps()}")
+    if len(res["losses"]) != V99_CLI_STEPS or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"phase24: {len(res['losses'])} steps of {V99_CLI_STEPS}, or a loss not finite")
+    if res["dw_launches"] != 0 or CheckpointManager(ckpt).steps() != [V99_CLI_STEPS]:
+        raise AssertionError("phase24: the dW kernel launched on VoVNet, or no checkpoint")
+
+    overrides = {"DATASET_ROOT": root, "DATASETS.TEST.NAME": "kitti_3d_train",
+                 "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH": 0.0}
+    ev = run_cli("--eval-only", [f"+experiments={V99}", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}",
+                                 *[f"{k}={v}" for k, v in overrides.items()],
+                                 f"OUTPUT_ROOT={os.path.join(tmp, 'v99_eval')}"])
+    with open(os.path.join(ev["output_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    log(f"phase24 EVAL_ONLY CLI ({ev['seconds']:.1f} s): NMS kernel launches {ev['nms_launches']}, {CAR_AP3D} = "
+        f"{rows[-1].get(CAR_AP3D, float('nan')):.4f}")
+    if ev["nms_launches"] < 1 or len(rows) != 1 or not np.isfinite(rows[0].get(CAR_AP3D, np.nan)):
+        raise AssertionError("phase24: the EVAL_ONLY CLI did not launch the NMS kernel or log its results")
+    cfg = v99_cfg(**overrides)
+    register_datasets(cfg)
+    loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
+    model = build_model(cfg)
+    load_weights(model, ckpt)
+    kernel_and_plain(model.to(device), cfg, loader, "phase24")
+
+    frames = os.path.join(tmp, "v99_frames")
+    os.makedirs(frames, exist_ok=True)
+    write_png(os.path.join(frames, "000000.png"),
+              np.random.RandomState(SEED + 24).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
+    (_, batch, _), = iter_batches(cfg, read_image_dicts([os.path.join(frames, "000000.png")],
+                                                        np.asarray(KITTI_K, np.float64)), 1)
+    if batch["image"].shape != (1, 384, 1280, 3):
+        raise AssertionError(f"phase24: a 375x1200 frame gives a {batch['image'].shape} batch, not 384x1280")
+    common = ["--experiment", V99, "--images", frames, "--intrinsics", KITTI_INTRINSICS, "--ckpt", ckpt]
+    out = os.path.join(tmp, "v99_predictions.json")
+    scales = os.path.join(tmp, "v99_scales.json")
+    for name, cmd in (("predict", ["-m", "dd3d_tpu_torch.predict", *common, "--out", out]),
+                      ("calibrate_int8", ["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out", scales])):
+        t = time.time()
+        proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase24 {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        log(f"phase24 {name} CLI ({time.time() - t:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
+    with open(out) as f:
+        records = json.load(f)
+    with open(scales) as f:
+        keys = json.load(f)
+    boxes = np.asarray(records[0]["boxes2d"]).reshape(-1, 4)
+    if len(records) != 1 or not len(boxes) or boxes[:, 2].max() > 1200 or boxes[:, 3].max() > 375:
+        raise AssertionError("phase24: predict's detections are missing or lie outside the 1200x375 frame")
+    tags = keys.get("backbone/bottom_up/OSA5_3/concat/conv", {})
+    if "12x40x2144" not in tags or any("top_p6" in k or "ese" in k for k in keys):
+        raise AssertionError(f"phase24: calibrate_int8 wrote {len(keys)} convs, OSA5_3's concat at {list(tags)}")
+    log(f"phase24 ok ({time.time() - t0:.2f} s): predict on a 384x1280 canvas ({len(boxes)} detections), "
+        f"calibrate_int8 {len(keys)} convs")
+    return ev["nms_launches"]
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -2142,6 +2435,19 @@ def main():
         torch.cuda.synchronize()
         phase19_visualizers(tmp, root, overfit["output_dir"], card)
         tta = phase20_tta(tmp, overfit["output_dir"], device, card)
+        torch.cuda.synchronize()
+
+        v99_model, v99_bf16, v99_nms, v99_ips = phase21_v99_serve(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        v99_launches, v99_conv_err, v99_quant_err, v99_turns, v99_sums = phase22_v99_int8(
+            v99_model, v99_bf16, images, intrinsics, device, card)
+        del v99_model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        v99_train_ms, v99_train_peak = phase23_v99_train(device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        v99_eval_nms = phase24_v99_clis(tmp, device, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -2175,6 +2481,18 @@ def main():
         f"path bf16 {tta['bf16_launches']}, int8 {tta['int8_launches']}; the int8 conv at the 640x1920 bucket's P3 "
         f"conv {conv['ms']:.4f} ms (cuDNN bf16 {conv['cudnn_ms']:.4f}, bound {conv['bound_ms']:.4f} by "
         f"{conv['bound_by']})")
+    k_sum, c_sum, b_sum, n_sites = v99_sums["serving"]
+    log(f"timing on {card}: {V99} (V-99-eSE, FPN 256, P3-P6) bf16 serving {v99_ips:.2f} images/s (phase 21); in "
+        f"turns static int8 {v99_turns['int8']:.2f}, bf16 {v99_turns['bf16']:.2f} images/s (phase 22); its {n_sites} "
+        f"int8 convs a forward {k_sum:.3f} ms of device time against cuDNN bf16 {c_sum:.3f} ms and the bound "
+        f"{b_sum:.3f} ms; train step {v99_train_ms:.2f} ms at batch {BATCH}, peak {v99_train_peak:.2f} GiB "
+        f"(phase 23); launches on the V2-99 paths: NMS {v99_nms} bf16 + {v99_launches['greedy_nms']} int8 + "
+        f"{v99_eval_nms} EVAL_ONLY, quantize {v99_launches['quantize_int8']}, int8 conv "
+        f"{v99_launches['int8_conv']}, dW 0")
+    launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms,
+                "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"],
+                "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"]}
+    quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err)
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
              "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],

@@ -49,8 +49,7 @@ def main(argv=None):
     print(f"{len(files)} calibration images, experiment {args.experiment}, device {device}")
     dicts = read_image_dicts(files, parse_intrinsics(args.intrinsics))
     model = load_model(cfg, args.ckpt, args.seed, device)
-    batches = (batch["image"] for _, batch, _ in iter_batches(cfg, dicts, args.batch,
-                                                              model.backbone.size_divisibility))
+    batches = (batch["image"] for _, batch, _ in iter_batches(cfg, dicts, args.batch))
     scales = capture_scales(cfg, model, batches)
     if args.headroom != 1.0:
         scales = {k: {t: a * args.headroom for t, a in v.items()} for k, v in scales.items()}

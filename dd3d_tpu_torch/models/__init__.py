@@ -28,6 +28,7 @@ def register_backbone(name):
 def build_feature_extractor(cfg):
     """Resolve `cfg.FE.BUILDER`."""
     import dd3d_tpu_torch.models.dla  # noqa: F401  (populates the registry)
+    import dd3d_tpu_torch.models.vovnet  # noqa: F401
 
     builder = BACKBONE_REGISTRY.get(cfg.FE.BUILDER)
     if builder is None:

@@ -34,7 +34,8 @@ HEAD_KEYS_3D = ("quat", "proj_ctr", "depth", "size", "conf")
 
 
 class DD3D(nn.Module):
-    """Backbone + heads; `strides` are the FPN levels' (8..128 for P3-P7) and
+    """Backbone + heads; `strides` are the FPN levels' (8..128 for P3-P7,
+    8..64 for P3-P6) and
     `dtype` the compute dtype (TPU.COMPUTE_DTYPE; parameters stay fp32)."""
 
     def __init__(self, backbone: nn.Module, strides: Sequence[int], pixel_mean, pixel_std,

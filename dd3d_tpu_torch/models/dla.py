@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dd3d_tpu_torch.models import register_backbone
-from dd3d_tpu_torch.models.fpn import FPN
+from dd3d_tpu_torch.models.fpn import fpn_from_cfg
 from dd3d_tpu_torch.models.layers import ConvNorm
 
 
@@ -122,7 +122,8 @@ class DLA(nn.Module):
 
 
 # name -> (levels, channels); the DLA-34 row of dd3d_tpu/models/dla.py:349
-# (BasicBlock, no residual root). The other variants are not ported yet.
+# (BasicBlock, no residual root). The other variants are not ported yet; all
+# three FPN tops are (builders below).
 DLA_VARIANTS = {
     "DLA-34": ([1, 1, 1, 2, 2, 1], [16, 32, 64, 128, 256, 512]),
 }
@@ -140,16 +141,23 @@ def _dla_trunk(cfg):
     return trunk, {f"level{i}": channels[i] for i in range(6)}, DLA_STRIDES
 
 
+def _dla_fpn(cfg, top_block: str):
+    return fpn_from_cfg(cfg, *_dla_trunk(cfg), top_block)
+
+
 @register_backbone("build_fcos_dla_fpn_backbone_p67")
 def build_fcos_dla_fpn_backbone_p67(cfg):
     """DLA + FPN + P6P7 top block (strides 8..128); the KITTI backbone."""
-    trunk, trunk_channels, trunk_strides = _dla_trunk(cfg)
-    return FPN(
-        bottom_up=trunk,
-        in_features=tuple(cfg.FE.FPN.IN_FEATURES),
-        in_channels={f: trunk_channels[f] for f in cfg.FE.FPN.IN_FEATURES},
-        in_strides={f: trunk_strides[f] for f in cfg.FE.FPN.IN_FEATURES},
-        out_channels=cfg.FE.FPN.OUT_CHANNELS,
-        norm=cfg.FE.FPN.NORM,
-        fuse_type=cfg.FE.FPN.FUSE_TYPE,
-    )
+    return _dla_fpn(cfg, "p6p7")
+
+
+@register_backbone("build_fcos_dla_fpn_backbone_p6")
+def build_fcos_dla_fpn_backbone_p6(cfg):
+    """DLA + FPN + P6 top block (strides 8..64)."""
+    return _dla_fpn(cfg, "p6")
+
+
+@register_backbone("build_dla_fpn_backbone")
+def build_dla_fpn_backbone(cfg):
+    """DLA + FPN + max-pool top level (strides 8..64)."""
+    return _dla_fpn(cfg, "maxpool")

@@ -47,9 +47,12 @@ class FCOS3DHead(nn.Module):
                 [Scale(float(s) * proj_ctr_scale_init_factor) for s in in_strides])
             self.scales_size = nn.ModuleList([Scale(1.0) for _ in in_strides])
             self.scales_conf = nn.ModuleList([Scale(1.0) for _ in in_strides])
+            # one per level, from the first entries of the depth statistics:
+            # the JAX package creates the modules of every entry but only the
+            # levels' get parameters (dd3d_tpu/models/fcos3d.py:109-112)
             self.scales_depth = nn.ModuleList(
-                [Scale(float(s) * depth_scale_init_factor) for s in std_depth_per_level])
-            self.offsets_depth = nn.ModuleList([Offset(float(m)) for m in mean_depth_per_level])
+                [Scale(float(s) * depth_scale_init_factor) for s in std_depth_per_level[:num_levels]])
+            self.offsets_depth = nn.ModuleList([Offset(float(m)) for m in mean_depth_per_level[:num_levels]])
         # reference checkpoints carry these (dataset depth statistics)
         self.register_buffer("mean_depth_per_level", torch.tensor([float(m) for m in mean_depth_per_level]))
         self.register_buffer("std_depth_per_level", torch.tensor([float(s) for s in std_depth_per_level]))

@@ -321,10 +321,12 @@ class FoldableConv(nn.Module):
     weight_grad_plain = False
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
-                 bias: bool = False, init: str = INIT_NORMAL_FAN_OUT):
+                 bias: bool = False, init: str = INIT_NORMAL_FAN_OUT, groups: int = 1):
         super().__init__()
-        self.kernel_size, self.stride, self.init = kernel_size, stride, init
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        if groups != 1 and self.quantizable:
+            raise ValueError("a grouped conv has no int8 path: build it as a PlainConv")
+        self.kernel_size, self.stride, self.init, self.groups = kernel_size, stride, init, groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.reset_parameters()
 
@@ -358,13 +360,16 @@ class FoldableConv(nn.Module):
             act_amax = _observe(spec, self.quant_path, x)
             if x.shape[1] >= spec.min_ch:
                 return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain)
-        return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad)
+        return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad,
+                        groups=self.groups)
 
 
 class PlainConv(FoldableConv):
     """A conv that never quantizes: the counterpart of flax's plain nn.Conv
-    (the FPN's P6/P7, dd3d_tpu/models/fpn.py:110-117), which the JAX
-    package's int8 rule never reaches, even under TPU.QUANT_UNFOLDED."""
+    (the FPN's P6/P7, dd3d_tpu/models/fpn.py:110-117; VoVNet's eSE `fc` and
+    depthwise `dw`, dd3d_tpu/models/vovnet.py:55,68), which the JAX
+    package's int8 rule never reaches, even under TPU.QUANT_UNFOLDED. Only a
+    PlainConv takes `groups` > 1."""
 
     quantizable = False
 

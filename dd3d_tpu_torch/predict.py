@@ -86,11 +86,14 @@ def read_image_dicts(files, intrinsics):
     return dicts
 
 
-def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
+def iter_batches(cfg, dicts, batch_size: int):
     """(chunk, batch, meta) per `batch_size` dicts, through the mapper in
     inference mode and collate (data/mapper.py): ResizeShortestEdge at
-    INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to
-    `size_divisibility`."""
+    INPUT.RESIZE.MIN_SIZE_TEST, intrinsics rescaled, canvas padded to a
+    multiple of 128 whatever the backbone's largest stride, as
+    scripts/predict.py:157 and scripts/calibrate_int8.py:92 pad (a P3-P6
+    backbone would pad a 375x1200 frame to 384x1216 by its own stride of
+    64; both packages give it a 384x1280 canvas)."""
     from dd3d_tpu_torch.data.augmentations import build_augmentation
     from dd3d_tpu_torch.data.mapper import DatasetMapper, collate_batch
 
@@ -98,7 +101,7 @@ def iter_batches(cfg, dicts, batch_size: int, size_divisibility: int):
     rng = np.random.RandomState(0)
     for i in range(0, len(dicts), batch_size):
         chunk = dicts[i: i + batch_size]
-        batch, meta = collate_batch([mapper(d, rng) for d in chunk], max_gt=1, size_divisibility=size_divisibility)
+        batch, meta = collate_batch([mapper(d, rng) for d in chunk], max_gt=1, size_divisibility=128)
         yield chunk, batch, meta
 
 
@@ -149,7 +152,7 @@ def main(argv=None):
     infer_fn = get_inference_fn(model, cfg)
 
     results = []
-    for i, (chunk, batch, meta) in enumerate(iter_batches(cfg, dicts, args.batch, model.backbone.size_divisibility)):
+    for i, (chunk, batch, meta) in enumerate(iter_batches(cfg, dicts, args.batch)):
         det = infer_fn(batch["image"], batch["intrinsics"])
         rows = unpack_detections(det, batch, meta[: len(chunk)])
         for d, row in zip(chunk, rows):

@@ -3,12 +3,15 @@ dd3d_tpu/training/checkpoint.py: `torch.save` of the model's state dict
 (parameters and BN statistics), the optimizer's (momentum buffers and the
 schedule count) and the step, one file a step; the last `max_to_keep` are
 kept, and `restore` loads the latest. `load_weights` loads a model's weights
-from such a directory or from a reference-named state dict file."""
+from such a directory or from a reference-named state dict file (VoVNet's
+slash names renamed by `reference_to_port_names`)."""
 import os
 import re
 from typing import List, Optional
 
 import torch
+
+from dd3d_tpu_torch.utils.convert_checkpoint import reference_to_port_names
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 REMOTE_PREFIXES = ("http://", "https://", "s3://", "gs://")  # not fetched: the port needs no network
@@ -69,5 +72,5 @@ def load_weights(model: torch.nn.Module, path: str) -> Optional[int]:
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
-    model.load_state_dict(sd.get("model", sd), strict=True)
+    model.load_state_dict(reference_to_port_names(sd.get("model", sd), model), strict=True)
     return None

@@ -9,7 +9,10 @@ given as nested dicts of numpy arrays, into a state dict for a port model:
 - FrozenBN statistics (all in `batch_stats`) and live-BN affine (in
   `params`) -> weight / bias / running_mean / running_var.
 The port's names are the reference checkpoints' (tests/torch_ref_dd3d.py),
-so a reference `.pth` loads into the same model with `strict=True`. Buffers
+but for VoVNet's (see `reference_to_port_names`), so a reference `.pth`
+loads into the same model with `strict=True`. VoVNet's modules carry the
+flax scope names (`stem1`, `OSA2_1`, `layer0`, `dw` / `pw`, `ese.fc`), which
+the path rules below pass through unchanged. Buffers
 the JAX trees do not hold (num_batches_tracked, pixel_mean / pixel_std, the
 per-level depth statistics) are the model's own, which come from the config.
 
@@ -19,6 +22,12 @@ keys its int8 scale, so one scales JSON serves both packages.
 `flax_param_paths` names every trainable parameter of the port by its flax
 path (the weight-decay mask reads it), and `convert_flax_params` converts a
 tree shaped like the JAX params, e.g. a gradient tree, to port names.
+
+`reference_to_port_names` renames a reference checkpoint for the port:
+VoVNet's slash names (`stem.stem_1/conv.weight`), which no nn.Module name
+can hold, become the port's (`stem1.weight`), and the per-level depth
+Scale / Offset entries past the model's levels, which the reference sizes by
+the dataset's depth statistics, are dropped, as the JAX converter drops them.
 """
 import re
 from typing import Dict, List, Tuple
@@ -49,6 +58,21 @@ _PATH_RULES = [
     (r"\boffsets_([a-z0-9_]+?)\.(\d+)\b", r"offset_\1\2"),
     (r"\b(box3d_[a-z]+)\.(\d+)\b", r"\1\2"),
 ]
+
+# The JAX package's canonicalization of VoVNet's OrderedDict slash names
+# (dd3d_tpu/utils/convert_checkpoint.py:26-38): the reference's
+# `.stage2.OSA2_1.layers.0.OSA2_1_0/conv.` becomes `.OSA2_1.layer0.conv.`.
+_VOVNET_RULES = [
+    (r"\.stage\d+\.(OSA)", r".\1"),  # drop the _OSA_stage level
+    (r"\.stem\.stem_(\d)/", r".stem\1."),
+    (r"\.layers\.(\d+)\.[^./]+/dw_conv3x3\.", r".layer\1.dw."),
+    (r"\.layers\.(\d+)\.[^./]+/pw_conv1x1\.", r".layer\1.pw.conv."),
+    (r"\.layers\.(\d+)\.[^./]+/pw_norm\.", r".layer\1.pw.norm."),
+    (r"\.layers\.(\d+)\.[^./]+/(conv|norm)\.", r".layer\1.\2."),
+    (r"\.concat\.[^./]+/(conv|norm)\.", r".concat.\1."),
+    (r"\.conv_reduction\.[^./]+/(conv|norm)\.", r".conv_reduction.\1."),
+]
+_PER_LEVEL_SCALAR = re.compile(r"^(.*\.(?:scales|offsets)_[a-z0-9_]+)\.(\d+)\.(?:scale|bias)$")
 
 _NORM_LEAVES = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
 
@@ -188,3 +212,28 @@ def convert_flax_variables(variables: Dict, model: torch.nn.Module, strict: bool
         if unused:
             raise ValueError(f"{len(unused)} JAX leaves have no place in the port: {unused[:10]}")
     return state
+
+
+def _vovnet_port_name(key: str) -> str:
+    k = key
+    for pattern, repl in _VOVNET_RULES:
+        k = re.sub(pattern, repl, k)
+    if k != key:  # a ConvNorm's conv is the port module itself: `stem1.conv.weight` -> `stem1.weight`
+        k = re.sub(r"\.conv\.(weight|bias)$", r".\1", k)
+    return k
+
+
+def reference_to_port_names(state_dict: Dict[str, torch.Tensor], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A reference-named state dict with the port's names, for
+    `model.load_state_dict(..., strict=True)`. A per-level scale or offset
+    is dropped only when the model has fewer levels than the entry's index;
+    every other key is kept, so a key the model lacks still fails the load."""
+    own = model.state_dict()
+    out = {}
+    for key, value in state_dict.items():
+        name = _vovnet_port_name(key)
+        m = _PER_LEVEL_SCALAR.match(name)
+        if m and name not in own and sum(k.startswith(m.group(1) + ".") for k in own) <= int(m.group(2)):
+            continue
+        out[name] = value
+    return out

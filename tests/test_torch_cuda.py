@@ -193,6 +193,31 @@ def test_int8_conv_kernel_matches_plain(card, b, h, w, c, o, k, stride):
     assert int8_conv.launches == before + 3
 
 
+# dd3d_kitti_v99's distinct int8 conv shapes (V-99-eSE: the stem's s2 and s1
+# convs, the OSA 3x3 links with C and O in 128..256, K = 9C with tails of
+# 32, 64 and 96 bytes against the 128-byte K stage, O = 160 and 224 filling
+# part of an N tile, and the 1x1 concat convs of C = 768..1888), small grids.
+V99_CONV_SHAPES = [
+    (2, 33, 41, 3, 64, 3, 2),      # stem1, C = 3 padded to 16, stride 2
+    (2, 17, 21, 64, 64, 3, 1),     # stem2
+    (2, 17, 21, 64, 128, 3, 2),    # stem3
+    (2, 12, 20, 128, 128, 3, 1),   # stage 2 links
+    (2, 12, 20, 256, 160, 3, 1),   # stage 3's first link: K = 2304
+    (2, 12, 20, 160, 160, 3, 1),   # K = 1440, O = 160
+    (2, 6, 10, 192, 192, 3, 1),    # K = 1728
+    (2, 6, 10, 224, 224, 3, 1),    # K = 2016, O = 224
+    (2, 12, 20, 768, 256, 1, 1),   # stage 2 concat
+    (2, 12, 20, 1056, 512, 1, 1),  # stage 3 concat
+    (1, 6, 10, 1472, 768, 1, 1),   # stage 4 concat
+    (1, 3, 5, 1888, 1024, 1, 1),   # stage 5 concat
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,o,k,stride", V99_CONV_SHAPES)
+def test_int8_conv_kernel_matches_plain_at_v99_shapes(card, b, h, w, c, o, k, stride):
+    test_int8_conv_kernel_matches_plain(card, b, h, w, c, o, k, stride)
+
+
 def test_int8_conv_dequant_kernel_path_matches_plain(card):
     """The whole int8 conv (scales, quantize, conv, epilogue) through the
     kernels against the plain versions, on an NCHW-contiguous input (the

@@ -100,7 +100,7 @@ def test_iter_batches_matches_jax_mapper(tmp_path, monkeypatch, min_size, max_si
     cfg.INPUT.RESIZE.MIN_SIZE_TEST, cfg.INPUT.RESIZE.MAX_SIZE_TEST = min_size, max_size
     dicts = read_image_dicts(files, KITTI_K.astype(np.float64))
 
-    (chunk, batch, meta), = iter_batches(cfg, dicts, 3, 128)
+    (chunk, batch, meta), = iter_batches(cfg, dicts, 3)
     mapper = DatasetMapper(build_augmentation(cfg, is_train=False), is_train=False, box3d_on=True)
     map_rng = np.random.RandomState(0)
     want, want_meta = collate_batch([mapper(d, map_rng) for d in dicts], max_gt=1, size_divisibility=128)
@@ -114,7 +114,8 @@ def test_iter_batches_matches_jax_mapper(tmp_path, monkeypatch, min_size, max_si
 
 def test_port_runs_without_jax(tmp_path):
     """Build the port's model and run bf16 inference, then calibrate and serve
-    static int8 with bench.py's overrides, then take a bf16 train step through
+    static int8 with bench.py's overrides, then the same for dd3d_kitti_v99
+    (VoVNet, FPN P3-P6; a depthwise preset), then take a bf16 train step through
     `train` with the stem's weight gradient routed to its kernel, then map
     and collate a PNG through `predict.iter_batches`, then write the port's
     KITTI fixture and take one batch of its train loader, then run the
@@ -148,6 +149,15 @@ def test_port_runs_without_jax(tmp_path):
         "infer = get_inference_fn(model, prepare_static_scales(cfg, model, [images]))\n"
         "det = infer(images, torch.eye(3)[None])\n"
         "assert det['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
+        "vcfg = get_experiment_cfg('dd3d_kitti_v99')\n"
+        "vcfg.FE.BACKBONE.NAME = 'V-19-slim-dw-eSE'\n"
+        "vmodel = build_model(vcfg, generator=torch.Generator().manual_seed(0))\n"
+        "assert vmodel.strides == (8, 16, 32, 64)\n"
+        "det = get_inference_fn(vmodel, vcfg)(images, torch.eye(3)[None])\n"
+        "assert det['boxes2d'].shape == (1, 100, 4)\n"
+        "vcfg.TPU.QUANT_INT8, vcfg.TPU.QUANT_MIN_CH = True, 32\n"
+        "infer = get_inference_fn(vmodel, prepare_static_scales(vcfg, vmodel, [images]))\n"
+        "assert infer(images, torch.eye(3)[None])['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
         "import numpy as np\n"
         "from dd3d_tpu_torch.training.synthetic import synthetic_batch\n"
         "from dd3d_tpu_torch.training.train_loop import train\n"
@@ -161,7 +171,7 @@ def test_port_runs_without_jax(tmp_path):
         "assert state.step == 1 and seen[0]['loss_finite'] == 1.0, seen\n"
         "from dd3d_tpu_torch.predict import iter_batches, read_image_dicts\n"
         f"dicts = read_image_dicts([{png!r}], np.eye(3))\n"
-        "(_, batch, meta), = iter_batches(cfg, dicts, 1, 128)\n"
+        "(_, batch, meta), = iter_batches(cfg, dicts, 1)\n"
         "assert batch['image'].shape == (1, 384, 1152, 3) and batch['image_size'].tolist() == [[384, 1067]]\n"
         "from dd3d_tpu_torch.overfit_smoke import make_fixture\n"
         "from dd3d_tpu_torch.data.build import TrainDataLoader\n"

@@ -19,7 +19,7 @@ from dd3d_tpu.utils.convert_checkpoint import convert_torch_state_dict
 from dd3d_tpu_torch.models import build_model as build_port_model
 from dd3d_tpu_torch.utils.convert_checkpoint import convert_flax_variables
 
-from tests.torch_ref_dd3d import TorchDD3D, randomize_state
+from tests.torch_ref_dd3d import FPN, FCOS2DHead, FCOS3DHead, TorchDD3D, TorchVoVNet, randomize_state
 
 
 def fp32_cfg():
@@ -47,15 +47,82 @@ def detection_state_dict(seed: int = 7):
     norm scales, so features carry the image; the predictors are scaled down
     to logits of std ~3; and the box regression gets +4 so 2D boxes span
     8 strides and NMS has overlaps to resolve."""
-    sd = reference_state_dict(seed)
+    return condition_for_detection(reference_state_dict(seed))
+
+
+class TorchKittiVoVNetDD3D(torch.nn.Module):
+    """Reference-named DD3D for the dd3d_kitti_v99 experiment, from the
+    reference mirrors of tests/torch_ref_dd3d.py: a VoVNet trunk (any
+    non-depthwise preset), FPN with the P6 top, the heads at P3-P6, and the
+    five KITTI depth statistics (the reference sizes the depth Scale/Offset
+    lists by them, so it carries a fifth pair no level reads)."""
+
+    def __init__(self, spec, num_classes=5, mean_depth=(32.594, 15.178, 8.424, 5.004, 4.662),
+                 std_depth=(14.682, 7.139, 4.345, 2.399, 2.587)):
+        super().__init__()
+        strides = [8, 16, 32, 64]
+        trunk = TorchVoVNet(spec["stem"], spec["stage_conv_ch"], spec["stage_out_ch"], spec["block_per_stage"],
+                            spec["layer_per_block"])
+        ch = {f"stage{i + 2}": spec["stage_out_ch"][i] for i in range(4)}
+        self.backbone = FPN(trunk, ["stage3", "stage4", "stage5"], ch, 256,
+                            strides={"stage3": 8, "stage4": 16, "stage5": 32}, top="p6")
+        self.fcos2d_head = FCOS2DHead(num_classes, 256, strides)
+        self.fcos3d_head = FCOS3DHead(num_classes, 256, strides, mean_depth, std_depth)
+        self.register_buffer("pixel_mean", torch.tensor([103.530, 116.280, 123.675]).view(1, 3, 1, 1))
+        self.register_buffer("pixel_std", torch.tensor([57.375, 57.120, 58.395]).view(1, 3, 1, 1))
+
+
+def v99_cfg(backbone: str = "V-19-slim-eSE"):
+    """dd3d_kitti_v99 at fp32 with another VoVNet preset."""
+    cfg = get_experiment_cfg("dd3d_kitti_v99")
+    cfg.FE.BACKBONE.NAME = backbone
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def v99_state_dict(backbone: str = "V-19-slim-eSE", seed: int = 7):
+    """A reference-named dd3d_kitti_v99 state dict, conditioned for
+    detection (`condition_for_detection`)."""
+    from dd3d_tpu.models.vovnet import VOVNET_SPECS
+
+    tm = TorchKittiVoVNetDD3D(VOVNET_SPECS[backbone])
+    randomize_state(tm, seed=seed)
+    return condition_for_detection({k: v.numpy().copy() for k, v in tm.state_dict().items()})
+
+
+def condition_for_detection(sd):
+    """`detection_state_dict`'s scaling of a reference state dict."""
+    sd = dict(sd)
     for k, v in sd.items():
         if v.ndim == 4 and k.endswith(".weight"):
             fan_in = np.prod(v.shape[1:])
             sd[k] = v * 1e-4 if k.split(".")[1] in PREDICTORS else v * (np.sqrt(2.0 / fan_in) / 0.1)
-        elif ".norm." in k and k.endswith(".weight"):
+        elif (".norm." in k or "/norm." in k) and k.endswith(".weight"):  # VoVNet's: `stem_1/norm.weight`
             sd[k] = v + 1.0
     sd["fcos2d_head.box2d_reg.bias"] = sd["fcos2d_head.box2d_reg.bias"] + 4.0
     return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in sd.items()}
+
+
+def seed_flax_variables(variables, seed, norm_scale=1.0):
+    """JAX variables with flax's initial kernels and learnable Scale/Offset
+    values, and every norm statistic, norm affine and conv bias drawn from
+    `seed`: norm scales about `norm_scale`, variances in [0.5, 1.5]."""
+    rng = np.random.RandomState(seed)
+    draw = {"bias": lambda a: rng.randn(*a.shape) * 0.1, "scale": lambda a: norm_scale + rng.randn(*a.shape) * 0.1,
+            "mean": lambda a: rng.randn(*a.shape) * 0.1, "var": lambda a: rng.rand(*a.shape) + 0.5}
+
+    def walk(tree, in_norm):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, in_norm or k.startswith("norm"))
+            else:
+                drawn = (k in ("mean", "var") or (in_norm and k in ("scale", "bias"))
+                         or (k == "bias" and "kernel" in tree))
+                out[k] = np.asarray(draw[k](v) if drawn else v, np.float32)
+        return out
+
+    return {c: walk(jax.tree_util.tree_map(np.asarray, dict(t)), False) for c, t in variables.items()}
 
 
 def jax_variables(cfg, model, sd):
