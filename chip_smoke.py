@@ -15,11 +15,14 @@ on the port's KITTI-format fixture), and its evaluation (EVAL_ONLY,
 `inference_on_dataset`, the KITTI-3D and COCO-2D evaluators, the R40 engine;
 the overfit run trained and scored), its test-time augmentation and its
 drawings, then the same paths of dd3d_kitti_v99 (VoVNet V-99-eSE + FPN
-P3-P6: serving in bf16 and static int8, the train step, the CLIs), and
-fails loudly (non-zero exit) if any phase fails. The four
-CUDA sources (five kernels: NMS is two) and the host code
-(csrc/imageio.cpp, csrc/kitti_eval.cpp with OpenMP, g++) are built first,
-one compiler process each, all at once.
+P3-P6: serving in bf16 and static int8, the train step, the CLIs), then
+dd3d_nusc_dla34 (NuscenesDD3D: serving with the rotated BEV NMS and the
+6-camera sample aggregation, EVAL_ONLY with the nuScenes evaluator and the
+TTA test, training), and fails loudly (non-zero exit) if any phase fails.
+The four CUDA sources (six kernels: nms.cu holds the NMS mask and scan and
+the BEV NMS's pack) and the host code (csrc/imageio.cpp,
+csrc/kitti_eval.cpp with OpenMP, g++) are built first, one compiler
+process each, all at once.
 
 1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
    against the plain PyTorch version on the card, exactly, at N from 1 to
@@ -140,10 +143,41 @@ one compiler process each, all at once.
     (TPU.PALLAS_STEM_DW on: no dW launch on VoVNet), EVAL_ONLY from its
     checkpoint with the NMS kernel and the plain suppression in turns
     (identical), `predict` on a 375x1200 frame (a 384x1280 canvas, as JAX
-    pads) and `calibrate_int8`.
+    pads) and `calibrate_int8`;
+25. dd3d_nusc_dla34 (NuscenesDD3D: DLA-34, FPN 256, 10 classes, attribute
+    and speed heads; randomize_state weights) bf16 serving at full width:
+    3 batches of 12 synthetic 900x1600 frames resized by MIN_SIZE_TEST 896
+    onto 896x1664 canvases, two samples of 6 cameras a batch (a sample's
+    cameras one frame under one pose), with DO_BEV_NMS and
+    NUSC_SAMPLE_AGGREGATE: shapes, finiteness, each sample's detections
+    cut by the aggregation (against each camera alone), global
+    translations in front of the pose; launches on the main path, one NMS
+    and two BEV scans (the per-image BEV NMS at (12, 100), the samples' at
+    (2, 600)) a batch; the kernel path against the plain suppression and
+    `greedy_suppress`: identical detections, the scan's keep masks equal;
+    images/s, device time and launches a batch (profiler), busy share,
+    peak memory; the scan's device time at both shapes against the plain
+    `greedy_suppress` and its bound; one batch of dd3d_nusc_v99 served the
+    same way, finite;
+26. fp32 on the card (TF32 off) against the CPU for NuscenesDD3D's ten head
+    outputs (attr_logits and speed included) at batch 1, 256x448 (1e-3);
+27. the CLI's EVAL_ONLY on a 6-camera JSON-manifest fixture (8 samples, 48
+    PNGs at 900x1600, a car each, `overfit_smoke.make_nusc_fixture`) in
+    this process: the plain test (nuscenes_evaluator, the aggregation on
+    the card) and the TTA test (NuscenesDD3DWithTTA, TEST.AUG.MIN_SIZES
+    cut to [640, 896] with flip, the BEV NMS over each merge, the host
+    aggregation): finite NDS and mAP, both submissions' translations the
+    fixture's pose plus a camera-frame one, launches, images/s, the
+    evaluator's and the TTA pass's seconds by part;
+28. the training CLI (`+experiments=dd3d_nusc_dla34` on the same fixture)
+    under torch.distributed.run: 4 steps of batch 8 at the 896 bucket
+    (896x1664), TPU.PALLAS_STEM_DW: finite losses, loss_attr and
+    loss_speed finite and non-zero, the dW kernel twice a step; ms a step
+    and peak memory.
 
 Before the last line, the card's name and power limit and one JSON line of
-the four kernels: launches on the main paths (DLA-34's and V2-99's),
+the five kernel entries (the greedy NMS, the BEV NMS's scan, quantize, int8
+conv, dW): launches on the main paths (DLA-34's, V2-99's and nuScenes'),
 error against the plain version, ms, the plain version's ms, the bound
 (bytes or operations at the published H100 peaks) and, where one PyTorch
 call computes the same thing, that call's ms.
@@ -211,7 +245,7 @@ def randomize_state(model, generator):
                     t.copy_(torch.randn(t.shape, generator=generator) * 0.1)
                 elif name == "running_var":
                     t.copy_(torch.rand(t.shape, generator=generator) * 0.5 + 0.5)
-        model.fcos2d_head.box2d_reg.bias += 4.0
+        getattr(model, "base", model).fcos2d_head.box2d_reg.bias += 4.0  # NuscenesDD3D holds DD3D as `base`
 
 
 def build(cfg, device):
@@ -1249,7 +1283,8 @@ def cli_rank(argv):
     print("CLI_RESULT " + json.dumps({"output_dir": out_dir, "dw_launches": conv_dw.conv_dw_s1_same.launches,
                                       "syncbn_forward_allreduces": sync_batch_moments.calls,
                                       "shapes": [s[1] for s in steps], "losses": [s[2] for s in steps],
-                                      "step_ms": step_ms(steps)}), flush=True)
+                                      "step_ms": step_ms(steps),
+                                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
 
 
 def cli_timing(argv):
@@ -1853,10 +1888,10 @@ def zero_launches():
     """Set the launch count of every kernel wrapper to 0."""
     from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
     from dd3d_tpu_torch.ops.int8_conv import int8_conv
-    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
     from dd3d_tpu_torch.ops.quantize import quantize_int8
 
-    for k in (greedy_nms, quantize_int8, int8_conv, conv_dw_s1_same):
+    for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, conv_dw_s1_same):
         k.launches = 0
 
 
@@ -2369,6 +2404,319 @@ def phase24_v99_clis(tmp, device, card):
     return ev["nms_launches"]
 
 
+NUSC = "dd3d_nusc_dla34"
+NUSC_V99 = "dd3d_nusc_v99"
+NUSC_HW = (900, 1600)  # nuScenes camera frames
+NUSC_K = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]]  # a nuScenes front camera's
+NUSC_BATCH, NUSC_N_BATCHES = 12, 3  # two samples of 6 cameras a batch
+NUSC_POSE_TVEC = ((10.0, -2.0, 1.5), (-4.0, 7.0, 1.5))  # the two samples' camera -> global translations
+NUSC_SAMPLES = 8  # phase 27-28's fixture: 48 frames
+NUSC_TTA_SIZES = [640, 896]  # phase 27's TTA scales, cut from the experiment's five (640-1152)
+NUSC_TRAIN_STEPS, NUSC_TRAIN_BATCH, NUSC_TRAIN_SIZE = 4, 8, 896
+NUSC_NDS = "nuscenes/NDS"
+# f32 operations of the scan's work on these inputs: a compare of every
+# pair (the pack), and an OR of a word for each kept row (the walk)
+SCAN_OPS_PER_PAIR = 1
+
+
+def nusc_batches(cfg, device):
+    """NUSC_N_BATCHES batches of NUSC_BATCH frames as the test loader makes
+    them: synthetic 900x1600 uint8 frames resized by MIN_SIZE_TEST (the
+    port's Pillow-exact resize, intrinsics in f64) onto a zero canvas padded
+    to 128. Every camera of a sample is the same frame under the same
+    camera -> global pose (identity rotation, NUSC_POSE_TVEC), so the sample
+    aggregation has 6 copies of each detection. Returns (images, intrinsics,
+    pose_quat, pose_tvec); the last three are shared by every batch."""
+    from dd3d_tpu_torch.data.augmentations import ResizeTransform, resize_shortest_edge_dims
+
+    h, w = NUSC_HW
+    nh, nw = resize_shortest_edge_dims(h, w, cfg.INPUT.RESIZE.MIN_SIZE_TEST, cfg.INPUT.RESIZE.MAX_SIZE_TEST)
+    ph, pw = -(-nh // 128) * 128, -(-nw // 128) * 128
+    rng = np.random.RandomState(SEED + 25)
+    images, ks = [], None
+    for _ in range(NUSC_N_BATCHES):
+        canvas = np.zeros((NUSC_BATCH, ph, pw, 3), np.uint8)
+        ks = np.zeros((NUSC_BATCH, 3, 3), np.float32)
+        for smp in range(NUSC_BATCH // 6):
+            frame = {"image": rng.randint(0, 256, (h, w, 3), dtype=np.uint8), "intrinsics": np.float64(NUSC_K),
+                     "boxes2d": np.zeros((0, 4), np.float32), "boxes3d": np.zeros((0, 10))}
+            frame = ResizeTransform(h, w, nh, nw)(frame)
+            canvas[smp * 6:(smp + 1) * 6, :nh, :nw] = frame["image"]
+            ks[smp * 6:(smp + 1) * 6] = frame["intrinsics"].astype(np.float32)
+        images.append(torch.from_numpy(canvas).to(device))
+    pose_quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]] * NUSC_BATCH, device=device)
+    pose_tvec = torch.tensor([NUSC_POSE_TVEC[i // 6] for i in range(NUSC_BATCH)], device=device)
+    return images, torch.from_numpy(ks).to(device), pose_quat, pose_tvec
+
+
+def scan_bound(iou, valid, keep):
+    """The scan's least time on these inputs: the matrix and valid read once,
+    keep written once; a compare a pair (the pack) and an OR of each kept
+    row's words (the walk)."""
+    b, n = valid.shape
+    words = -(-n // 64)
+    nbytes = iou.numel() * 4 + valid.numel() + keep.numel()
+    return bound_ms(nbytes, SCAN_OPS_PER_PAIR * b * n * n + int(keep.sum()) * words, "f32")
+
+
+def phase25_nusc_serve(device, card):
+    """dd3d_nusc_dla34 bf16 serving at full width (checks in the docstring of
+    this file). Returns a dict of launches, timings and the scan's row of
+    the kernels line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms import greedy_suppress
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain, greedy_nms_scan
+
+    t0 = time.time()
+    cfg = experiment_cfg(NUSC)
+    model = build(cfg, device)
+    images, ks, pq, pt = nusc_batches(cfg, device)
+    log(f"phase25 {NUSC}: batches of {NUSC_BATCH} (2 samples of 6 cameras) {NUSC_HW[0]}x{NUSC_HW[1]} -> "
+        f"{tuple(images[0].shape[1:3])} canvas, DO_BEV_NMS {cfg.DD3D.INFERENCE.DO_BEV_NMS}, NUSC_SAMPLE_AGGREGATE "
+        f"{cfg.DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE}, BEV IoU threshold {cfg.DD3D.INFERENCE.BEV_NMS_IOU_THRESH}")
+    scans = []
+
+    def recording_scan(iou, valid, thr):
+        keep = greedy_nms_scan(iou, valid, thr)
+        scans.append((iou.clone(), valid.clone(), thr, keep))
+        return keep
+
+    infer = get_inference_fn(model, cfg, group_size=6)
+    per_image = get_inference_fn(model, cfg)  # no poses: the images alone, each with its own BEV NMS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    dets = [infer(im, ks, pq, pt) for im in images]  # the main path
+    torch.cuda.synchronize()
+    launches = {"greedy_nms": greedy_nms.launches, "greedy_nms_scan": greedy_nms_scan.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d = cfg.DD3D.FCOS2D.INFERENCE.POST_NMS_TOPK
+    for i, det in enumerate(dets):
+        for k, v in det.items():
+            if tuple(v.shape[:2]) != (NUSC_BATCH, d) or (v.is_floating_point() and not torch.isfinite(v).all()):
+                raise AssertionError(f"phase25 batch {i}: {k} has shape {tuple(v.shape)} or is not finite")
+        alone = per_image(images[i], ks)["valid"].view(2, 6, d).sum(dim=(1, 2)).tolist()
+        kept = det["valid"].view(2, 6, d).sum(dim=(1, 2)).tolist()
+        log(f"phase25 batch {i}: detections a sample {kept} after the sample aggregation, {alone} without it "
+            f"(each camera's own BEV NMS)")
+        if not all(0 < a < b for a, b in zip(kept, alone)):
+            raise AssertionError(f"phase25: the aggregation does not cut each sample: {kept} against {alone}")
+        t_off = det["tvec_global"] - pt[:, None, :]
+        if not bool((t_off[det["valid"]][:, 2] > 0).all()):
+            raise AssertionError("phase25: a kept global translation is not the pose's plus a camera-frame one")
+    if launches != {"greedy_nms": NUSC_N_BATCHES, "greedy_nms_scan": 2 * NUSC_N_BATCHES}:
+        raise AssertionError(f"phase25: launches {launches} for {NUSC_N_BATCHES} batches (want 1 NMS and 2 scans "
+                             "a batch: the per-image BEV NMS, then the samples')")
+
+    plain = get_inference_fn(model, cfg, group_size=6, suppress=greedy_nms_plain, scan=greedy_suppress)
+    scan_err = 0
+    for i, im in enumerate(images):
+        det_k = get_inference_fn(model, cfg, group_size=6, scan=recording_scan)(im, ks, pq, pt)
+        det_p = plain(im, ks, pq, pt)
+        torch.cuda.synchronize()
+        for k in det_k:
+            if not torch.equal(det_k[k], det_p[k]):
+                raise AssertionError(f"phase25 batch {i}: {k} differs between the kernel path and the plain path")
+    for iou, valid, thr, keep in scans:
+        scan_err = max(scan_err, int((keep.int() - greedy_suppress(iou, valid, thr).int()).abs().max()))
+    shapes = sorted({tuple(v.shape) for _, v, _, _ in scans})
+    log(f"phase25 kernel path against plain path (2D NMS and BEV scan): detections identical over "
+        f"{NUSC_N_BATCHES} batches; the scan at {shapes}, max |kernel - plain| = {scan_err} (tolerance 0)")
+    if scan_err or shapes != [(2, 6 * d), (NUSC_BATCH, d)]:
+        raise AssertionError(f"phase25: scan shapes {shapes}, error {scan_err}")
+
+    med, p25, p75 = serving_ms(lambda im, _k: infer(im, ks, pq, pt), images, None)
+    dev_ms, n_kernels = serving_profile(lambda im, _k: infer(im, ks, pq, pt), images, None)
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    scan_t = {}
+    for iou, valid, thr, keep in (scans[0], scans[1]):
+        key = tuple(valid.shape)
+        for _ in range(3):
+            greedy_nms_scan(iou, valid, thr)
+            greedy_suppress(iou, valid, thr)
+        plain_a = cuda_ms(lambda: greedy_suppress(iou, valid, thr), 20)
+        dev_a = device_ms(lambda: greedy_nms_scan(iou, valid, thr), 50, prof)
+        dev_b = device_ms(lambda: greedy_nms_scan(iou, valid, thr), 50, prof)
+        plain_b = cuda_ms(lambda: greedy_suppress(iou, valid, thr), 20)
+        bnd, by = scan_bound(iou, valid, keep)
+        scan_t[key] = (float(np.mean([dev_a, dev_b])), float(np.mean([plain_a, plain_b])), bnd, by)
+        log(f"phase25 BEV scan at {key} on {card}: {dev_a:.4f} / {dev_b:.4f} ms a call of device time (profiler, "
+            f"pack + scan), plain greedy_suppress {plain_a:.4f} / {plain_b:.4f} ms (CUDA events, in turns); bound "
+            f"{bnd:.6f} ms by {by}; kept {int(keep.sum())} of {int(valid.sum())}")
+    log(f"phase25 timing on {card}: bf16 serving with the sample aggregation, batch {NUSC_BATCH} "
+        f"{tuple(images[0].shape[1:3])}: median {med:.3f} ms/batch (p25 {p25:.3f}, p75 {p75:.3f}) = "
+        f"{NUSC_BATCH / med * 1e3:.2f} images/s; profiler: {dev_ms:.3f} ms of device time and {n_kernels:.0f} "
+        f"kernel launches a batch (device busy {dev_ms / med:.3f} of the host's ms); peak memory {peak:.2f} GiB; "
+        f"launches on the main path {launches}")
+
+    v99_cfg_ = experiment_cfg(NUSC_V99)
+    v99 = build(v99_cfg_, device)
+    det = get_inference_fn(v99, v99_cfg_, group_size=6)(images[0], ks, pq, pt)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(v.float()).all()) for v in det.values()) or not bool(det["valid"].any()):
+        raise AssertionError(f"phase25: {NUSC_V99}'s detections are not finite or empty")
+    log(f"phase25 {NUSC_V99} ({v99_cfg_.FE.BACKBONE.NAME}, levels {v99.strides}): one batch served with the "
+        f"aggregation, {int(det['valid'].sum())} detections kept, all finite")
+    del v99
+    torch.cuda.empty_cache()
+    log(f"phase25 ok ({time.time() - t0:.2f} s)")
+    return {"launches": launches, "images_per_s": NUSC_BATCH / med * 1e3, "dev_ms": dev_ms, "busy": dev_ms / med,
+            "peak_gib": peak, "scan": scan_t, "scan_err": scan_err}
+
+
+def phase27_nusc_eval(tmp, device, card):
+    """The CLI's EVAL_ONLY on the 6-camera fixture (NUSC_SAMPLES samples at
+    900x1600, random weights of the CLI's own build, PRE_NMS_THRESH 0),
+    in this process through `train.main`: the plain test (the test loader's
+    samples, the sample aggregation on the card, nuscenes_evaluator), then
+    the TTA test (NuscenesDD3DWithTTA at TEST.AUG.MIN_SIZES cut to
+    NUSC_TTA_SIZES with flip, the BEV NMS over each image's merge and the
+    host sample aggregation). Checks: finite NDS and mAP in both rows of
+    metrics.jsonl, global translations in both submissions equal to the
+    fixture's pose plus a camera-frame translation in front of the camera,
+    the launch counts of each pass, the BEV NMS over the merge run.
+    Returns (fixture root, plain-pass launches)."""
+    import shutil
+
+    import dd3d_tpu_torch.evaluators as evaluators_mod
+    import dd3d_tpu_torch.train as train_mod
+    from dd3d_tpu_torch.models import tta as tta_mod
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, NUSC_FIXTURE_TVEC, make_nusc_fixture
+
+    t0 = time.time()
+    root = make_nusc_fixture(os.path.join(tmp, "nusc_fixture"), n_samples=NUSC_SAMPLES, height=NUSC_HW[0],
+                             width=NUSC_HW[1])
+    log(f"phase27 fixture: {NUSC_SAMPLES} samples of 6 cameras, {6 * NUSC_SAMPLES} PNGs at {NUSC_HW[0]}x"
+        f"{NUSC_HW[1]}, written in {time.time() - t0:.1f} s")
+    passes, timed, ttas, bev_merges = [], [], [], []
+    real_test, real_get_evaluator = train_mod.do_test, evaluators_mod.get_evaluator
+    real_tta, real_bev = tta_mod.NuscenesDD3DWithTTA, tta_mod.greedy_rotated_nms_np
+
+    def measured_test(cfg, model, output_dir, step=None, use_tta=False):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        out = real_test(cfg, model, output_dir, step=step, use_tta=use_tta)
+        torch.cuda.synchronize()
+        passes.append({"tta": use_tta, "seconds": time.perf_counter() - t, "nms": greedy_nms.launches,
+                       "scan": greedy_nms_scan.launches, "evaluators": [(e.process_s, e.evaluate_s) for e in timed]})
+        shutil.copy(os.path.join(output_dir, "nusc_submission.json"),
+                    os.path.join(output_dir, f"nusc_submission_{'tta' if use_tta else 'plain'}.json"))
+        timed.clear()
+        return out
+
+    def timed_get_evaluator(*args, **kwargs):
+        evs = [TimedEvaluator(ev) for ev in real_get_evaluator(*args, **kwargs)]
+        timed.extend(evs)
+        return evs
+
+    class RecordedTTA(real_tta):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            ttas.append(self)
+
+    def counted_bev(*args):
+        bev_merges.append(len(args[0]))
+        return real_bev(*args)
+
+    train_mod.do_test, evaluators_mod.get_evaluator = measured_test, timed_get_evaluator
+    tta_mod.NuscenesDD3DWithTTA, tta_mod.greedy_rotated_nms_np = RecordedTTA, counted_bev
+    try:
+        out_dir = train_mod.main([f"+experiments={NUSC}", "EVAL_ONLY=True", f"DATASET_ROOT={root}",
+                                  f"DATASETS.TEST.NAME={NUSC_FIXTURE}", "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0",
+                                  f"TEST.AUG.MIN_SIZES={NUSC_TTA_SIZES}",
+                                  f"OUTPUT_ROOT={os.path.join(tmp, 'nusc_eval')}"])
+    finally:
+        train_mod.do_test, evaluators_mod.get_evaluator = real_test, real_get_evaluator
+        tta_mod.NuscenesDD3DWithTTA, tta_mod.greedy_rotated_nms_np = real_tta, real_bev
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    n = 6 * NUSC_SAMPLES
+    plain, tta_pass = passes
+    tta = ttas[-1]
+    for name, row, key in (("plain", rows[0], NUSC_NDS), ("tta", rows[1], "tta/" + NUSC_NDS)):
+        mAP = row.get(key.replace("NDS", "mAP"), np.nan)
+        log(f"phase27 {name} test: NDS {row.get(key, np.nan):.4f}, mAP {mAP:.4f}")
+        if not (np.isfinite(row.get(key, np.nan)) and np.isfinite(mAP)):
+            raise AssertionError(f"phase27: the {name} test's NDS or mAP is not finite")
+    for name in ("plain", "tta"):
+        with open(os.path.join(out_dir, f"nusc_submission_{name}.json")) as f:
+            results = json.load(f)["results"]
+        entries = [(tok, e) for tok, es in results.items() for e in es]
+        offsets = np.asarray([np.asarray(e["translation"]) - NUSC_FIXTURE_TVEC - (int(tok[len("sample"):]), 0, 0)
+                              for tok, e in entries])
+        log(f"phase27 {name} submission: {len(results)} samples, {len(entries)} detections, the largest sample "
+            f"{max(len(es) for es in results.values())}; translation minus the pose: z from "
+            f"{offsets[:, 2].min():.2f} to {offsets[:, 2].max():.2f} m")
+        if len(results) != NUSC_SAMPLES or not len(entries) or not (offsets[:, 2] > 0).all():
+            raise AssertionError(f"phase27: the {name} submission's global translations are not the fixture's pose "
+                                 "plus a camera-frame translation in front of the camera")
+    batches = -(-n // 96)
+    log(f"phase27 plain test on {card}: {plain['seconds']:.2f} s, {n / plain['seconds']:.2f} images/s (loader, "
+        f"forward, decode, aggregation, evaluator); nuscenes_evaluator process {plain['evaluators'][0][0]:.3f} s, "
+        f"evaluate {plain['evaluators'][0][1]:.3f} s; launches NMS {plain['nms']}, BEV scan {plain['scan']} for "
+        f"{batches} batch(es)")
+    buckets = {f"{h}x{w}": c for (h, w), c in tta.stats["buckets"].items()}
+    log(f"phase27 TTA test ({type(tta).__name__}, MIN_SIZES {NUSC_TTA_SIZES} with flip, cut from the experiment's "
+        f"{list(experiment_cfg(NUSC).TEST.AUG.MIN_SIZES)}) on {card}: {tta_pass['seconds']:.2f} s, "
+        f"{n / tta_pass['seconds']:.2f} images/s; buckets (instances) {buckets}; host seconds by part "
+        f"{ {k: round(v, 3) for k, v in tta.stats['seconds'].items()} }; evaluator process "
+        f"{tta_pass['evaluators'][0][0]:.3f} s, evaluate {tta_pass['evaluators'][0][1]:.3f} s; BEV NMS over "
+        f"{len(bev_merges)} merges; launches NMS {tta_pass['nms']}, BEV scan {tta_pass['scan']}")
+    if plain["nms"] != batches or plain["scan"] != 2 * batches:
+        raise AssertionError(f"phase27: the plain test launched NMS {plain['nms']}, scan {plain['scan']} for "
+                             f"{batches} batches")
+    if type(tta).__name__ != "RecordedTTA" or not tta.do_bev_nms or len(bev_merges) != n:
+        raise AssertionError(f"phase27: the TTA test did not run NuscenesDD3DWithTTA with the BEV NMS over every "
+                             f"image's merge ({len(bev_merges)} of {n})")
+    if tta_pass["nms"] or tta_pass["scan"] or "aggregate" not in tta.stats["seconds"]:
+        raise AssertionError("phase27: the TTA variants ran an NMS kernel, or the host aggregation did not run")
+    log(f"phase27 ok ({time.time() - t0:.2f} s)")
+    return root, {"greedy_nms": plain["nms"], "greedy_nms_scan": plain["scan"]}
+
+
+def phase28_nusc_train(tmp, root, card):
+    """The training CLI, `+experiments=dd3d_nusc_dla34` on the fixture, under
+    torch.distributed.run: NUSC_TRAIN_STEPS steps of NUSC_TRAIN_BATCH at the
+    NUSC_TRAIN_SIZE resize bucket, TPU.PALLAS_STEM_DW on, the final test
+    without TTA (phase 27 runs it). Checks: finite losses every step,
+    loss_attr and loss_speed finite and non-zero at the logged step, the dW
+    kernel launched twice a step. Returns (dW launches, ms a step)."""
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE
+
+    t0 = time.time()
+    res = run_cli("--cli-rank", [f"+experiments={NUSC}", f"DATASET_ROOT={root}", f"DATASETS.TRAIN.NAME={NUSC_FIXTURE}",
+                                 f"DATASETS.TEST.NAME={NUSC_FIXTURE}", f"OUTPUT_ROOT={os.path.join(tmp, 'nusc_train')}",
+                                 f"SOLVER.MAX_ITER={NUSC_TRAIN_STEPS}", f"SOLVER.IMS_PER_BATCH={NUSC_TRAIN_BATCH}",
+                                 f"SOLVER.CHECKPOINT_PERIOD={NUSC_TRAIN_STEPS}",
+                                 f"INPUT.RESIZE.MIN_SIZE_TRAIN=[{NUSC_TRAIN_SIZE}]", "TPU.PALLAS_STEM_DW=True",
+                                 "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False"],
+                  timeout_s=900)
+    with open(os.path.join(res["output_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_row = [r for r in rows if "total_loss" in r][-1]
+    ms = float(np.median(res["step_ms"][1:])) if len(res["step_ms"]) > 1 else float("nan")
+    shapes = sorted({tuple(x) for x in res["shapes"]})
+    log(f"phase28 training CLI on {card}: {len(res['shapes'])} steps of shapes {shapes} "
+        f"in {res['seconds']:.1f} s (process start, model and final test included); losses "
+        + ", ".join(f"{v:.3f}" for v in res["losses"]) + f"; at step {train_row['step']}: loss_attr "
+        f"{train_row.get('loss_attr', np.nan):.4f}, loss_speed {train_row.get('loss_speed', np.nan):.4f}; median "
+        f"{ms:.2f} ms a step (after the first, the wait for the batch included); peak {res['peak_gib']:.2f} GiB; dW "
+        f"kernel launches {res['dw_launches']}")
+    if len(res["losses"]) != NUSC_TRAIN_STEPS or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError("phase28: a step is missing or a loss is not finite")
+    for key in ("loss_attr", "loss_speed"):
+        if not (np.isfinite(train_row.get(key, np.nan)) and train_row[key] > 0):
+            raise AssertionError(f"phase28: {key} is missing, not finite or zero")
+    if res["dw_launches"] != 2 * NUSC_TRAIN_STEPS:
+        raise AssertionError(f"phase28: the dW kernel launched {res['dw_launches']} times in {NUSC_TRAIN_STEPS} steps")
+    log(f"phase28 ok ({time.time() - t0:.2f} s)")
+    return res["dw_launches"], ms
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -2448,6 +2796,19 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         v99_eval_nms = phase24_v99_clis(tmp, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        nusc = phase25_nusc_serve(device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        phase4_fp32(experiment_cfg(NUSC), device, shape=(1, 256, 448), phase="phase26")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        nusc_root, nusc_eval_launches = phase27_nusc_eval(tmp, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        nusc_dw_launches, nusc_train_ms = phase28_nusc_train(tmp, nusc_root, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -2489,20 +2850,33 @@ def main():
         f"(phase 23); launches on the V2-99 paths: NMS {v99_nms} bf16 + {v99_launches['greedy_nms']} int8 + "
         f"{v99_eval_nms} EVAL_ONLY, quantize {v99_launches['quantize_int8']}, int8 conv "
         f"{v99_launches['int8_conv']}, dW 0")
-    launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms,
+    scan_samples = nusc["scan"][(2, 6 * 100)]
+    log(f"timing on {card}: {NUSC} bf16 serving with the sample aggregation {nusc['images_per_s']:.2f} images/s at "
+        f"batch {NUSC_BATCH} (phase 25; {nusc['dev_ms']:.3f} ms of device time a batch, busy {nusc['busy']:.3f}, "
+        f"peak {nusc['peak_gib']:.2f} GiB); BEV scan " + ", ".join(
+            f"{k}: {v[0]:.4f} ms (plain {v[1]:.4f})" for k, v in nusc["scan"].items())
+        + f"; train step {nusc_train_ms:.2f} ms at batch {NUSC_TRAIN_BATCH}, {NUSC_TRAIN_SIZE} bucket (phase 28); "
+        f"launches on the nuScenes paths: serving {nusc['launches']}, EVAL_ONLY {nusc_eval_launches}, dW "
+        f"{nusc_dw_launches}")
+    launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms
+                + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"],
+                "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"],
                 "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"],
                 "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"]}
     quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err)
-    timed = {"greedy_nms": (*nms_t["random boxes"], None), "quantize_int8": kernel_ms["quantize_int8"],
-             "int8_conv": kernel_ms["int8_conv"], "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
+    timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
+             "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"],
+             "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              nms_err),
+            ("greedy_nms_scan", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/nms.py:37",
+             launches["greedy_nms_scan"], nusc["scan_err"]),
             ("quantize_int8", "dd3d_tpu_torch/csrc/quantize.cu", "scripts/bench_quantize_kernel.py:91",
              launches["quantize_int8"], quant_err),
             ("int8_conv", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246", launches["int8_conv"],
              conv_err),
-            ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58", cli_dw_launches,
-             dw_err)]
+            ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
+             cli_dw_launches + nusc_dw_launches, dw_err)]
     kernels = []
     for name, source, replaces, n, err in rows:
         ms, plain_ms, bnd, by, library_ms = timed[name]

@@ -48,6 +48,18 @@
 // dependent test-and-OR of each row, then the other lanes' OR of each kept
 // row. It is a latency floor; no roofline counts it.
 //
+// A second entry runs the same scan on a suppression matrix the caller has
+// already computed, as the rotated BEV NMS does (its IoU is the batched
+// polygon clip of ops/rotated_boxes.py, made by PyTorch ops on the card):
+// 3. nms_pack_kernel packs a (B, N, N) f32 matrix into the scratch words in
+//    the layout nms_mask_kernel writes: one warp a (image, row, word), two
+//    ballots of `iou[i][j] > threshold and j > i`, every word of the row
+//    (those left of the diagonal come out zero). The caller zeroes the
+//    pairs of different classes first, as the JAX package does before its
+//    greedy fixpoint (dd3d_tpu/ops/rotated_boxes.py:142-147).
+// 4. nms_scan_kernel, unchanged. A comparison is exact, so the keep mask is
+//    the plain version's bit for bit.
+//
 // Same bits as the plain version (dd3d_tpu_torch/ops/nms.py and
 // dd3d_tpu/ops/nms.py:22-34): every IoU operation is an explicitly rounded
 // IEEE fp32 intrinsic in the same order, and the library is built with
@@ -216,6 +228,24 @@ __global__ void __launch_bounds__(32) nms_scan_kernel(const uint64_t* __restrict
   }
 }
 
+__global__ void __launch_bounds__(256) nms_pack_kernel(const float* __restrict__ iou, uint64_t* __restrict__ mask,
+                                                       int n, int words, float iou_threshold, long long total) {
+  // blockDim.x is a multiple of 32, so a warp returns whole or not at all
+  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  if (warp >= total) return;
+  const int lane = threadIdx.x % 32;
+  const int w = static_cast<int>(warp % words);
+  const long long row = warp / words;  // image * n + i
+  const int i = static_cast<int>(row % n);
+  const float* r = iou + row * n;
+  const int j0 = w * kTile + lane, j1 = j0 + 32;
+  const bool b0 = j0 < n && j0 > i && r[j0] > iou_threshold;
+  const bool b1 = j1 < n && j1 > i && r[j1] > iou_threshold;
+  const unsigned lo = __ballot_sync(kFull, b0);
+  const unsigned hi = __ballot_sync(kFull, b1);
+  if (lane == 0) mask[row * words + w] = (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,6 +267,33 @@ int dd3d_nms_keep(const float* boxes, const unsigned char* valid, uint64_t* mask
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   nms_scan_kernel<<<batch, 32, 0, s>>>(mask, valid, keep, n, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Packs a score-sorted (batch, n, n) f32 suppression matrix `iou` into
+// `mask` (batch * n * ceil(n / 64) uint64 words) on `stream`: bit j of row
+// i is set when j > i and iou[i][j] > iou_threshold. Does not synchronise.
+int dd3d_nms_pack_mask(const float* iou, uint64_t* mask, int batch, int n, float iou_threshold, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (n > kTile * kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const int words = (n + kTile - 1) / kTile;
+  const long long total = static_cast<long long>(batch) * n * words;  // warps
+  const int threads = 256;
+  const long long blocks = (total * 32 + threads - 1) / threads;
+  nms_pack_kernel<<<static_cast<unsigned>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      iou, mask, n, words, iou_threshold, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The greedy walk alone, on a mask packed by dd3d_nms_pack_mask (or written
+// by nms_mask_kernel): keep (batch, n) from valid (batch, n), one warp an
+// image, on `stream`. Does not synchronise.
+int dd3d_nms_scan_keep(const uint64_t* mask, const unsigned char* valid, unsigned char* keep, int batch, int n,
+                       void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  if (n > kTile * kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const int words = (n + kTile - 1) / kTile;
+  nms_scan_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(mask, valid, keep, n, words);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,6 @@ Rebuild of detectron2's DatasetCatalog/MetadataCatalog usage in the reference
 (tridet/data/datasets/kitti_3d/build.py:17-18, registration at
 tridet/data/datasets/__init__.py:12-24). Datasets are registered as lazy
 builder thunks; metadata carries class names, evaluator and visualizer ids.
-Only the KITTI-3D family is ported; nuScenes and the JSON datasets are not
-(ROADMAP §1 item 9).
 """
 from typing import Callable, Dict
 
@@ -37,8 +35,15 @@ class MetadataCatalog:
 
 
 def register_datasets(cfg):
-    """Register the ported dataset families (lazy): KITTI-3D. cf.
+    """Register all known dataset families (lazy): KITTI-3D, nuScenes and the
+    JSON manifests under <DATASET_ROOT>/json_datasets. cf.
     tridet/data/datasets/__init__.py:12-24."""
+    from dd3d_tpu_torch.data.datasets.json_dataset import register_json_datasets
     from dd3d_tpu_torch.data.datasets.kitti_3d import register_kitti_3d_datasets
+    from dd3d_tpu_torch.data.datasets.nuscenes import register_nuscenes_datasets
 
-    return register_kitti_3d_datasets(cfg)
+    names = []
+    names += register_kitti_3d_datasets(cfg)
+    names += register_nuscenes_datasets(cfg)
+    names += register_json_datasets(cfg)
+    return names

@@ -14,7 +14,7 @@ GIL, so a thread pool decodes in parallel.
 Supported: 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA PNGs (what
 cv2 and the KITTI benchmark write); alpha is dropped, as IMREAD_COLOR drops
 it. Other PNGs raise NotImplementedError. JPEG raises NotImplementedError:
-it is needed only for nuScenes (ROADMAP §1 item 9).
+real nuScenes frames are JPEGs (ROADMAP §1 item 12, a baseline decoder).
 
 `write_png` writes BGR uint8 as an RGB PNG with zlib (the fixture of
 `dd3d_tpu_torch/overfit_smoke.py`).
@@ -70,8 +70,8 @@ def png_size(data: bytes) -> Tuple[int, int]:
 
 def _check_format(data: bytes, what: str) -> None:
     if data[:3] == JPEG_SIGNATURE:
-        raise NotImplementedError(f"{what}: JPEG decode is not ported; it is needed for nuScenes "
-                                  "(ROADMAP §1 item 9)")
+        raise NotImplementedError(f"{what}: JPEG decode is not ported; real nuScenes frames need it "
+                                  "(ROADMAP §1 item 12)")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{what}: not a PNG file")
 

@@ -21,7 +21,9 @@ def get_evaluator(cfg, dataset_name: str, output_dir=None):
 
             evaluators.append(COCO2DEvaluator(dataset_name, output_dir=output_dir))
         elif name == "nuscenes_evaluator":
-            raise NotImplementedError("nuscenes_evaluator: the nuScenes evaluation is not ported (ROADMAP §1 item 9)")
+            from dd3d_tpu_torch.evaluators.nuscenes import NuscenesEvaluator
+
+            evaluators.append(NuscenesEvaluator(dataset_name, output_dir=output_dir, rank0_only=rank0_only))
         else:
             raise KeyError(f"Unknown evaluator {name!r}")
     return evaluators

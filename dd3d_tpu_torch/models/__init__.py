@@ -40,6 +40,7 @@ def build_model(cfg, generator: Optional[torch.Generator] = None):
     """Resolve `cfg.MODEL.META_ARCHITECTURE` to an nn.Module in eval mode,
     on the CPU. With `generator`, every conv weight is drawn from it."""
     import dd3d_tpu_torch.models.dd3d  # noqa: F401
+    import dd3d_tpu_torch.models.nuscenes_dd3d  # noqa: F401
 
     builder = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)
     if builder is None:

@@ -14,7 +14,7 @@ assignment, the FCOS2D and FCOS3D losses.
 `dd3d_inference` decodes to fixed-size (B, POST_NMS_TOPK) detections:
 per-level blocked top-k -> 3D decode -> top-`TPU.NMS_CANDIDATES` cap with one
 packed gather -> class-aware greedy NMS (the CUDA kernel on the card) ->
-stable compaction.
+stable compaction (-> the rotated BEV NMS with DD3D.INFERENCE.DO_BEV_NMS).
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -25,8 +25,11 @@ from dd3d_tpu_torch.models import build_feature_extractor, register_meta_arch
 from dd3d_tpu_torch.models.fcos2d import FCOS2DHead, decode_fcos2d_level, fcos2d_loss, stable_topk
 from dd3d_tpu_torch.models.fcos3d import FCOS3DHead, decode_fcos3d_candidates, fcos3d_loss
 from dd3d_tpu_torch.models.prepare_targets import build_location_bases, prepare_targets
+from dd3d_tpu_torch.ops.geometry import unproject_points2d
 from dd3d_tpu_torch.ops.locations import compute_feature_locations
-from dd3d_tpu_torch.ops.nms import batched_nms_padded
+from dd3d_tpu_torch.ops.nms import NEG_INF, batched_nms_padded
+from dd3d_tpu_torch.ops.rotated_boxes import boxes3d_corners_to_bev_boxes, rotated_nms_padded
+from dd3d_tpu_torch.structures.boxes3d import generic_corners
 from dd3d_tpu_torch.utils.convert_checkpoint import assign_quant_paths
 
 HEAD_KEYS_2D = ("logits", "box2d_reg", "centerness")
@@ -55,13 +58,17 @@ class DD3D(nn.Module):
         x = images.permute(0, 3, 1, 2).float()
         return ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, images: torch.Tensor, return_cls_tower: bool = False):
+        """Per-level (B, H, W, C) head outputs; with `return_cls_tower`, also
+        the cls tower's per-level NCHW outputs, as (outputs, towers)."""
         feats = self.backbone(self.preprocess_image(images))
         features = [feats[k] for k in sorted(feats, key=lambda k: int(k[1:]))]
-        heads = dict(zip(HEAD_KEYS_2D, self.fcos2d_head(features)))
+        head2d = self.fcos2d_head(features, return_cls_tower=return_cls_tower)
+        heads = dict(zip(HEAD_KEYS_2D, head2d))
         if self.fcos3d_head is not None:
             heads.update(zip(HEAD_KEYS_3D, self.fcos3d_head(features)))
-        return {k: [x.permute(0, 2, 3, 1) for x in v] for k, v in heads.items()}
+        out = {k: [x.permute(0, 2, 3, 1) for x in v] for k, v in heads.items()}
+        return (out, head2d[3]) if return_cls_tower else out
 
 
 def _check_ported(cfg):
@@ -117,10 +124,12 @@ def model_strides(model) -> Tuple[int, ...]:
 
 
 def dd3d_losses(cfg, outputs: Dict[str, List[torch.Tensor]], batch: Dict[str, torch.Tensor],
-                strides: Sequence[int]) -> Dict[str, torch.Tensor]:
+                strides: Sequence[int], return_aux: bool = False):
     """The DD3D training losses (dd3d_tpu/models/dd3d.py:191-235) from
     per-level (B, H, W, C) head outputs; `batch` holds gt_boxes2d,
-    gt_classes, gt_boxes3d, gt_valid and intrinsics on the outputs' device."""
+    gt_classes, gt_boxes3d, gt_valid and intrinsics on the outputs' device.
+    With `return_aux`: (losses, targets, extra), the dense targets and the
+    2D loss's extra terms, which NuscenesDD3D's losses reuse."""
     device = outputs["logits"][0].device
     shapes = [x.shape[1:3] for x in outputs["logits"]]
     locations, loc_strides, loc_ranges, _ = build_location_bases(
@@ -145,6 +154,8 @@ def dd3d_losses(cfg, outputs: Dict[str, List[torch.Tensor]], batch: Dict[str, to
             *(flatten_levels_t(outputs[k]) for k in HEAD_KEYS_3D),
             targets, extra, inv_k, locations, canon, cfg.DD3D.FCOS3D,
         ))
+    if return_aux:
+        return losses, targets, extra
     return losses
 
 
@@ -173,17 +184,18 @@ def _gather_fields(d: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, t
 
 
 def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Optional[torch.Tensor],
-                   strides: Sequence[int], suppress=None) -> Dict[str, torch.Tensor]:
+                   strides: Sequence[int], suppress=None, scan=None) -> Dict[str, torch.Tensor]:
     """Decode per-level (B, H, W, C) head outputs into fixed-size detections.
 
     Returns (B, D) tensors, D = POST_NMS_TOPK: boxes2d (B, D, 4), scores,
     classes, fpn_levels, valid, and with the 3D head scores_3d, conf3d and
     the boxes3d_* fields. Boxes are in network-input resolution.
     `suppress` replaces the NMS suppression (default: the kernel's wrapper,
-    which runs the plain version on CPU tensors).
+    which runs the plain version on CPU tensors). With NuscenesDD3D's heads
+    the detections also carry `attributes` (argmax) and `speeds`. With
+    DD3D.INFERENCE.DO_BEV_NMS a rotated BEV NMS follows (`_bev_nms_in_graph`;
+    `scan` replaces its suppression, default the CUDA scan's wrapper).
     """
-    if cfg.DD3D.INFERENCE.DO_BEV_NMS:
-        raise NotImplementedError("DD3D.INFERENCE.DO_BEV_NMS is not ported")
     inf2d = cfg.DD3D.FCOS2D.INFERENCE
     box3d_on = cfg.MODEL.BOX3D_ON and ("quat" in outputs)
     device = outputs["logits"][0].device
@@ -207,6 +219,15 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
                 *(outputs[k][l] for k in HEAD_KEYS_3D), cand, inv_k, canon, cfg.DD3D.FCOS3D,
                 num_classes=cfg.DD3D.NUM_CLASSES,
             ))
+        if "attr_logits" in outputs:
+            # NuscenesDD3D's attribute and speed at each candidate (dd3d_tpu/models/dd3d.py:342-349)
+            attr = outputs["attr_logits"][l].float()
+            attr = attr.reshape(attr.shape[0], -1, attr.shape[-1])
+            idx = cand["loc_idx"]
+            cand["attribute"] = torch.argmax(torch.gather(attr, 1, idx[..., None].expand(idx.shape + attr.shape[-1:])),
+                                             dim=-1)
+            speed = outputs["speed"][l].float().reshape(attr.shape[0], -1)
+            cand["speed"] = torch.gather(speed, 1, idx)
         cand["fpn_level"] = torch.full_like(cand["cls"], l)
         cand.pop("loc_idx")
         cands.append(cand)
@@ -247,8 +268,37 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
         "fpn_levels": merged_sorted["fpn_level"],
         "valid": keep_d,
     }
+    if "attribute" in merged_sorted:
+        result["attributes"] = merged_sorted["attribute"]
+        result["speeds"] = merged_sorted["speed"]
     if box3d_on:
         result["scores_3d"] = torch.where(keep_d, torch.clamp(merged_sorted["score_3d"], min=0.0), 0.0)
         for k in ("boxes3d_quat", "boxes3d_proj_ctr", "boxes3d_depth", "boxes3d_size", "conf3d"):
             result[k] = merged_sorted[k]
+        if cfg.DD3D.INFERENCE.DO_BEV_NMS:
+            result = _bev_nms_in_graph(cfg, result, intrinsics, scan=scan)
     return result
+
+
+def _bev_nms_in_graph(cfg, result: Dict[str, torch.Tensor], intrinsics: torch.Tensor,
+                      scan=None) -> Dict[str, torch.Tensor]:
+    """Per-image rotated BEV NMS over the final detections (JAX
+    dd3d_tpu/models/dd3d.py:423-455; the reference's per-image path,
+    core.py:137-151 -> layers/bev_nms.py:99-133): the boxes' top faces in
+    BEV, their rotated IoU, class-aware greedy suppression through `scan`
+    (default the CUDA scan's wrapper), and `valid` / the scores cut to the
+    survivors."""
+    inv_k = torch.linalg.inv(intrinsics.float())  # (B, 3, 3)
+    tvec = unproject_points2d(result["boxes3d_proj_ctr"], inv_k) * result["boxes3d_depth"]
+    corners = generic_corners(result["boxes3d_quat"], tvec, result["boxes3d_size"])
+    bev5 = boxes3d_corners_to_bev_boxes(corners)  # (B, D, 5)
+    scores = torch.where(result["valid"], result["scores_3d"], NEG_INF)
+    order, keep_sorted = rotated_nms_padded(bev5, scores, result["classes"], cfg.DD3D.INFERENCE.BEV_NMS_IOU_THRESH,
+                                            suppress=scan)
+    keep = torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)  # back to the input positions
+    valid = result["valid"] & keep
+    out = dict(result)
+    out["valid"] = valid
+    out["scores"] = torch.where(valid, result["scores"], 0.0)
+    out["scores_3d"] = torch.where(valid, result["scores_3d"], 0.0)
+    return out

@@ -41,12 +41,16 @@ class FCOS2DHead(nn.Module):
             nn.ModuleList([Scale(float(s) * box2d_scale_init_factor) for s in in_strides]) if use_scale else None
         )
 
-    def forward(self, features: List[torch.Tensor]):
-        logits, box_reg_out, ctr_out = [], [], []
+    def forward(self, features: List[torch.Tensor], return_cls_tower: bool = False):
+        """Per-level (logits, box2d_reg, centerness), and the cls tower's
+        outputs as a fourth list with `return_cls_tower` (NuscenesDD3D's
+        attribute and speed predictors read them)."""
+        logits, box_reg_out, ctr_out, cls_tower_out = [], [], [], []
         for l, x in enumerate(features):
             x_cls = x_box = x
             for conv in self.cls_tower:
                 x_cls = conv(x_cls, l)
+            cls_tower_out.append(x_cls)
             for conv in self.box2d_tower:
                 x_box = conv(x_box, l)
             logits.append(self.cls_logits(x_cls))
@@ -56,6 +60,8 @@ class FCOS2DHead(nn.Module):
                 reg = self.scales_box2d_reg[l](reg)
             box_reg_out.append(F.relu(reg))  # relu (improved FCOS), not exp
             ctr_out.append(ctr)
+        if return_cls_tower:
+            return logits, box_reg_out, ctr_out, cls_tower_out
         return logits, box_reg_out, ctr_out
 
 

@@ -14,7 +14,13 @@
   (quat [w,x,y,z] -> [z,-y,-x,w], tvec.x negated);
 - the union merged per image on the host in numpy by a class-aware greedy
   NMS (np.argsort(-scores_3d), as in JAX: an unstable sort, kept for its
-  order of ties) and POST_NMS_TOPK (:152-183).
+  order of ties) and POST_NMS_TOPK (:152-183), then, with
+  DD3D.INFERENCE.DO_BEV_NMS, the rotated BEV NMS over the merge
+  (models/cross_camera.greedy_rotated_nms_np; JAX :293-297). NuscenesDD3D's
+  attributes and speeds ride along (nuscenes_dd3d_tta.py:149-161).
+
+`NuscenesDD3DWithTTA` adds the 6-camera sample aggregation over the merged
+detections (cross_camera.nuscenes_sample_aggregate; JAX :300-307).
 
 Static int8 (TPU.QUANT_INT8): each canvas bucket is calibrated on its first
 batch, before that bucket's first forward, with `capture_scales` at
@@ -32,9 +38,6 @@ peaks at 21.2 GiB on an H100 (PERF.md). Calibration, too, runs over the
 bucket's whole first batch: it quantizes with dynamic per-tensor scales,
 maxima over the batch, so a split batch would calibrate other downstream
 maxima.
-
-The rotated BEV NMS over the merge (DO_BEV_NMS) and NuscenesDD3DWithTTA are
-not ported (ROADMAP §1 items 7 and 9): they raise.
 """
 import time
 from collections import defaultdict
@@ -43,11 +46,12 @@ from typing import Dict, List
 import numpy as np
 
 from dd3d_tpu_torch.data.augmentations import HFlipTransform, ResizeTransform
+from dd3d_tpu_torch.models.cross_camera import boxes_to_bev5_np, greedy_rotated_nms_np, nuscenes_sample_aggregate
 
 # Each instance's canvas is padded to a multiple of this, as the test loader
 # pads its batches (data/build.py): the largest stride of the FPN, p7's.
 CANVAS_DIVISIBILITY = 128
-DET_KEYS = ("classes", "scores", "scores_3d", "boxes2d", "quat", "tvec", "size", "conf3d")
+DET_KEYS = ("classes", "scores", "scores_3d", "boxes2d", "quat", "tvec", "size", "conf3d", "attributes", "speeds")
 
 
 def _flip_boxes3d_np(quat, tvec):
@@ -90,7 +94,8 @@ class DD3DWithTTA:
     ("buckets"), the calibrated buckets ("calibrated", in order), and the
     host seconds of each part ("seconds": "prepare" the resize and canvas,
     "calibrate", "forward" the forward, decode and fetch of the
-    detections, "merge" the unpacking, unflip and merged NMS).
+    detections, "merge" the unpacking, unflip and merged NMS, the BEV NMS
+    included).
     The variants are those of cfg.TEST.AUG (MIN_SIZES, MAX_SIZE, FLIP).
     `int8_plain` runs the int8 kernels' plain versions, calibration
     included, for checking the kernels on the card."""
@@ -99,12 +104,6 @@ class DD3DWithTTA:
         from dd3d_tpu_torch.models.layers import load_quant_scales
         from dd3d_tpu_torch.models.postprocess import get_inference_fn
 
-        if cfg.MODEL.META_ARCHITECTURE == "NuscenesDD3D":
-            raise NotImplementedError("NuscenesDD3DWithTTA: nuScenes TTA and its sample aggregation are not ported "
-                                      "(ROADMAP §1 item 9)")
-        if cfg.DD3D.INFERENCE.DO_BEV_NMS:
-            raise NotImplementedError("DD3D.INFERENCE.DO_BEV_NMS: the rotated BEV NMS over the TTA merge is not "
-                                      "ported (ROADMAP §1 item 7)")
         self.cfg = cfg
         self.model = getattr(model, "module", model)
         self.min_sizes = list(cfg.TEST.AUG.MIN_SIZES)
@@ -112,6 +111,8 @@ class DD3DWithTTA:
         self.flip = cfg.TEST.AUG.FLIP
         self.nms_thresh = cfg.DD3D.FCOS2D.INFERENCE.NMS_THRESH
         self.post_nms_topk = cfg.DD3D.FCOS2D.INFERENCE.POST_NMS_TOPK
+        self.do_bev_nms = cfg.DD3D.INFERENCE.DO_BEV_NMS
+        self.bev_nms_iou_thresh = cfg.DD3D.INFERENCE.BEV_NMS_IOU_THRESH
         self.int8_plain = int8_plain
 
         # Per-variant NMS is off; the merged union is suppressed instead, like
@@ -211,8 +212,9 @@ class DD3DWithTTA:
                 m["boxes2d"].append(boxes2d)
                 m["quat"].append(quat)
                 m["tvec"].append(tvec)
-                for k in ("classes", "scores", "scores_3d", "size", "conf3d"):
-                    m[k].append(per_im[k])
+                for k in ("classes", "scores", "scores_3d", "size", "conf3d", "attributes", "speeds"):
+                    if k in per_im:
+                        m[k].append(per_im[k])
             seconds["merge"] += time.perf_counter() - t3
         t4 = time.perf_counter()
         out = [self._merge_one(m) for m in merged]
@@ -242,5 +244,18 @@ class DD3DWithTTA:
             keep = _np_greedy_nms_classaware(out["boxes2d"], out["scores_3d"], out["classes"], self.nms_thresh)
             keep = keep[: self.post_nms_topk]
             out = {k: v[keep] for k, v in out.items()}
+        if self.do_bev_nms and len(out["classes"]):
+            bev = boxes_to_bev5_np(out["quat"], out["tvec"], out["size"])
+            keep = greedy_rotated_nms_np(bev, out["scores_3d"], out["classes"], self.bev_nms_iou_thresh)
+            out = {k: v[keep] for k, v in out.items()}
         return out
+
+
+class NuscenesDD3DWithTTA(DD3DWithTTA):
+    """TTA plus the 6-camera sample aggregation of the merged detections
+    (nuscenes_dd3d_tta.py:21-178)."""
+
+    def aggregate_sample(self, per_image_dets: List[dict], group_idxs, num_classes: int, global_poses):
+        return nuscenes_sample_aggregate(per_image_dets, group_idxs, num_classes, global_poses,
+                                         iou_threshold=self.bev_nms_iou_thresh, max_num_dets_per_sample=500)
 

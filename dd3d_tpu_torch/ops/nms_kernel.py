@@ -8,6 +8,12 @@
   scratch from `torch.empty`, then the scan kernel, one warp an image;
 - for CPU tensors it runs the plain PyTorch version, `greedy_nms_plain`,
   which the CPU tests and chip_smoke.py hold the kernel against.
+
+`greedy_nms_scan` is the same greedy walk on a suppression matrix the caller
+computed, (B, N, N) f32 in descending score order (the rotated BEV NMS's
+class-masked IoU): on CUDA tensors the pack kernel turns it into the
+bitmask and the scan kernel walks it; on CPU tensors the plain version is
+`greedy_suppress` itself.
 """
 import ctypes
 
@@ -35,6 +41,12 @@ def _library():
         lib.dd3d_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.dd3d_nms_keep.restype = ctypes.c_int
+        lib.dd3d_nms_pack_mask.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+        lib.dd3d_nms_pack_mask.restype = ctypes.c_int
+        lib.dd3d_nms_scan_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+        lib.dd3d_nms_scan_keep.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -72,3 +84,42 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -
 
 
 greedy_nms.launches = 0
+
+
+def greedy_nms_scan(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Keep mask (B, N) of exact greedy NMS from a score-sorted suppression
+    matrix iou (B, N, N) f32 and valid (B, N) bool: box i suppresses a later
+    j when i is kept and iou[i, j] > threshold. CPU tensors run
+    `greedy_suppress`; CUDA tensors launch the pack and scan kernels (or
+    raise). `greedy_nms_scan.launches` counts the calls that launched them,
+    one a call."""
+    if iou.ndim != 3 or iou.shape[1] != iou.shape[2] or valid.shape != iou.shape[:2]:
+        raise ValueError(f"need iou (B, N, N) and valid (B, N); got {tuple(iou.shape)}, {tuple(valid.shape)}")
+    if iou.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"need float32 iou and bool valid; got {iou.dtype}, {valid.dtype}")
+    if iou.device != valid.device:
+        raise ValueError(f"iou on {iou.device}, valid on {valid.device}")
+    if iou.device.type == "cpu":
+        return greedy_suppress(iou, valid, iou_threshold)
+    if iou.device.type != "cuda":
+        raise ValueError(f"no NMS kernel for device {iou.device}")
+    if not (iou.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("iou and valid must be contiguous")
+    b, n = valid.shape
+    lib = _library()
+    if n > lib.dd3d_nms_max_n():
+        raise ValueError(f"N={n} exceeds the kernel's maximum {lib.dd3d_nms_max_n()}")
+    keep = torch.empty((b, n), dtype=torch.bool, device=iou.device)
+    mask = torch.empty((b, n, -(-n // 64)), dtype=torch.int64, device=iou.device)
+    with torch.cuda.device(iou.device):
+        stream = torch.cuda.current_stream(iou.device).cuda_stream
+        err = lib.dd3d_nms_pack_mask(iou.data_ptr(), mask.data_ptr(), b, n, float(iou_threshold), stream)
+        if err == 0:
+            err = lib.dd3d_nms_scan_keep(mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, n, stream)
+    if err != 0:
+        raise RuntimeError(f"NMS scan kernel launch failed: cudaError {err}")
+    greedy_nms_scan.launches += 1
+    return keep
+
+
+greedy_nms_scan.launches = 0

@@ -14,12 +14,17 @@ difference is printed.
     python -m dd3d_tpu_torch.overfit_smoke [--iters 400] [--n-images 8] [--int8-ab] [KEY=VALUE ...]
     python -m dd3d_tpu_torch.overfit_smoke --root /tmp/fixture --n-images 8 --fixture-only
 
+`make_nusc_fixture` writes the 6-camera nuScenes-style JSON-manifest fixture
+that the nuScenes experiments run from (chip_smoke.py phases 27-28 and the
+port's nuScenes CLI tests).
+
 KEY=VALUE overrides apply after the experiment's own. Each kernel's launch
 count over the training and over each evaluation is printed (`KERNEL
 LAUNCHES`). A rerun with the same `--output-dir` resumes from its latest
 checkpoint (`--skip-train` evaluates that checkpoint without training).
 """
 import argparse
+import json
 import logging
 import os
 import tempfile
@@ -98,6 +103,59 @@ def make_fixture(root: str, n_images: int = 4):
 
     with open(os.path.join(root, "KITTI3D", "mv3d_kitti_splits", "train.txt"), "w") as f:
         f.write("\n".join(sids) + "\n")
+    return root
+
+
+NUSC_FIXTURE = "nusc_fixture"
+NUSC_FIXTURE_TVEC = (10.0, -2.0, 1.5)  # sample s's camera -> global translation is this plus (s, 0, 0)
+
+
+def make_nusc_fixture(root: str, n_samples: int = 8, height: int = 900, width: int = 1600) -> str:
+    """A synthetic nuScenes-style fixture, the JSON manifest
+    `<root>/json_datasets/nusc_fixture.json` (data/datasets/json_dataset.py)
+    that registers as the dataset `nusc_fixture` with the nuScenes
+    evaluator: `n_samples` samples of 6 cameras, one PNG each, every camera
+    of a sample the same image under the same camera -> global pose (so the
+    sample aggregation has 6 copies of each detection to cut, as
+    tests/test_nusc_e2e.py's fixture), rotation identity and translation
+    NUSC_FIXTURE_TVEC plus (sample, 0, 0). Each image holds one car with a
+    3D box, an attribute and a speed, rendered at its projected 2D box."""
+    from dd3d_tpu_torch.data.datasets.kitti_3d import _project_corners_bbox2d
+    from dd3d_tpu_torch.data.datasets.nuscenes import CLASS_NAMES
+
+    ds_dir = os.path.join(root, "json_datasets")
+    os.makedirs(ds_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    s = float(np.sqrt(0.5))
+    dicts = []
+    for sample in range(n_samples):
+        f = 1266.0 * width / 1600
+        k = [[f, 0.0, width / 2], [0.0, f, height * 0.55], [0.0, 0.0, 1.0]]
+        x, z = -2.0 + 0.5 * (sample % 8), 14.0 + 2.0 * (sample % 6)
+        bbox3d = [s, s, 0.0, 0.0, x, 0.3, z, 1.9, 4.6, 1.7]  # quat wxyz (upright), tvec, size wlh
+        box = _project_corners_bbox2d(bbox3d, np.asarray(k))
+        box = [min(max(v, 0.0), float(lim - 1)) for v, lim in zip(box, (width, height, width, height))]
+        img = (rng.rand(height, width, 3) * 40 + 90).astype(np.uint8)
+        fill_rectangle(img, (int(box[0]), int(box[1])), (int(box[2]), int(box[3])), (200, 60, 220))
+        tx, ty, tz = NUSC_FIXTURE_TVEC
+        pose = {"wxyz": [1.0, 0.0, 0.0, 0.0], "tvec": [tx + sample, ty, tz]}
+        for cam in range(6):
+            name = f"s{sample:03d}_cam{cam}.png"
+            write_png(os.path.join(ds_dir, name), img)
+            dicts.append({
+                "file_name": name, "image_id": f"s{sample:03d}_cam{cam}", "sample_id": f"sample{sample:03d}",
+                "sample_token": f"sample{sample:03d}", "width": width, "height": height, "intrinsics": k,
+                "pose": pose, "extrinsics": {"wxyz": [1.0, 0.0, 0.0, 0.0], "tvec": [0.0, 0.0, 0.0]},
+                "annotations": [{"category_id": 3, "instance_id": f"car{sample}", "bbox": box, "bbox3d": bbox3d,
+                                 "attribute_id": 0, "speed": 3.5}],
+            })
+    manifest = {"name": NUSC_FIXTURE,
+                "metadata": {"thing_classes": list(CLASS_NAMES),
+                             "id_to_name": {i: n for i, n in enumerate(CLASS_NAMES)},
+                             "evaluators": ["nuscenes_evaluator"]},
+                "dicts": dicts}
+    with open(os.path.join(ds_dir, f"{NUSC_FIXTURE}.json"), "w") as fh:
+        json.dump(manifest, fh)
     return root
 
 

@@ -30,8 +30,12 @@ metrics.jsonl. `do_test(use_tta=True)` runs each rank's shard through
 models/tta.DD3DWithTTA in chunks of TEST.IMS_PER_BATCH / world size images;
 its results carry the `tta/` prefix.
 
-Not ported: W&B, and what the model's path does not have (the rotated BEV
-NMS, nuScenes: ROADMAP §1 items 7 and 9).
+NuscenesDD3D (the nuScenes experiments) tests whole samples of 6 cameras:
+the test loader groups them (InferenceGroupSampler) and the serving function
+aggregates each sample's detections on the card (NUSC_SAMPLE_AGGREGATE); the
+TTA test aggregates its merged detections on the host.
+
+Not ported: W&B.
 """
 import argparse
 import ast
@@ -69,16 +73,12 @@ def parse_overrides(pairs, cfg):
 
 
 def check_unported(cfg) -> None:
-    """Raise before anything is built for what the CLI does not have: W&B,
-    the rotated BEV NMS (the tests would run it), and a remote MODEL.CKPT."""
+    """Raise before anything is built for what the CLI does not have: W&B
+    and a remote MODEL.CKPT."""
     from dd3d_tpu_torch.training.checkpoint import REMOTE_PREFIXES
 
     if cfg.get("WANDB", {}).get("ENABLED", False):
         raise NotImplementedError("WANDB.ENABLED: W&B mirroring is not ported; metrics go to metrics.jsonl")
-    if cfg.DD3D.INFERENCE.DO_BEV_NMS:
-        run = "EVAL_ONLY=True" if cfg.EVAL_ONLY else "the final test after training"
-        raise NotImplementedError(f"DD3D.INFERENCE.DO_BEV_NMS: {run} would run the rotated BEV NMS, which is not "
-                                  "ported (ROADMAP §1 item 7)")
     ckpt = str(cfg.MODEL.CKPT or "")
     if cfg.EVAL_ONLY and ckpt.startswith(REMOTE_PREFIXES):
         raise NotImplementedError(f"MODEL.CKPT={ckpt}: remote checkpoints are not fetched (no network); give a "
@@ -124,41 +124,77 @@ def do_test(cfg, model, output_dir, step=None, use_tta=False):
     dataset_name = cfg.DATASETS.TEST.NAME
     if use_tta:
         return _do_test_tta(cfg, model, dataset_name, output_dir, step)
-    loader = build_test_dataloader(cfg, dataset_name=dataset_name, shard_idx=comm.get_rank(),
-                                   num_shards=comm.get_world_size())
+    group_size = group_size_of(cfg)
+    loader = build_test_dataloader(cfg, dataset_name=dataset_name, group_size=group_size,
+                                   shard_idx=comm.get_rank(), num_shards=comm.get_world_size())
     evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
     vis_dir = os.path.join(output_dir, "visualization") if output_dir else None
-    results = inference_on_dataset(model, cfg, loader, evaluators, visualize_dir=vis_dir)
+    results = inference_on_dataset(model, cfg, loader, evaluators, visualize_dir=vis_dir, group_size=group_size)
     _log_results(results, output_dir, step)
     return results
 
 
+def group_size_of(cfg) -> int:
+    """Images a sample: NuscenesDD3D's six cameras, else one
+    (scripts/train.py:183-197)."""
+    return 6 if cfg.MODEL.META_ARCHITECTURE == "NuscenesDD3D" else 1
+
+
 def _do_test_tta(cfg, model, dataset_name, output_dir, step=None):
     """The test-time-augmented test (scripts/train.py:216-293): this rank's
-    InferenceSampler shard of the dataset, read as uint8 frames in chunks of
-    TEST.IMS_PER_BATCH / world size, through DD3DWithTTA.infer_batch into
-    the evaluators; the results carry the `tta/` prefix."""
+    shard of the dataset (whole samples of 6 cameras for NuscenesDD3D,
+    InferenceGroupSampler), read as uint8 frames in chunks of
+    TEST.IMS_PER_BATCH / world size (a multiple of the sample size), through
+    DD3DWithTTA.infer_batch, or NuscenesDD3DWithTTA's, whose merged
+    detections of each sample then go through the sample aggregation when
+    DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE is set, into the evaluators; the
+    results carry the `tta/` prefix."""
     from dd3d_tpu_torch.data.catalog import DatasetCatalog
     from dd3d_tpu_torch.data.imageio import read_image_bgr
-    from dd3d_tpu_torch.data.samplers import InferenceSampler
+    from dd3d_tpu_torch.data.samplers import InferenceGroupSampler, InferenceSampler
     from dd3d_tpu_torch.evaluators import get_evaluator
-    from dd3d_tpu_torch.models.tta import DD3DWithTTA
+    from dd3d_tpu_torch.models.cross_camera import get_group_idxs
+    from dd3d_tpu_torch.models.tta import DD3DWithTTA, NuscenesDD3DWithTTA
+    from dd3d_tpu_torch.structures.pose import Pose
 
-    tta = DD3DWithTTA(cfg, model)
+    nuscenes = cfg.MODEL.META_ARCHITECTURE == "NuscenesDD3D"
+    tta = (NuscenesDD3DWithTTA if nuscenes else DD3DWithTTA)(cfg, model)
     evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
     for ev in evaluators:
         ev.reset()
     dicts = DatasetCatalog.get(dataset_name)
-    dicts = [dicts[i] for i in InferenceSampler(len(dicts), comm.get_rank(), comm.get_world_size())]
-    chunk_size = max(1, int(cfg.TEST.IMS_PER_BATCH) // comm.get_world_size())
+    group_size = group_size_of(cfg)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    if group_size > 1:
+        sampler = InferenceGroupSampler(len(dicts), group_size, rank, world)
+    else:
+        sampler = InferenceSampler(len(dicts), rank, world)
+    dicts = [dicts[i] for i in sampler]
+    chunk_size = max(group_size, int(cfg.TEST.IMS_PER_BATCH) // world)
+    chunk_size = max(group_size, (chunk_size // group_size) * group_size)
+    aggregate = nuscenes and bool(cfg.DD3D.INFERENCE.get("NUSC_SAMPLE_AGGREGATE", False))
     for c in range(0, len(dicts), chunk_size):
         chunk = dicts[c:c + chunk_size]
         images = [read_image_bgr(d["file_name"]) for d in chunk]
         ks = [np.asarray(d["intrinsics"], np.float64).reshape(3, 3) for d in chunk]
-        dets = [{"image_id": d["image_id"], "sample_id": d.get("sample_id"), **out}
-                for d, out in zip(chunk, tta.infer_batch(images, ks))]
-        for ev in evaluators:
-            ev.process(dets)
+        dets = []
+        for d, out in zip(chunk, tta.infer_batch(images, ks)):
+            det = {"image_id": d["image_id"], "sample_id": d.get("sample_id"), **out}
+            if d.get("pose") is not None:
+                det["pose"] = d["pose"]
+            dets.append(det)
+        per = group_size if nuscenes else len(chunk)  # JAX hands nuScenes dets over a sample at a time
+        for g in range(0, len(chunk), per):
+            group = dets[g:g + per]
+            if aggregate:  # post-hoc 6-camera sample aggregation (nuscenes_dd3d_tta.py:57-73)
+                t0 = time.perf_counter()
+                group_idxs = get_group_idxs([d.get("sample_id") or "s" for d in group], group_size)
+                poses = [Pose(wxyz=d["pose"]["wxyz"], tvec=d["pose"]["tvec"]) if d.get("pose") else Pose()
+                         for d in chunk[g:g + group_size]]
+                group = tta.aggregate_sample(group, group_idxs, cfg.DD3D.NUM_CLASSES, poses)
+                tta.stats["seconds"]["aggregate"] += time.perf_counter() - t0
+            for ev in evaluators:
+                ev.process(group)
     results = {}
     for ev in evaluators:
         r = ev.evaluate()

@@ -1,6 +1,7 @@
 """The train step, counterpart of dd3d_tpu/training/train_step.py: color
 jitter -> forward in the compute dtype (model.train(): live BN on batch
-statistics) -> `dd3d_losses` in f32 -> backward -> SGD update, and the
+statistics) -> the meta-architecture's losses in f32 (`dd3d_losses`, or
+`nuscenes_dd3d_losses` for NuscenesDD3D) -> backward -> SGD update, and the
 metrics. Nothing in the step waits for the host: the metrics stay tensors
 on the device, and `loss_finite` replaces a Python-side assert.
 
@@ -36,15 +37,28 @@ from dd3d_tpu_torch.training.optim import Optimizer, global_norm
 from dd3d_tpu_torch.utils.comm import all_reduce_sum, get_world_size
 
 
+def losses_for(cfg) -> Callable:
+    """The loss function of MODEL.META_ARCHITECTURE: each meta-architecture
+    owns its losses (dd3d_tpu/training/train_step.py:40-53)."""
+    arch = cfg.MODEL.META_ARCHITECTURE
+    if arch == "DD3D":
+        return dd3d_losses
+    if arch == "NuscenesDD3D":
+        from dd3d_tpu_torch.models.nuscenes_dd3d import nuscenes_dd3d_losses
+
+        return nuscenes_dd3d_losses
+    raise NotImplementedError(f"training MODEL.META_ARCHITECTURE={arch!r} is not ported")
+
+
 def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """step(batch) -> metrics: one micro-batch, and one update of the
     model's parameters in place every SOLVER.ACCUMULATE_GRAD_BATCHES calls.
     `model` is the model or its DistributedDataParallel wrapper. `batch` is
     the collate_batch schema on the model's device: image (B, H, W, 3) BGR,
     intrinsics, gt_boxes2d, gt_classes, gt_boxes3d, gt_valid, and
-    optionally color_jitter (B, 3)."""
-    if cfg.MODEL.META_ARCHITECTURE != "DD3D":
-        raise NotImplementedError(f"training MODEL.META_ARCHITECTURE={cfg.MODEL.META_ARCHITECTURE!r} is not ported")
+    optionally color_jitter (B, 3); NuscenesDD3D's also gt_attributes and
+    gt_speeds."""
+    losses_fn = losses_for(cfg)
     remat = str(cfg.TPU.get("REMAT", "none"))
     if remat not in ("none", ""):
         raise NotImplementedError(f"TPU.REMAT={remat!r} is not ported; the port stores all activations")
@@ -64,7 +78,7 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callab
         with no_sync:
             with quant_scope(QuantSpec()):
                 outputs = model(images)
-            losses = dd3d_losses(cfg, outputs, batch, strides)
+            losses = losses_fn(cfg, outputs, batch, strides)
             total = sum(losses.values())
             (total * scale if scale != 1.0 else total).backward()
         # of the raw gradients, before any clipping; a missing one is zero

@@ -25,7 +25,9 @@ tree shaped like the JAX params, e.g. a gradient tree, to port names.
 
 `reference_to_port_names` renames a reference checkpoint for the port:
 VoVNet's slash names (`stem.stem_1/conv.weight`), which no nn.Module name
-can hold, become the port's (`stem1.weight`), and the per-level depth
+can hold, become the port's (`stem1.weight`); for NuscenesDD3D, whose DD3D
+the port (like JAX) nests under `base` while the reference keeps it at the
+root beside `attr_logits` and `speed`, the DD3D names gain `base.`; the per-level depth
 Scale / Offset entries past the model's levels, which the reference sizes by
 the dataset's depth statistics, are dropped, as the JAX converter drops them.
 """
@@ -87,8 +89,9 @@ def _flax_module_path(module_name: str, fpn_features: Dict[str, str]) -> List[st
 
 
 def _model_fpn_features(model: torch.nn.Module) -> Dict[str, str]:
-    """{stride digit: trunk feature} of a DD3D model's FPN; {} for a bare trunk."""
-    fpn = getattr(model, "backbone", None)
+    """{stride digit: trunk feature} of a DD3D model's FPN (NuscenesDD3D's
+    under `base`); {} for a bare trunk."""
+    fpn = getattr(getattr(model, "base", model), "backbone", None)
     if fpn is None:
         return {}
     return {str(fpn.in_strides[f].bit_length() - 1): f for f in fpn.in_features}
@@ -180,7 +183,8 @@ def convert_flax_variables(variables: Dict, model: torch.nn.Module, strict: bool
     """State dict for `model` from JAX variables {"params", "batch_stats"}.
     With `strict`, every JAX leaf must be used and every shape must agree."""
     trees = {"params": _to_dict(variables.get("params", {})), "batch_stats": _to_dict(variables.get("batch_stats", {}))}
-    backbone = trees["params"].get("backbone", {})
+    # NuscenesDD3D nests DD3D under `base` (dd3d_tpu/utils/convert_checkpoint.py:185-191)
+    backbone = trees["params"].get("backbone") or trees["params"].get("base", {}).get("backbone", {})
     fpn_features = {}
     for key in backbone:
         m = re.match(r"fpn_lateral_([a-z]+)(\d)$", key)
@@ -232,6 +236,8 @@ def reference_to_port_names(state_dict: Dict[str, torch.Tensor], model: torch.nn
     out = {}
     for key, value in state_dict.items():
         name = _vovnet_port_name(key)
+        if name not in own and f"base.{name}" in own:
+            name = f"base.{name}"  # NuscenesDD3D: the reference's DD3D modules sit at the root
         m = _PER_LEVEL_SCALAR.match(name)
         if m and name not in own and sum(k.startswith(m.group(1) + ".") for k in own) <= int(m.group(2)):
             continue

@@ -7,9 +7,9 @@ of scripts/train.py) and the device rule of its entry points:
   port's fixture at a tiny resize, into one timestamped run directory:
   metrics.jsonl from rank 0 only, finite losses, the checkpoint of step 2,
   and the final test's results;
-- what is not ported raises before anything is built: test-time
-  augmentation in EVAL_ONLY and in the final test after training, the
-  dataloader visualization, W&B;
+- W&B, which is not ported, raises before anything is built; with the
+  rotated BEV NMS, EVAL_ONLY, the periodic and final tests and the
+  dataloader drawing run to their end;
 - without a card, the CLI, `train()`, `predict` and `calibrate_int8` raise
   unless the CPU is asked for (`torch.cuda.is_available` is patched to
   False, so the check is the same on a machine with a card).
@@ -28,7 +28,7 @@ from dd3d_tpu_torch.overfit_smoke import make_fixture
 from dd3d_tpu_torch.training.checkpoint import CheckpointManager
 from dd3d_tpu_torch.training.train_loop import train
 from tests.torch_dist_workers import cli_rank
-from tests.torch_port_util import run_gloo
+from tests.torch_port_util import run_gloo, torch_threads
 
 
 @pytest.fixture(scope="module")
@@ -71,14 +71,27 @@ def test_cli_trains_two_steps_on_two_gloo_ranks(fixture_root, tmp_path):
     ("WANDB.ENABLED=True", "WANDB"),
 ])
 def test_cli_raises_on_what_is_not_ported(fixture_root, tmp_path, override, match):
-    """With DD3D.INFERENCE.DO_BEV_NMS, EVAL_ONLY and the final test after
-    training would run the rotated BEV NMS, which is not ported; W&B is not
-    ported either. The dataloader drawing and test-time augmentation are
-    (they do not raise)."""
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(cli_args(fixture_root, str(tmp_path), "VIS.DATALOADER_PERIOD=1", "TEST.AUG.ENABLED=True",
-                                "DD3D.INFERENCE.DO_BEV_NMS=True", override))
-    assert not os.listdir(tmp_path)  # nothing was built or written
+    """W&B is not ported and raises before anything is built or written. With
+    DD3D.INFERENCE.DO_BEV_NMS, the dataloader drawing and test-time
+    augmentation, EVAL_ONLY, a run with the periodic test after every step
+    and a run drawing the dataloader now each run to their end: their
+    tests, plain and TTA, log finite results."""
+    args = cli_args(fixture_root, str(tmp_path), "VIS.DATALOADER_PERIOD=1", "TEST.AUG.ENABLED=True",
+                    "DD3D.INFERENCE.DO_BEV_NMS=True", override, "TEST.AUG.MIN_SIZES=[64]")
+    if match == "WANDB":
+        with pytest.raises(NotImplementedError, match=match):
+            train_cli.main(args)
+        assert not os.listdir(tmp_path)  # nothing was built or written
+        return
+    with torch_threads(2):  # test files run in parallel processes
+        run_dir = train_cli.main(args)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    tests = [r for r in rows if "total_loss" not in r]
+    assert len(tests) == {"EVAL_ONLY": 2, "the final test after training": 4, "DO_BEV_NMS": 2}[match]  # + TTA
+    key = "kitti_3d/kitti_box3d_r40/Car_Moderate_0.5"
+    assert all(np.isfinite(r.get(key, r.get("tta/" + key))) for r in tests)
+    assert "tta/" + key in tests[-1]
 
 
 def test_entry_points_need_a_card_unless_the_cpu_is_asked_for(fixture_root, tmp_path, monkeypatch):

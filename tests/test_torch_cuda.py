@@ -116,6 +116,46 @@ def test_kernel_rejects_too_many_boxes(card):
         greedy_nms(torch.zeros(1, 4096, 4, device=card), torch.ones(1, 4096, dtype=torch.bool, device=card), 0.5)
 
 
+def scan_case(rng, b, n):
+    """A score-sorted suppression matrix as the rotated BEV NMS hands it to
+    the scan: most pairs far below 0.5, some above, a lattice of pairs at
+    exactly 0.5 (not suppressed: the test is strict), and invalid boxes."""
+    iou = (rng.rand(b, n, n) ** 8).astype(np.float32)
+    iou[:, ::7, ::5] = 0.5
+    return iou, rng.rand(b, n) > 0.1
+
+
+@pytest.mark.parametrize("b,n", [(12, 100), (2, 600), (1, 2048), (3, 65), (1, 1)])
+def test_scan_kernel_matches_plain(card, b, n):
+    """The pack + scan kernels (ops/nms_kernel.greedy_nms_scan) against the
+    plain greedy fixpoint, exactly: the per-image BEV NMS's (B, 100), a
+    sample's (2, 600), the kernel's largest N, a ragged word, one box."""
+    from dd3d_tpu_torch.ops.nms import greedy_suppress
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_scan
+
+    iou, valid = scan_case(np.random.RandomState(n), b, n)
+    it, vt = torch.from_numpy(iou).to(card), torch.from_numpy(valid).to(card)
+    for thr in (0.3, 0.5):
+        before = greedy_nms_scan.launches
+        keep = greedy_nms_scan(it, vt, thr)
+        assert greedy_nms_scan.launches == before + 1
+        want = greedy_suppress(it, vt, thr)
+        assert torch.equal(keep, want)
+        np.testing.assert_array_equal(keep.cpu().numpy(), greedy_suppress(*map(torch.from_numpy, (iou, valid)), thr))
+        assert int(keep.sum()) <= int(vt.sum()) and bool(keep.any()) == bool(vt.any())  # the first valid box stays
+
+
+def test_scan_kernel_rejects_what_it_does_not_take(card):
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_scan
+
+    with pytest.raises(ValueError, match="maximum"):
+        greedy_nms_scan(torch.zeros(1, 4096, 4096, device=card), torch.ones(1, 4096, dtype=torch.bool, device=card),
+                        0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        greedy_nms_scan(torch.zeros(1, 8, 8, device=card).transpose(1, 2),
+                        torch.ones(1, 8, dtype=torch.bool, device=card), 0.5)
+
+
 def test_slice_on_card_matches_cpu(card):
     """The fp32 slice on the card (TF32 off, NMS through the kernel) against
     the CPU: same valid set; sorted scores within 1e-3 (summation order)."""

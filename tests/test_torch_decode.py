@@ -122,9 +122,17 @@ def test_boxes3d_container_matches_jax():
 
 
 def test_bev_nms_is_not_ported():
+    """With DD3D.INFERENCE.DO_BEV_NMS the decode ends in the per-image BEV NMS
+    (models/dd3d._bev_nms_in_graph), which keeps the same detections as
+    JAX's, every field within 1e-5 as above, and cuts some of the plain
+    decode's."""
     cfg = get_experiment_cfg("dd3d_kitti_dla34")
+    plain_p, _, _ = _decode_both(cfg)
     cfg.DD3D.INFERENCE.DO_BEV_NMS = True
-    out, intrinsics = _head_outputs(0, 2, cfg.DD3D.NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="DO_BEV_NMS"):
-        dd3d_inference(cfg, {k: [torch.from_numpy(x) for x in v] for k, v in out.items()},
-                       torch.from_numpy(intrinsics), STRIDES)
+    det_p, det_j, _ = _decode_both(cfg)
+    assert set(det_p) == set(det_j)
+    valid = det_j["valid"]
+    np.testing.assert_array_equal(det_p["valid"], valid)
+    assert 20 < valid.sum() < plain_p["valid"].sum() and not (valid & ~plain_p["valid"]).any()
+    for key in det_j:
+        np.testing.assert_allclose(det_p[key][valid], det_j[key][valid], rtol=1e-5, atol=1e-5, err_msg=key)

@@ -243,8 +243,8 @@ def test_get_evaluator_dispatch(fixture_root):
                                                                                    "KITTI3DEvaluator"]
     assert got[1]._rank0_only and got[1]._iou_thresholds == want[1]._iou_thresholds == [0.5, 0.7]
     MetadataCatalog.get("nusc_fake")["evaluators"] = ("nuscenes_evaluator",)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_evaluator(pcfg, "nusc_fake")
+    (nusc,) = get_evaluator(pcfg, "nusc_fake", output_dir="out")
+    assert type(nusc).__name__ == "NuscenesEvaluator" and nusc._rank0_only and nusc._output_dir == "out"
     MetadataCatalog.get("unknown_fake")["evaluators"] = ("bogus",)
     with pytest.raises(KeyError, match="bogus"):
         get_evaluator(pcfg, "unknown_fake")

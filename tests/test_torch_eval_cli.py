@@ -15,8 +15,8 @@ KITTI-format fixture at a tiny resize:
 - EVAL_ONLY with TEST.AUG.ENABLED logs the plain results, then the `tta/`
   results, which equal what the JAX package's `_do_test_tta` computes from
   the same detections, and equal on two gloo ranks and in one process;
-- the rotated BEV NMS and a remote MODEL.CKPT raise before anything is
-  built;
+- a remote MODEL.CKPT raises before anything is built; with the rotated
+  BEV NMS, EVAL_ONLY and the final test run, and keep fewer detections;
 - the overfit CLI with --iters 2 (and --int8-ab) runs to its OVERFIT
   RESULT and INT8 AB lines, and --skip-train evaluates its checkpoint
   again with the same results.
@@ -181,9 +181,21 @@ def test_failed_periodic_eval_raises_on_every_rank(fixture_root, tmp_path):
     (("EVAL_ONLY=True", "MODEL.CKPT='https://host/model_final.pth'"), "remote checkpoints"),
 ])
 def test_unported_evaluation_options_raise(fixture_root, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(small(fixture_root, str(tmp_path), *extra))
-    assert not os.listdir(tmp_path)  # nothing was built or written
+    """A remote MODEL.CKPT raises. With DD3D.INFERENCE.DO_BEV_NMS,
+    EVAL_ONLY and the final test after a one-step train run: the test
+    logs finite results, and its predictions are the BEV NMS's survivors,
+    fewer than the 100 an image that the plain decode keeps at random
+    weights (tests/test_torch_eval_cli.py::test_training_ends_with_the_final_test)."""
+    if "remote" in match:
+        with pytest.raises(NotImplementedError, match=match):
+            train_cli.main(small(fixture_root, str(tmp_path), *extra))
+        assert not os.listdir(tmp_path)  # nothing was built or written
+        return
+    with torch_threads(4):
+        run_dir = train_cli.main(small(fixture_root, str(tmp_path), *extra))
+    (row,) = result_rows(run_dir)
+    assert np.isfinite(row[RESULT_KEY])
+    assert 0 < len(predictions(run_dir)) < 4 * 100
 
 
 def test_eval_only_without_the_checkpoint_raises(fixture_root, tmp_path):

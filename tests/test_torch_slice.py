@@ -23,11 +23,12 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dd3d_tpu.models.postprocess import get_inference_fn as jax_get_inference_fn
 from dd3d_tpu_torch.models.postprocess import get_inference_fn, unpack_detections
 
-from tests.torch_port_util import both_models, detection_state_dict, fp32_cfg
+from tests.torch_port_util import both_models, detection_state_dict, fp32_cfg, torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KITTI_K = np.array([[721.5, 0, 609.5], [0, 721.5, 172.8], [0, 0, 1]], np.float32)
@@ -121,7 +122,9 @@ def test_port_runs_without_jax(tmp_path):
     KITTI fixture and take one batch of its train loader, then run the
     native R40 engine and the KITTI-3D and COCO-2D evaluators on the
     fixture, then run test-time augmentation and draw with every
-    visualizer, in a fresh interpreter: no jax or flax module, and nothing of
+    visualizer, then run dd3d_nusc_dla34's plain test (the sample
+    aggregation, the nuScenes evaluator) and its TTA test on a one-sample
+    6-camera fixture, in a fresh interpreter: no jax or flax module, and nothing of
     the JAX package `dd3d_tpu`, may be imported on the way, the JAX
     package's engine library (dd3d_tpu/evaluators/native/libkitti_eval.so)
     must not be mapped, only the port's own build, and cv2 and PIL are
@@ -213,6 +216,19 @@ def test_port_runs_without_jax(tmp_path):
         "det = dict(merged, scores=merged['scores'] * 0 + 1, scores_3d=merged['scores_3d'] * 0 + 1)\n"
         "assert get_predictions_visualizer(cfg, 'box3d_visualizer', 'kitti_3d_train', '').visualize(\n"
         "    frame, det, np.eye(3) * 100).shape == (1002, 2004, 3)\n"
+        "from dd3d_tpu_torch.models.tta import NuscenesDD3DWithTTA\n"
+        "from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, make_nusc_fixture\n"
+        "from dd3d_tpu_torch.train import do_test\n"
+        "import dd3d_tpu_torch.evaluators.nuscenes, dd3d_tpu_torch.ops.sample_bev_nms, dd3d_tpu_torch.models.cross_camera\n"
+        "ncfg = get_experiment_cfg('dd3d_nusc_dla34')\n"
+        f"ncfg.DATASET_ROOT = make_nusc_fixture({str(tmp_path / 'nusc')!r}, n_samples=1, height=60, width=100)\n"
+        "ncfg.DATASETS.TEST.NAME, ncfg.INPUT.RESIZE.MIN_SIZE_TEST = NUSC_FIXTURE, 64\n"
+        "ncfg.TEST.AUG.MIN_SIZES, ncfg.TPU.COMPUTE_DTYPE = [64], 'float32'\n"
+        "register_datasets(ncfg)\n"
+        "nmodel = build_model(ncfg, generator=torch.Generator().manual_seed(0))\n"
+        f"plain = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r})\n"
+        f"tta = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r}, use_tta=True)\n"
+        "assert 'NDS' in plain['nuscenes'] and 'tta/nuscenes' in tta, (plain, tta)\n"
         "import os\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libkitti_eval_' in maps and os.path.join('dd3d_tpu', 'evaluators') not in maps\n"
@@ -247,10 +263,33 @@ def test_predict_cli_writes_json(tmp_path):
 
 
 def test_sample_aggregation_is_not_ported():
+    """With DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE the serving function at group
+    size 1, or without poses, gives the plain detections; at group size 2
+    with poses, each pair of images (here one image twice) is one sample
+    whose detections go through one global BEV NMS (a strict subset of the
+    plain ones; at random weights some boxes are too thin for a nonzero
+    f32 IoU with their copy, so not all copies go) and carry
+    global-frame boxes, offset by the pose's translation."""
     from dd3d_tpu_torch.models import build_model
 
+    with torch_threads(2):  # test files run in parallel processes
+        _check_sample_aggregation(build_model)
+
+
+def _check_sample_aggregation(build_model):
     cfg = fp32_cfg()
     cfg.DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE = True
-    with pytest.raises(NotImplementedError, match="NUSC_SAMPLE_AGGREGATE"):
-        get_inference_fn(build_model(cfg), cfg)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    images = np.repeat((np.random.RandomState(1).rand(1, 128, 256, 3) * 255).astype(np.uint8), 2, axis=0)
+    intrinsics = np.stack([KITTI_K, KITTI_K])
+    pose_quat, pose_tvec = np.float32([[1, 0, 0, 0]] * 2), np.float32([[5, 6, 7]] * 2)
+    plain = get_inference_fn(model, cfg)(images, intrinsics)
+    for det in (get_inference_fn(model, cfg)(images, intrinsics, pose_quat, pose_tvec),
+                get_inference_fn(model, cfg, group_size=2)(images, intrinsics)):
+        assert set(det) == set(plain) and all(torch.equal(det[k], plain[k]) for k in det)
+    agg = get_inference_fn(model, cfg, group_size=2)(images, intrinsics, pose_quat, pose_tvec)
+    assert set(agg) == set(plain) | {"quat_global", "tvec_global"}
+    assert 0 < int(agg["valid"].sum()) < int(plain["valid"].sum())  # copies of the other camera's boxes suppressed
+    assert not (agg["valid"] & ~plain["valid"]).any()
+    torch.testing.assert_close(agg["quat_global"], plain["boxes3d_quat"], rtol=0, atol=1e-6)  # identity rotation
 

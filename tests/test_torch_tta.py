@@ -327,15 +327,56 @@ def test_quant_scales_path_seeds_the_merge_as_jax(tmp_path, monkeypatch, models)
 
 
 def test_unported_tta_options_raise(models):
+    """With DD3D.INFERENCE.DO_BEV_NMS the merge of each image ends in the rotated
+    BEV NMS, and keeps what JAX's `_merge_one` keeps from the same merged
+    union (attributes and speeds riding along); NuscenesDD3DWithTTA's sample
+    aggregation equals JAX's on the same merged detections."""
+    from dd3d_tpu.structures.pose import Pose as JaxPose
+    from dd3d_tpu_torch.models.cross_camera import get_group_idxs
+    from dd3d_tpu_torch.structures.pose import Pose
+
     _, _, pm = models
     cfg = tta_cfg()
     cfg.DD3D.INFERENCE.DO_BEV_NMS = True
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ptta.DD3DWithTTA(cfg, pm)
+    port = ptta.DD3DWithTTA(cfg, pm)
+    jax_side = object.__new__(jtta.DD3DWithTTA)  # _merge_one reads these four settings only
+    jax_side.nms_thresh, jax_side.post_nms_topk = port.nms_thresh, port.post_nms_topk
+    jax_side.do_bev_nms, jax_side.bev_nms_iou_thresh = True, port.bev_nms_iou_thresh
+    rng = np.random.RandomState(7)
+    merged_out = []
+    for image in range(6):
+        n = 60
+        quat = rng.normal(0, 0.05, (n, 4)) + [np.sqrt(0.5), np.sqrt(0.5), 0, 0]
+        centers = rng.uniform([-6, 0, 10], [6, 2, 40], (6, 3))[rng.randint(0, 6, n)]
+        corner = rng.uniform(0, 300, (n, 2))
+        merged = {"classes": rng.randint(0, 3, n), "scores": rng.rand(n), "scores_3d": rng.rand(n),
+                  "boxes2d": np.concatenate([corner, corner + rng.uniform(20, 80, (n, 2))], 1),
+                  "quat": quat / np.linalg.norm(quat, axis=1, keepdims=True),
+                  "tvec": centers + rng.normal(0, 0.3, (n, 3)), "size": rng.uniform([1.5, 3.5, 1.4], [2, 5, 1.8], (n, 3)),
+                  "conf3d": rng.rand(n), "attributes": rng.randint(0, 4, n), "speeds": rng.rand(n)}
+        got = port._merge_one({k: [v[: n // 2], v[n // 2:]] for k, v in merged.items()})
+        want = jax_side._merge_one({k: [v[: n // 2], v[n // 2:]] for k, v in merged.items()})
+        assert set(got) == set(want) and 0 < len(got["classes"]) < n // 2 + 1
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        merged_out.append(dict(got, image_id=f"im{image}", sample_id="s0"))
+
     cfg = tta_cfg()
     cfg.MODEL.META_ARCHITECTURE = "NuscenesDD3D"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ptta.DD3DWithTTA(cfg, pm)
+    nusc = ptta.NuscenesDD3DWithTTA(cfg, pm)
+    poses = [((np.cos(0.05 * i), 0.0, np.sin(0.05 * i), 0.0), (10.0, -2.0, 1.5)) for i in range(6)]
+    groups = get_group_idxs([d["sample_id"] for d in merged_out], 6)
+    got = nusc.aggregate_sample(merged_out, groups, 5, [Pose(*p) for p in poses])
+    want = jtta.nuscenes_sample_aggregate(merged_out, groups, 5, [JaxPose(*p) for p in poses],
+                                          iou_threshold=nusc.bev_nms_iou_thresh, max_num_dets_per_sample=500)
+    assert sum(len(g["classes"]) for g in got) < sum(len(m["classes"]) for m in merged_out)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            if k.endswith("_global"):
+                np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-12, err_msg=k)
+            else:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
 def test_int8_conv_launches_split_beyond_2_31():

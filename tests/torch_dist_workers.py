@@ -265,3 +265,71 @@ def failing_eval_cli_rank(argv):
     except RuntimeError as e:
         return str(e)
     return None
+
+
+def seeded_nusc_detections(dataset_dicts, seed: int = 0):
+    """Per-image detections of a nuScenes-style fixture in the evaluators'
+    input schema (unpack_detections' dicts with attributes, speeds and the
+    camera pose): each ground-truth box jittered (centre by ~0.3 m, size by
+    up to 10 %), two false positives an image of random classes, the first
+    image's ground truth missed, attributes 0-3 and speeds 0-8 m/s drawn."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, d in enumerate(dataset_dicts):
+        annos = [] if i == 0 else d.get("annotations", [])
+        n, k = len(annos), 2
+        vec = np.asarray([a["bbox3d"] for a in annos], np.float64).reshape(n, 10)
+        quat = np.concatenate([vec[:, :4], rng.normal(size=(k, 4))])
+        quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+        tvec = np.concatenate([vec[:, 4:7] + rng.normal(0, 0.3, (n, 3)), rng.uniform([-8, 0, 8], [8, 2, 40], (k, 3))])
+        size = np.concatenate([vec[:, 7:] * rng.uniform(0.9, 1.1, (n, 3)), rng.uniform(0.5, 4, (k, 3))])
+        scores = np.concatenate([rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.6, k)]).astype(np.float32)
+        out.append({
+            "image_id": d["image_id"], "sample_id": d.get("sample_id"),
+            "classes": np.asarray([a["category_id"] for a in annos] + list(rng.randint(0, 10, k)), np.int64),
+            "scores": scores, "scores_3d": scores * np.float32(0.9), "boxes2d": rng.uniform(0, 100, (n + k, 4)),
+            "quat": quat.astype(np.float32), "tvec": tvec.astype(np.float32), "size": size.astype(np.float32),
+            "attributes": rng.randint(0, 4, n + k), "speeds": rng.uniform(0, 8, n + k).astype(np.float32),
+            "pose": d["pose"]})
+    return out
+
+
+def register_nusc_fixture(root: str):
+    """The port's datasets of the nuScenes-style fixture at `root` (its JSON
+    manifest); the fixture's dataset dicts."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.data.catalog import DatasetCatalog, register_datasets
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE
+
+    cfg = get_experiment_cfg("dd3d_nusc_dla34")
+    cfg.DATASET_ROOT = root
+    register_datasets(cfg)
+    return DatasetCatalog.get(NUSC_FIXTURE)
+
+
+def nusc_eval_rank(root: str, rank0_only: bool, out_dir: str):
+    """`seeded_nusc_detections` of the fixture, this rank's
+    InferenceGroupSampler shard of them (whole samples of 6 cameras) into
+    the port's NuscenesEvaluator, then `evaluate` on every rank: the
+    results dict and the submission this rank wrote (None if it wrote
+    none)."""
+    import json
+
+    from dd3d_tpu_torch.data.samplers import InferenceGroupSampler
+    from dd3d_tpu_torch.evaluators.nuscenes import NuscenesEvaluator
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE
+
+    dets = seeded_nusc_detections(register_nusc_fixture(root))
+    shard = [dets[i] for i in InferenceGroupSampler(len(dets), 6, dist.get_rank(), dist.get_world_size())]
+    rank_dir = os.path.join(out_dir, f"rank{dist.get_rank()}_eval")
+    ev = NuscenesEvaluator(NUSC_FIXTURE, output_dir=rank_dir, rank0_only=rank0_only)
+    ev.process(shard)
+    results = ev.evaluate()
+    path = os.path.join(rank_dir, "nusc_submission.json")
+    written = None
+    if os.path.exists(path):
+        with open(path) as f:
+            written = json.load(f)
+    return {"results": results, "written": written, "n_local": len(shard)}

@@ -90,6 +90,24 @@ def v99_state_dict(backbone: str = "V-19-slim-eSE", seed: int = 7):
     return condition_for_detection({k: v.numpy().copy() for k, v in tm.state_dict().items()})
 
 
+def nusc_state_dict(seed: int = 7):
+    """A reference-named NuscenesDD3D state dict for dd3d_nusc_dla34 (10
+    classes, the nuScenes depth statistics), conditioned for detection: the
+    DD3D graph of tests/torch_ref_dd3d.py at the root, as the reference
+    keeps it, and the attribute (4) and speed (1) predictors beside it."""
+    from dd3d_tpu.configs import get_experiment_cfg as jax_experiment
+
+    c3 = jax_experiment("dd3d_nusc_dla34").DD3D.FCOS3D
+    tm = TorchDD3D(num_classes=10, mean_depth=tuple(c3.MEAN_DEPTH_PER_LEVEL), std_depth=tuple(c3.STD_DEPTH_PER_LEVEL))
+    randomize_state(tm, seed=seed)
+    sd = condition_for_detection({k: v.numpy().copy() for k, v in tm.state_dict().items()})
+    rng = np.random.RandomState(seed)
+    for name, out in (("attr_logits", 4), ("speed", 1)):
+        sd[f"{name}.weight"] = (rng.randn(out, 256, 3, 3) * 1e-5).astype(np.float32)  # as the other predictors
+        sd[f"{name}.bias"] = (rng.randn(out) * 0.1 + (0.5 if name == "speed" else 0.0)).astype(np.float32)
+    return sd
+
+
 def condition_for_detection(sd):
     """`detection_state_dict`'s scaling of a reference state dict."""
     sd = dict(sd)
