@@ -18,9 +18,13 @@ drawings, then the same paths of dd3d_kitti_v99 (VoVNet V-99-eSE + FPN
 P3-P6: serving in bf16 and static int8, the train step, the CLIs), then
 dd3d_nusc_dla34 (NuscenesDD3D: serving with the rotated BEV NMS and the
 6-camera sample aggregation, EVAL_ONLY with the nuScenes evaluator and the
-TTA test, training), and fails loudly (non-zero exit) if any phase fails.
-The four CUDA sources (six kernels: nms.cu holds the NMS mask and scan and
-the BEV NMS's pack) and the host code (csrc/imageio.cpp,
+TTA test, training), then NMS past N = 2048, dd3d_kitti_regnety_006_bifpn
+(RegNetY-006 + BiFPN: serving in bf16 and static int8 with the grouped int8
+conv, the train step, the CLIs) and DD3DDenseDepth's train step, and fails
+loudly (non-zero exit) if any phase fails. The four CUDA sources (nine
+kernels: nms.cu holds the NMS mask, the one-warp and the block scan and the
+BEV NMS's pack; int8_conv.cu the int8 conv and the grouped one) and the
+host code (csrc/imageio.cpp,
 csrc/kitti_eval.cpp with OpenMP, g++) are built first, one compiler
 process each, all at once.
 
@@ -173,14 +177,43 @@ process each, all at once.
     under torch.distributed.run: 4 steps of batch 8 at the 896 bucket
     (896x1664), TPU.PALLAS_STEM_DW: finite losses, loss_attr and
     loss_speed finite and non-zero, the dW kernel twice a step; ms a step
-    and peak memory.
+    and peak memory;
+29. the NMS kernels past N = 2048 (the block scan): keep masks equal to the
+    plain versions at (B, N) = (2, 4096), (8, 5000) and (1, 10000) and the
+    BEV scan at (2, 4096), device times against the plain ones; then
+    dd3d_kitti_dla34 bf16 serving with the reference's 1000 candidates a
+    level and no cap (TPU.PRE_NMS_CANDIDATES_PER_LEVEL 1000,
+    TPU.NMS_CANDIDATES 0), kernel and plain detections identical;
+30. dd3d_kitti_regnety_006_bifpn (RegNetY-006 + BiFPN 160 x 3, P3-P7, full
+    width and depth, randomize_state weights) bf16 serving of 4 batches of
+    8 at 384x1280: phase 2's and 3's checks, fp32 on the card against the
+    CPU at batch 1 (1e-3), images/s, device time and launches a batch,
+    busy share, peak memory;
+31. its static int8 in bench.py's settings (QUANT_MIN_CH 32,
+    QUANT_UNFOLDED): phase 7 at every ungrouped int8 site, the grouped
+    int8 conv kernel (csrc/int8_conv.cu) at every grouped site (RegNet's
+    Y-block `b`, BiFPN's depthwise `dw`; 39 a forward) bit for bit against
+    its plain version and timed beside cuDNN's bf16 grouped conv and its
+    bound, summed over a forward; phase 8's path checks with the grouped
+    kernel's launches; int8 against bf16 in turns; then `predict` in bf16,
+    `calibrate_int8` and `predict` in static int8 on a 375x1200 frame;
+32. its bf16 train step at batch 8, 384x1280 (ms a step, peak memory,
+    launches, busy share), then the training CLI for 2 steps on the
+    8-frame fixture and EVAL_ONLY from its checkpoint (KITTI-3D and
+    COCO-2D evaluators);
+33. DD3DDenseDepth (depth pretraining, the DLA-34 trunk,
+    TPU.PALLAS_STEM_DW) bf16 train steps at batch 8, 384x1280 on seeded
+    synthetic batches with sparse GT depth through make_train_step: finite
+    losses, parameters moving, the dW kernel twice a step, ms a step, peak
+    memory, busy share.
 
 Before the last line, the card's name and power limit and one JSON line of
-the five kernel entries (the greedy NMS, the BEV NMS's scan, quantize, int8
-conv, dW): launches on the main paths (DLA-34's, V2-99's and nuScenes'),
-error against the plain version, ms, the plain version's ms, the bound
-(bytes or operations at the published H100 peaks) and, where one PyTorch
-call computes the same thing, that call's ms.
+the six kernel entries (the greedy NMS, the BEV NMS's scan, quantize, int8
+conv, grouped int8 conv, dW): launches on the main paths (DLA-34's,
+V2-99's, nuScenes', RegNetY's and DenseDepth's), error against the plain
+version, ms, the plain version's ms, the bound (bytes or operations at the
+published H100 peaks) and, where one PyTorch call computes the same thing,
+that call's ms.
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda); no network.
 The last line printed is {"ok": true, "device": {...}}.
@@ -591,22 +624,26 @@ def phase6_quantize(device):
     return max_err, (serving, cases[0][2])
 
 
-def int8_conv_sites(model, images, unfolded=True):
+def int8_conv_sites(model, images, unfolded=True, grouped=None):
     """Every distinct int8 conv the static-int8 path reaches on `images`, as
     {(B, H, W, C, O, k, stride): count per forward}: one forward with every
     eligible conv quantized (QUANT_MIN_CH=0, the calibration regime, which
     adds the stem and the 16-channel convs to the serving set) and, with
     `unfolded` (QUANT_UNFOLDED), the predictors too, recording the shapes
-    that reach int8_conv_dequant."""
+    that reach int8_conv_dequant. Grouped convs (the grouped kernel's) go
+    into the dict `grouped` instead, keyed (B, H, W, C, O, k, stride,
+    groups)."""
     import dd3d_tpu_torch.models.layers as L
 
-    sites = {}
+    sites, grouped = {}, {} if grouped is None else grouped
     real = L.int8_conv_dequant
 
-    def record(x, weight, bias, stride, pad, out_dtype, act_amax=None, plain=False):
+    def record(x, weight, bias, stride, pad, out_dtype, act_amax=None, plain=False, groups=1):
         key = (x.shape[0], x.shape[2], x.shape[3], x.shape[1], weight.shape[0], weight.shape[2], stride)
-        sites[key] = sites.get(key, 0) + 1
-        return real(x, weight, bias, stride, pad, out_dtype, act_amax, plain)
+        into = sites if groups == 1 else grouped
+        key = key if groups == 1 else key + (groups,)
+        into[key] = into.get(key, 0) + 1
+        return real(x, weight, bias, stride, pad, out_dtype, act_amax, plain, groups)
 
     L.int8_conv_dequant = record
     try:
@@ -682,16 +719,17 @@ def top_scores(det, n=50):
     return torch.sort(det["scores"].float().reshape(-1), descending=True).values[:n]
 
 
-def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, phase="phase8"):
+def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, phase="phase8", grouped=None):
     """The static-int8 serving path: calibrate on 2 batches with
     prepare_static_scales, serve N_BATCHES batches through get_inference_fn,
-    check every kernel's launch count and that no scale missed; the same
-    batch through both plain int8 versions and the plain NMS gives identical
-    detections; drift against bf16 within the bounds of
-    tests/test_int8_infer.py:116-121. Returns (cfg, launches by kernel)."""
+    check every kernel's launch count (the grouped kernel's at the `grouped`
+    sites) and that no scale missed; the same batch through the plain int8
+    versions and the plain NMS gives identical detections; drift against
+    bf16 within the bounds of tests/test_int8_infer.py:116-121. Returns
+    (cfg, launches by kernel)."""
     from dd3d_tpu_torch.models.calibrate import prepare_static_scales
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
-    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_grouped
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
     from dd3d_tpu_torch.ops.quantize import quantize_int8
 
@@ -701,19 +739,23 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, 
     log(f"{phase} calibrated on 2 batches of {BATCH} ({time.time() - t0:.2f} s)")
     min_ch = cfg.TPU.QUANT_MIN_CH
     per_forward = sum(n for (_, _, _, c, _, _, _), n in sites.items() if c >= min_ch)
+    grouped_per_forward = sum(n for key, n in (grouped or {}).items() if key[3] >= min_ch)
 
     infer = get_inference_fn(model, cfg)
-    kernels = (quantize_int8, int8_conv, greedy_nms)
+    kernels = (quantize_int8, int8_conv, int8_conv_grouped, greedy_nms)
     for k in kernels:
         k.launches = 0
     dets = [infer(im, intrinsics) for im in images]
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     log(f"{phase} served {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, static int8: launches {launches}, "
-        f"{per_forward} quantized convs a forward")
+        f"{per_forward} quantized convs a forward and {grouped_per_forward} grouped ones")
     expected = per_forward * N_BATCHES
-    if launches["quantize_int8"] != expected or launches["int8_conv"] != expected:
-        raise AssertionError(f"{phase}: expected {expected} quantize and int8 conv launches, got {launches}")
+    expected_grouped = grouped_per_forward * N_BATCHES
+    if (launches["quantize_int8"] != expected + expected_grouped or launches["int8_conv"] != expected
+            or launches["int8_conv_grouped"] != expected_grouped):
+        raise AssertionError(f"{phase}: expected {expected + expected_grouped} quantize, {expected} int8 conv and "
+                             f"{expected_grouped} grouped int8 conv launches, got {launches}")
     if launches["greedy_nms"] != N_BATCHES:
         raise AssertionError(f"{phase}: NMS kernel launched {launches['greedy_nms']} times for {N_BATCHES} batches")
     if infer.quant.misses:
@@ -2276,46 +2318,19 @@ def phase23_v99_train(device, card):
     identity blocks damped):
     finite losses, ms a step over V99_TRAIN_STEPS timed steps, peak memory,
     the profiler's launches and device time a step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
-    from dd3d_tpu_torch.training.train_step import make_train_step
+    from dd3d_tpu_torch.training.train_loop import to_device
 
     t0 = time.time()
     cfg = v99_cfg()
-    torch.cuda.reset_peak_memory_stats()
-    state = create_train_state(cfg, damp_identity_blocks(build_train_model(cfg, "cpu")), device)
     batches = [to_device(b, device) for b in train_batches(cfg, 3, BATCH, HEIGHT, WIDTH, SEED + 23)]
-    step = make_train_step(cfg, state.model, state.optimizer)
-    metrics = [step(batches[0])]
-    torch.cuda.synchronize()
-    times = []
-    for i in range(V99_TRAIN_STEPS):
-        t = time.perf_counter()
-        metrics.append(step(batches[i % len(batches)]))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
-    for i, m in enumerate(metrics):
-        if m["loss_finite"] != 1.0 or not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"phase23 step {i + 1}: a metric is not finite: {m}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for b in batches:
-            step(b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-               for e in kernels) / 1e3
-    med = float(np.median(times))
+    metrics, (med, p25, p75), peak, dev_ms, busy, n_kernels = timed_train_steps(
+        cfg, damp_identity_blocks(build_train_model(cfg, "cpu")), batches, V99_TRAIN_STEPS, device, "phase23")
     log("phase23 total loss by step: " + ", ".join(f"{m['total_loss']:.3f}" for m in metrics))
     log(f"phase23 timing on {card}: {V99} bf16 train step, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.2f} ms "
-        f"(p25 {np.percentile(times, 25):.2f}, p75 {np.percentile(times, 75):.2f}) over {V99_TRAIN_STEPS} steps = "
-        f"{BATCH / med * 1e3:.2f} images/s; peak memory {peak:.2f} GiB; profiler over {len(batches)} steps: "
-        f"{busy / len(batches):.2f} ms of device time a step, busy share {busy / wall_ms:.3f}, "
-        f"{sum(e.count for e in kernels) / len(batches):.0f} kernel launches a step")
+        f"(p25 {p25:.2f}, p75 {p75:.2f}) over {V99_TRAIN_STEPS} steps = {BATCH / med * 1e3:.2f} images/s; peak "
+        f"memory {peak:.2f} GiB; profiler "
+        f"over {len(batches)} steps: {dev_ms:.2f} ms of device time a step, busy share {busy:.3f}, "
+        f"{n_kernels:.0f} kernel launches a step")
     log(f"phase23 ok ({time.time() - t0:.2f} s)")
     return med, peak
 
@@ -2717,6 +2732,408 @@ def phase28_nusc_train(tmp, root, card):
     return res["dw_launches"], ms
 
 
+REGNETY = "dd3d_kitti_regnety_006_bifpn"
+NMS_LARGE = ((2, 4096), (8, 5000), (1, 10000))  # (B, N) past the one-warp scan; 5000: PRE_NMS_TOPK 1000 x 5 levels
+SCAN_LARGE = (2, 4096)
+REGNETY_TRAIN_STEPS = 4
+DENSE_DEPTH_STEPS = 4
+DENSE_DEPTH_DENSITY = 0.05  # share of pixels with a GT depth, near a projected 64-beam scan's at 384x1280
+
+
+def phase29_nms_large(device, images, intrinsics, card):
+    """The NMS kernels past N = 2048 (the block scan): keep masks equal to
+    the plain versions at each (B, N) of NMS_LARGE on random boxes, and the
+    BEV scan at SCAN_LARGE, with device times against the plain ones; then
+    dd3d_kitti_dla34 bf16 serving at batch 8 with the reference's 1000
+    candidates a level and no cap (TPU.PRE_NMS_CANDIDATES_PER_LEVEL=1000,
+    TPU.NMS_CANDIDATES=0: every level's candidates, N > 2048, reach the
+    kernel), its detections identical through the kernel and the plain
+    suppression. Returns (max
+    error, the kernel's launches on that serving path, {(B, N): (kernel ms,
+    plain ms)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms import greedy_suppress
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain, greedy_nms_scan
+
+    t0 = time.time()
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    gen = torch.Generator().manual_seed(SEED + 29)
+    times, max_err = {}, 0
+    for b, n in NMS_LARGE:
+        bx, vd = random_sorted_boxes(gen, b, n, device)
+        bx = bx * (n / 512) ** 0.5  # the same density of boxes a pixel as at N = 512
+        keep_k, keep_p = greedy_nms(bx, vd, 0.5), greedy_nms_plain(bx, vd, 0.5)
+        torch.cuda.synchronize()
+        err = int((keep_k.int() - keep_p.int()).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"phase29 (B, N) = ({b}, {n}): kernel and plain keep masks differ")
+        by_kernel = device_ms_by_kernel(lambda: greedy_nms(bx, vd, 0.5), 10, prof)
+        k_ms = sum(by_kernel.values())
+        p_ms = cuda_ms(lambda: greedy_nms_plain(bx, vd, 0.5), 2)
+        times[b, n] = (k_ms, p_ms)
+        log(f"phase29 nms (B, N) = ({b}, {n}): kept {int(keep_k.sum())}/{int(vd.sum())}, equal to the plain version "
+            f"(tolerance 0); kernels' device time {k_ms:.4f} ms a call (profiler: " + ", ".join(
+                f"{k.split('::')[-1].split('(')[0]} {v:.4f}" for k, v in sorted(by_kernel.items()))
+            + f"), plain {p_ms:.3f} ms (CUDA events)")
+    iou, valid = card_tests().scan_case(np.random.RandomState(SEED + 29), *SCAN_LARGE)
+    it, vt = torch.from_numpy(iou).to(device), torch.from_numpy(valid).to(device)
+    keep_k, keep_p = greedy_nms_scan(it, vt, 0.3), greedy_suppress(it, vt, 0.3)
+    torch.cuda.synchronize()
+    if not torch.equal(keep_k, keep_p):
+        raise AssertionError(f"phase29 BEV scan {SCAN_LARGE}: kernel and plain keep masks differ")
+    k_ms = device_ms(lambda: greedy_nms_scan(it, vt, 0.3), 10, prof)
+    p_ms = cuda_ms(lambda: greedy_suppress(it, vt, 0.3), 2)
+    times[("scan",) + SCAN_LARGE] = (k_ms, p_ms)
+    log(f"phase29 BEV scan (B, N) = {SCAN_LARGE}: kept {int(keep_k.sum())}/{int(vt.sum())}, equal to the plain "
+        f"version; pack + block scan {k_ms:.4f} ms device time, plain {p_ms:.3f} ms")
+
+    cfg = experiment_cfg("dd3d_kitti_dla34", **{"TPU.PRE_NMS_CANDIDATES_PER_LEVEL": 1000, "TPU.NMS_CANDIDATES": 0})
+    model = build(cfg, device)
+    sizes = []
+
+    def recording(boxes, valid, thr):
+        sizes.append(tuple(valid.shape))
+        return greedy_nms(boxes, valid, thr)
+
+    infer = get_inference_fn(model, cfg, suppress=recording)
+    greedy_nms.launches = 0
+    dets = [infer(im, intrinsics) for im in images]
+    torch.cuda.synchronize()
+    launches = greedy_nms.launches
+    det_p = get_inference_fn(model, cfg, suppress=greedy_nms_plain)(images[0], intrinsics)
+    for k in det_p:
+        if not torch.equal(dets[0][k], det_p[k]):
+            raise AssertionError(f"phase29 serving at N = {sizes[0][1]}: {k} differs between the kernel and the "
+                                 "plain path")
+    if sizes[0][1] <= 2048 or launches != N_BATCHES:
+        raise AssertionError(f"phase29: NMS inputs {sizes}, {launches} launches for {N_BATCHES} batches")
+    med, _, _ = serving_ms(get_inference_fn(model, cfg), images, intrinsics)
+    log(f"phase29 dd3d_kitti_dla34 bf16 serving with 1000 candidates a level and no cap: NMS at (B, N) = "
+        f"{sizes[0]}, {launches} kernel launches for {N_BATCHES} batches, detections identical to the plain "
+        f"suppression's ({int(det_p['valid'].sum())} kept); {med:.3f} ms a batch = {BATCH / med * 1e3:.2f} "
+        f"images/s on {card}")
+    del model
+    log(f"phase29 ok ({time.time() - t0:.2f} s)")
+    return max_err, launches, times
+
+
+def regnety_cfg(**overrides):
+    return experiment_cfg(REGNETY, **overrides)
+
+
+def regnety_int8_cfg():
+    """bench.py's serving settings on this model: static int8, QUANT_MIN_CH
+    32, QUANT_UNFOLDED (the BiFPN depthwise convs and the predictors too)."""
+    return regnety_cfg(**{"TPU.QUANT_INT8": True, "TPU.QUANT_MIN_CH": 32, "TPU.QUANT_UNFOLDED": True})
+
+
+def phase30_regnety_serve(device, images, intrinsics, card):
+    """bf16 serving of dd3d_kitti_regnety_006_bifpn (RegNetY-006 + BiFPN 160
+    x 3, P3-P7) at batch 8, 384x1280, weights from randomize_state: phase
+    2's checks, phase 3's, phase 4's (fp32 on the card against the CPU at
+    batch 1, 384x1280), images/s, the profiler's device time and launches a
+    batch, busy share and peak memory. Returns (model, cfg, NMS launches,
+    images/s)."""
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+
+    t0 = time.time()
+    cfg = regnety_cfg()
+    model = build(cfg, device)
+    log(f"phase30 {REGNETY}: {cfg.FE.BACKBONE.NAME}, BiFPN {model.backbone.out_channels} x "
+        f"{len(model.backbone.cells)}, levels {model.strides}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters")
+    torch.cuda.reset_peak_memory_stats()
+    launches, _ = phase2_serve(cfg, model, images, intrinsics, phase="phase30")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase3_plain_path(cfg, model, images, intrinsics, phase="phase30")
+    phase4_fp32(regnety_cfg(), device, shape=(1, HEIGHT, WIDTH), phase="phase30")
+    infer = get_inference_fn(model, cfg)
+    med, p25, p75 = serving_ms(infer, images, intrinsics)
+    dev_ms, n_kernels = serving_profile(infer, images, intrinsics)
+    log(f"phase30 timing on {card}: bf16 serving, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.3f} ms/batch "
+        f"(p25 {p25:.3f}, p75 {p75:.3f}) = {BATCH / med * 1e3:.2f} images/s; profiler: {dev_ms:.3f} ms of device "
+        f"time and {n_kernels:.0f} kernel launches a batch (device busy {dev_ms / med:.3f} of the host's ms); "
+        f"peak memory {peak:.2f} GiB; NMS kernel launches {launches}")
+    log(f"phase30 ok ({time.time() - t0:.2f} s)")
+    return model, cfg, launches, BATCH / med * 1e3
+
+
+def grouped_conv_bound(xq, wq, stride, pad, groups, out_bytes=2):
+    """Least time of one grouped int8 conv: x and w read, the output written
+    (bf16), scale and bias read, against 2*M*O*k*k*C/g int8 operations."""
+    b, h, w, c = xq.shape
+    o, kh, kw, cg = wq.shape
+    m = b * ((h + 2 * pad - kh) // stride + 1) * ((w + 2 * pad - kw) // stride + 1)
+    return bound_ms(xq.numel() + wq.numel() + m * o * out_bytes + 8 * o, 2 * m * o * kh * kw * cg, "int8")
+
+
+def cudnn_bf16_grouped(xq, wq, stride, pad, groups):
+    """cuDNN's bf16 grouped conv of the same codes, channels_last: the
+    library yardstick; the port never calls it for int8."""
+    xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = wq.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad, groups=groups)
+
+
+def phase31_grouped_sites(grouped, device, card):
+    """The grouped int8 conv kernel against its plain version at every
+    distinct grouped shape of the regnety forward at batch 8, 384x1280
+    (accumulators, bf16 and f32 epilogues bit for bit), and its device time
+    beside cuDNN's bf16 grouped conv of the same codes and the bound, summed
+    as count x ms over a forward. Returns (max error, {(kernel, plain,
+    bound, bound_by, cudnn) ms at the largest shape}, sums)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv_grouped, int8_conv_grouped_acc_plain
+
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    gen = torch.Generator().manual_seed(SEED + 31)
+    max_err, sums, largest = 0.0, [0.0, 0.0, 0.0, 0], None
+    for key, count in sorted(grouped.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3]):
+        b, h, w, c, o, k, stride, g = key
+        pad = (k - 1) // 2
+        xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, dtype=torch.int8).to(device)
+        wq = torch.randint(-127, 128, (o, k, k, c // g), generator=gen, dtype=torch.int8).to(device)
+        scale = (torch.rand(o, generator=gen) * 1e-3 + 1e-5).to(device)
+        bias = torch.randn(o, generator=gen).to(device)
+        acc = int8_conv_grouped_acc_plain(xq, wq, stride, pad, g)
+        checks = [("acc", int8_conv_grouped(xq, wq, torch.ones(o, device=device), None, stride, pad,
+                                            torch.float32, g), acc.float())]
+        for dt in (torch.bfloat16, torch.float32):
+            checks.append((str(dt), int8_conv_grouped(xq, wq, scale, bias, stride, pad, dt, g),
+                           dequant_plain(acc, scale, bias, dt)))
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase31 grouped {key} {name}: kernel and plain differ")
+        k_ms = device_ms(lambda: int8_conv_grouped(xq, wq, scale, bias, stride, pad, torch.bfloat16, g), 10, prof)
+        c_ms = device_ms(cudnn_bf16_grouped(xq, wq, stride, pad, g), 10, prof)
+        bnd, by = grouped_conv_bound(xq, wq, stride, pad, g)
+        log(f"phase31 grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/forward: "
+            f"accumulators, bf16 and f32 epilogues equal to the plain version (tolerance 0); device time kernel "
+            f"{k_ms:.4f} ms, cuDNN bf16 grouped {c_ms:.4f} ms, bound {bnd:.5f} ms by {by} ({bnd / k_ms:.2f} of it)")
+        sums[0] += count * k_ms
+        sums[1] += count * c_ms
+        sums[2] += count * bnd
+        sums[3] += count
+        if largest is None:
+            p_ms = cuda_ms(lambda: dequant_plain(int8_conv_grouped_acc_plain(xq, wq, stride, pad, g), scale, bias,
+                                                 torch.bfloat16), 3)
+            largest = (k_ms, p_ms, bnd, by, c_ms)
+            log(f"phase31 grouped int8 conv at its largest shape {key}: plain version {p_ms:.3f} ms (CUDA events)")
+    log(f"phase31 timing on {card}: grouped int8 convs a forward ({sums[3]} convs), device time: kernel "
+        f"{sums[0]:.3f} ms, cuDNN bf16 grouped {sums[1]:.3f} ms, bound {sums[2]:.4f} ms (count x ms summed)")
+    return max_err, largest, sums
+
+
+def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card):
+    """Static int8 of dd3d_kitti_regnety_006_bifpn in bench.py's settings:
+    phase 7 at every distinct ungrouped int8 conv site, the grouped kernel at
+    every grouped site (phase31_grouped_sites), phase 8's path checks with
+    scales from 2 batches (launches of all four kernels, no scale miss,
+    kernel and plain int8 detections identical, drift against bf16), int8
+    against bf16 in turns; then the CLIs on a 375x1200 frame: `predict` in
+    bf16, `calibrate_int8`, and `predict` in static int8 from its scales.
+    Returns (launches by kernel, max error of the ungrouped sites, of the
+    grouped ones, the grouped kernel's numbers at its largest shape, images/s
+    {int8, bf16}, the grouped sums)."""
+    from dd3d_tpu_torch.data.imageio import write_png
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+
+    t0 = time.time()
+    grouped = {}
+    int8_conv_sites(model, images[0], unfolded=True, grouped=grouped)
+    conv_err, sites, _, _ = phase7_int8_conv(model, images[0], unfolded=True, phase="phase31")
+    log(f"phase31 {len(grouped)} grouped int8 conv shapes, {sum(grouped.values())} grouped convs a forward")
+    g_err, g_largest, g_sums = phase31_grouped_sites(grouped, device, card)
+    cfg8, launches = phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=regnety_int8_cfg(),
+                                      phase="phase31", grouped=grouped)
+    paths = {"int8": get_inference_fn(model, cfg8), "bf16": get_inference_fn(model, bf16_cfg)}
+    runs = {"int8": [], "bf16": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        runs[name].append(serving_ms(paths[name], images, intrinsics)[0])
+    ips = {name: BATCH / (np.mean(ms) / 1e3) for name, ms in runs.items()}
+    log(f"phase31 timing on {card}: serving in turns (int8, bf16, bf16, int8), median ms/batch int8 "
+        f"{runs['int8'][0]:.3f} / {runs['int8'][1]:.3f}, bf16 {runs['bf16'][0]:.3f} / {runs['bf16'][1]:.3f}: "
+        f"static int8 {ips['int8']:.2f} images/s, bf16 {ips['bf16']:.2f} images/s")
+
+    frames = os.path.join(tmp, "regnety_frames")
+    os.makedirs(frames, exist_ok=True)
+    write_png(os.path.join(frames, "000000.png"),
+              np.random.RandomState(SEED + 31).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
+    common = ["--experiment", REGNETY, "--images", frames, "--intrinsics", KITTI_INTRINSICS]
+    scales = os.path.join(tmp, "regnety_scales.json")
+    outs = {name: os.path.join(tmp, f"regnety_{name}.json") for name in ("bf16", "int8")}
+    int8_args = ["TPU.QUANT_INT8=True", "TPU.QUANT_MIN_CH=32", "TPU.QUANT_UNFOLDED=True",
+                 f"TPU.QUANT_SCALES_PATH={scales}"]
+    for name, cmd in (("predict bf16", ["-m", "dd3d_tpu_torch.predict", *common, "--out", outs["bf16"]]),
+                      ("calibrate_int8", ["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out", scales,
+                                          "TPU.QUANT_MIN_CH=0", "TPU.QUANT_UNFOLDED=True"]),
+                      ("predict int8", ["-m", "dd3d_tpu_torch.predict", *common, "--out", outs["int8"],
+                                        *int8_args])):
+        t = time.time()
+        proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase31 {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        if "no calibrated scale" in proc.stderr:
+            raise AssertionError(f"phase31 {name}: a static scale missed: {proc.stderr[-1000:]}")
+        log(f"phase31 {name} CLI ({time.time() - t:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
+    with open(scales) as f:
+        keys = json.load(f)
+    for key in ("backbone/bottom_up/s1_b0/b/conv", "backbone/cell2/p7_out_conv/dw"):
+        if key not in keys:
+            raise AssertionError(f"phase31: calibrate_int8 wrote no scale for the grouped conv {key}")
+    for name, path in outs.items():
+        with open(path) as f:
+            records = json.load(f)
+        boxes = np.asarray(records[0]["boxes2d"]).reshape(-1, 4)
+        if len(records) != 1 or not len(boxes) or boxes[:, 2].max() > 1200 or boxes[:, 3].max() > 375:
+            raise AssertionError(f"phase31: predict {name}'s detections are missing or outside the 1200x375 frame")
+        log(f"phase31 predict {name}: {len(boxes)} detections inside the 1200x375 frame")
+    log(f"phase31 ok ({time.time() - t0:.2f} s): calibrate_int8 wrote {len(keys)} convs")
+    return launches, conv_err, g_err, g_largest, ips, g_sums
+
+
+def timed_train_steps(cfg, model, batches, steps, device, phase):
+    """`steps` steps of make_train_step after one, each synchronised and
+    timed, then one profiler window over the batches: (metrics by step,
+    (median, p25, p75) ms, peak GiB, device ms a step, busy share,
+    launches a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.training.train_loop import create_train_state
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, model, device)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    metrics = [step(batches[0])]
+    torch.cuda.synchronize()
+    times = []
+    for i in range(steps):
+        t = time.perf_counter()
+        metrics.append(step(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        if m["loss_finite"] != 1.0 or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{phase} step {i + 1}: a metric is not finite: {m}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+               for e in kernels) / 1e3
+    return (metrics, np.percentile(times, [50, 25, 75]), peak, busy / len(batches), busy / wall_ms,
+            sum(e.count for e in kernels) / len(batches))
+
+
+def phase32_regnety_train(tmp, device, card):
+    """The bf16 train step of dd3d_kitti_regnety_006_bifpn at batch 8,
+    384x1280, on seeded synthetic batches (He-initialized convs, seeded norm
+    statistics): finite losses, ms a step, peak memory, the profiler's
+    launches and busy share; then the training CLI for 2 steps on the port's
+    8-frame fixture and EVAL_ONLY from its checkpoint (the KITTI-3D and
+    COCO-2D evaluators). Returns (ms a step, peak GiB, NMS launches of
+    EVAL_ONLY)."""
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+    from dd3d_tpu_torch.training.train_loop import to_device
+
+    t0 = time.time()
+    cfg = regnety_cfg()
+    batches = [to_device(b, device) for b in train_batches(cfg, 3, BATCH, HEIGHT, WIDTH, SEED + 32)]
+    metrics, (med, p25, p75), peak, dev_ms, busy, n_kernels = timed_train_steps(
+        cfg, build_train_model(cfg, "cpu"), batches, REGNETY_TRAIN_STEPS, device, "phase32")
+    log("phase32 total loss by step: " + ", ".join(f"{m['total_loss']:.3f}" for m in metrics))
+    log(f"phase32 timing on {card}: {REGNETY} bf16 train step, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.2f} ms "
+        f"(p25 {p25:.2f}, p75 {p75:.2f}) over {REGNETY_TRAIN_STEPS} steps = {BATCH / med * 1e3:.2f} images/s; peak memory {peak:.2f} GiB; "
+        f"profiler: {dev_ms:.2f} ms of device time a step, busy share {busy:.3f}, {n_kernels:.0f} kernel launches "
+        f"a step")
+    del batches
+    torch.cuda.empty_cache()
+
+    root = make_fixture(os.path.join(tmp, "regnety_fixture"), n_images=8)
+    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
+    res = run_cli("--cli-rank", [f"+experiments={REGNETY}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'rg_out')}",
+                                 "SOLVER.MAX_ITER=2", "SOLVER.CHECKPOINT_PERIOD=2", "TEST.EVAL_PERIOD=0",
+                                 "VIS.DATALOADER_ENABLED=False", "TEST.AUG.ENABLED=False"])
+    ckpt = os.path.join(res["output_dir"], "ckpt")
+    log(f"phase32 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s, losses "
+        + ", ".join(f"{v:.3f}" for v in res["losses"]))
+    if len(res["losses"]) != 2 or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError("phase32: the training CLI did not take 2 finite steps")
+    ev = run_cli("--eval-only", [f"+experiments={REGNETY}", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}", *data[:2],
+                                 "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0", "TEST.AUG.ENABLED=False",
+                                 f"OUTPUT_ROOT={os.path.join(tmp, 'rg_eval')}"])
+    with open(os.path.join(ev["output_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    coco = [k for k in rows[-1] if "bbox/AP" in k]
+    log(f"phase32 EVAL_ONLY CLI ({ev['seconds']:.1f} s): NMS kernel launches {ev['nms_launches']}, {CAR_AP3D} = "
+        f"{rows[-1].get(CAR_AP3D, float('nan')):.4f}, COCO-2D keys {coco[:3]}")
+    if ev["nms_launches"] < 1 or not np.isfinite(rows[-1].get(CAR_AP3D, np.nan)) or not coco:
+        raise AssertionError("phase32: EVAL_ONLY did not launch the NMS kernel or log both evaluators' results")
+    log(f"phase32 ok ({time.time() - t0:.2f} s)")
+    return med, peak, ev["nms_launches"]
+
+
+def dense_depth_cfg():
+    """dd3d_kitti_dla34 as DD3DDenseDepth (depth pretraining), with the
+    stem's weight gradient on the kernel."""
+    return experiment_cfg("dd3d_kitti_dla34", **{"MODEL.META_ARCHITECTURE": "DD3DDenseDepth",
+                                                   "MODEL.DEPTH_ON": True, "TPU.PALLAS_STEM_DW": True})
+
+
+def phase33_dense_depth_train(device, card):
+    """DD3DDenseDepth's bf16 train step at batch 8, 384x1280, through
+    make_train_step on seeded synthetic batches with sparse GT depth
+    (DENSE_DEPTH_DENSITY of the pixels): finite losses, parameters moving,
+    the dW kernel's launches, ms a step, peak memory, busy share. Returns
+    (ms a step, peak GiB, dW launches)."""
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.training.synthetic import synthetic_batch
+    from dd3d_tpu_torch.training.train_loop import to_device
+
+    t0 = time.time()
+    cfg = dense_depth_cfg()
+    model = build_train_model(cfg, "cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.RandomState(SEED + 33)
+    batches = [to_device(synthetic_batch(rng, BATCH, HEIGHT, WIDTH, max_gt=cfg.TPU.MAX_GT_PER_IMAGE,
+                                         depth_density=DENSE_DEPTH_DENSITY), device) for _ in range(3)]
+    conv_dw.conv_dw_s1_same.launches = 0
+    metrics, (med, p25, p75), peak, dev_ms, busy, n_kernels = timed_train_steps(cfg, model, batches,
+                                                                                DENSE_DEPTH_STEPS, device, "phase33")
+    torch.cuda.synchronize()
+    dw = conv_dw.conv_dw_s1_same.launches
+    steps = 1 + DENSE_DEPTH_STEPS + len(batches)
+    moved = sum(not torch.equal(p.detach().cpu(), before[n]) for n, p in model.named_parameters())
+    log("phase33 losses of the last step: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics[-1].items()
+                                                         if k.startswith("loss_dense")))
+    log(f"phase33 timing on {card}: DD3DDenseDepth (DLA-34) bf16 train step, batch {BATCH} {HEIGHT}x{WIDTH}, "
+        f"{DENSE_DEPTH_DENSITY} of the pixels with GT depth: median {med:.2f} ms (p25 {p25:.2f}, p75 {p75:.2f}) "
+        f"over {DENSE_DEPTH_STEPS} steps = "
+        f"{BATCH / med * 1e3:.2f} images/s; peak memory {peak:.2f} GiB; profiler: {dev_ms:.2f} ms of device time a "
+        f"step, busy share {busy:.3f}, {n_kernels:.0f} kernel launches a step; dW kernel launches {dw} in {steps} "
+        f"steps; {moved} of {len(before)} parameters moved")
+    if dw != 2 * steps:
+        raise AssertionError(f"phase33: {dw} dW kernel launches in {steps} steps, not 2 a step")
+    if moved < 0.9 * len(before):
+        raise AssertionError(f"phase33: only {moved} of {len(before)} parameters moved")
+    del batches, model
+    torch.cuda.empty_cache()
+    log(f"phase33 ok ({time.time() - t0:.2f} s)")
+    return med, peak, dw
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -2809,6 +3226,23 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         nusc_dw_launches, nusc_train_ms = phase28_nusc_train(tmp, nusc_root, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        large_err, large_nms, large_times = phase29_nms_large(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rg_model, rg_bf16, rg_nms, rg_ips = phase30_regnety_serve(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        rg_launches, rg_conv_err, grouped_err, grouped_t, rg_turns, grouped_sums = phase31_regnety_int8(
+            rg_model, rg_bf16, images, intrinsics, device, tmp, card)
+        del rg_model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rg_train_ms, rg_train_peak, rg_eval_nms = phase32_regnety_train(tmp, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dd_train_ms, dd_peak, dd_dw_launches = phase33_dense_depth_train(device, card)
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -2858,25 +3292,41 @@ def main():
         + f"; train step {nusc_train_ms:.2f} ms at batch {NUSC_TRAIN_BATCH}, {NUSC_TRAIN_SIZE} bucket (phase 28); "
         f"launches on the nuScenes paths: serving {nusc['launches']}, EVAL_ONLY {nusc_eval_launches}, dW "
         f"{nusc_dw_launches}")
+    large = ", ".join(f"{k}: {v[0]:.4f} ms (plain {v[1]:.3f})" for k, v in large_times.items())
+    log(f"timing on {card}: NMS past N = 2048 (phase 29; device time, kernel and plain) {large}; launches on "
+        f"dd3d_kitti_dla34's serving with 1000 candidates a level: {large_nms}")
+    g_ms, g_plain, g_bound, g_by, g_cudnn = grouped_t
+    log(f"timing on {card}: {REGNETY} bf16 serving {rg_ips:.2f} images/s (phase 30); in turns static int8 "
+        f"{rg_turns['int8']:.2f}, bf16 {rg_turns['bf16']:.2f} images/s (phase 31); its {grouped_sums[3]} grouped "
+        f"int8 convs a forward {grouped_sums[0]:.3f} ms of device time against cuDNN bf16 grouped "
+        f"{grouped_sums[1]:.3f} ms and the bound {grouped_sums[2]:.4f} ms; at the largest grouped shape "
+        f"{g_ms:.4f} ms (cuDNN {g_cudnn:.4f}, bound {g_bound:.5f} by {g_by}); train step {rg_train_ms:.2f} ms at "
+        f"batch {BATCH}, peak {rg_train_peak:.2f} GiB (phase 32); DD3DDenseDepth train step {dd_train_ms:.2f} ms, "
+        f"peak {dd_peak:.2f} GiB, dW launches {dd_dw_launches} (phase 33)")
     launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms
-                + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"],
+                + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"] + large_nms + rg_nms
+                + rg_launches["greedy_nms"] + rg_eval_nms,
                 "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"],
-                "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"],
-                "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"]}
-    quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err)
+                "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"]
+                + rg_launches["quantize_int8"],
+                "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"] + rg_launches["int8_conv"],
+                "int8_conv_grouped": rg_launches["int8_conv_grouped"]}
+    quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err, rg_conv_err)
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
              "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"],
-             "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
+             "int8_conv_grouped": grouped_t, "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
-             nms_err),
+             max(nms_err, large_err)),
             ("greedy_nms_scan", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/nms.py:37",
              launches["greedy_nms_scan"], nusc["scan_err"]),
             ("quantize_int8", "dd3d_tpu_torch/csrc/quantize.cu", "scripts/bench_quantize_kernel.py:91",
              launches["quantize_int8"], quant_err),
             ("int8_conv", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246", launches["int8_conv"],
              conv_err),
+            ("int8_conv_grouped", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
+             launches["int8_conv_grouped"], grouped_err),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
-             cli_dw_launches + nusc_dw_launches, dw_err)]
+             cli_dw_launches + nusc_dw_launches + dd_dw_launches, dw_err)]
     kernels = []
     for name, source, replaces, n, err in rows:
         ms, plain_ms, bnd, by, library_ms = timed[name]

@@ -52,6 +52,25 @@
 // rounded intrinsics and the library is built with -fmad=false, so it gives
 // the bits of the plain PyTorch version.
 
+// A second entry, dd3d_int8_conv_grouped, is the same function with
+// feature_group_count = g > 1 (layers.py:273): RegNet's Y-block group convs
+// (C/g = 16) and BiFPN's depthwise convs (C/g = 1) of the
+// dd3d_kitti_regnety_006_bifpn experiment. Output channel o reads the input
+// channels of its group, (o / (O/g)) * C/g onward. A direct convolution on
+// the CUDA cores: a thread owns one output channel at kPix neighbouring
+// output columns, so each weight it loads serves kPix sums; neighbouring
+// threads own neighbouring channels, so the stores and the input reads of a
+// warp are contiguous. With C % 4 == 0 and C/g % 4 == 0 it takes four
+// channels a __dp4a (int8 dot of 4-byte packs into int32), else one a
+// multiply-add. What bounds it: bytes. Its largest instance at batch 8,
+// 384x1280 (s1_b0/b: (8, 192, 640, 48) -> (8, 96, 320, 48), stride 2) reads
+// 47 MB and writes 24 MB of bf16 (21 us at 3.35 TB/s) for 0.17 G
+// multiply-adds, far under the CUDA cores' int rate; the depthwise convs do
+// 9 multiply-adds an output. The epilogue is `dequant` above, shared, so it
+// gives the plain version's bits too. A tile of inputs in shared memory
+// (each input is read by 9 threads of a 3x3 window at stride 1) is later
+// work.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -307,6 +326,95 @@ int launch_out(const void* x, const void* w, const float* scale, const float* bi
   return s.o <= 64 ? launch<64, OutT>(x, w, scale, bias, out, s, st) : launch<128, OutT>(x, w, scale, bias, out, s, st);
 }
 
+constexpr int kGroupedThreads = 256;
+constexpr int kPix = 4;  // output columns a thread of the grouped kernel
+
+// x int8 (B, H, W, C); w int8 (O, KH, KW, C/g); out (B, Ho, Wo, O). Thread
+// index -> (o fastest, then the run of kPix columns, the row, the image).
+template <bool kVec, typename OutT>
+__global__ void __launch_bounds__(kGroupedThreads)
+int8_conv_grouped_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+                         const float* __restrict__ bias, OutT* __restrict__ out, ConvShape s, int groups,
+                         int runs, long long total) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kGroupedThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int o = static_cast<int>(idx % s.o);
+  long long rest = idx / s.o;
+  const int run = static_cast<int>(rest % runs);
+  rest /= runs;
+  const int ho = static_cast<int>(rest % s.ho);
+  const int b = static_cast<int>(rest / s.ho);
+  const int cg = s.c / groups;
+  const int c0 = (o / (s.o / groups)) * cg;
+  const int wo0 = run * kPix;
+
+  int acc[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) acc[p] = 0;
+  const int8_t* wo_ = w + static_cast<size_t>(o) * s.kh * s.kw * cg;
+  for (int r = 0; r < s.kh; ++r) {
+    const int hi = ho * s.stride - s.pad + r;
+    if (hi < 0 || hi >= s.h) continue;
+    const int8_t* xrow = x + (static_cast<size_t>(b) * s.h + hi) * s.w * s.c + c0;
+    for (int q = 0; q < s.kw; ++q) {
+      const int8_t* wt = wo_ + (r * s.kw + q) * cg;
+      int wi[kPix];
+      bool in[kPix];
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        wi[p] = (wo0 + p) * s.stride - s.pad + q;
+        in[p] = wo0 + p < s.wo && wi[p] >= 0 && wi[p] < s.w;
+      }
+      if (kVec) {
+        for (int c = 0; c < cg; c += 4) {
+          const int wv = __ldg(reinterpret_cast<const int*>(wt + c));
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            if (in[p]) acc[p] = __dp4a(__ldg(reinterpret_cast<const int*>(xrow + static_cast<size_t>(wi[p]) * s.c + c)),
+                                       wv, acc[p]);
+          }
+        }
+      } else {
+        for (int c = 0; c < cg; ++c) {
+          const int wv = wt[c];
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            if (in[p]) acc[p] += static_cast<int>(__ldg(xrow + static_cast<size_t>(wi[p]) * s.c + c)) * wv;
+          }
+        }
+      }
+    }
+  }
+  OutT* dst = out + ((static_cast<size_t>(b) * s.ho + ho) * s.wo + wo0) * s.o + o;
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    if (wo0 + p < s.wo) dst[static_cast<size_t>(p) * s.o] = dequant(acc[p], scale, bias, o, OutT());
+  }
+}
+
+template <typename OutT>
+int launch_grouped(const void* x, const void* w, const float* scale, const float* bias, void* out,
+                   const ConvShape& s, int groups, void* stream) {
+  const int cg = s.c / groups;
+  const bool vec = s.c % 4 == 0 && cg % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const int runs = (s.wo + kPix - 1) / kPix;
+  const long long total = static_cast<long long>(s.batch) * s.ho * runs * s.o;
+  const long long blocks = (total + kGroupedThreads - 1) / kGroupedThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  const int8_t* wi = static_cast<const int8_t*>(w);
+  OutT* o = static_cast<OutT*>(out);
+  if (vec) {
+    int8_conv_grouped_kernel<true, OutT><<<static_cast<unsigned>(blocks), kGroupedThreads, 0, st>>>(
+        xi, wi, scale, bias, o, s, groups, runs, total);
+  } else {
+    int8_conv_grouped_kernel<false, OutT><<<static_cast<unsigned>(blocks), kGroupedThreads, 0, st>>>(
+        xi, wi, scale, bias, o, s, groups, runs, total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,6 +437,27 @@ int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float
   if (s.m == 0) return 0;
   return out_bf16 ? launch_out<__nv_bfloat16>(x, w, scale, bias, out, s, stream)
                   : launch_out<float>(x, w, scale, bias, out, s, stream);
+}
+
+// The grouped conv: x int8 (batch, h, w, c); w int8 (o, kh, kw, c / groups);
+// scale, bias and out as dd3d_int8_conv. c and o must be multiples of
+// groups; no channel padding is needed. Every tensor contiguous and under
+// 2^31 elements (the wrapper checks). Launches on `stream`, does not
+// synchronise; returns cudaGetLastError(), or -1 on a shape the kernel does
+// not take.
+int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, const float* bias, void* out,
+                           int out_bf16, int batch, int h, int w_, int c, int o, int kh, int kw, int stride, int pad,
+                           int groups, void* stream) {
+  ConvShape s;
+  s.batch = batch; s.h = h; s.w = w_; s.c = c; s.o = o; s.kh = kh; s.kw = kw; s.stride = stride; s.pad = pad;
+  s.ho = (h + 2 * pad - kh) / stride + 1;
+  s.wo = (w_ + 2 * pad - kw) / stride + 1;
+  s.k = kh * kw * (groups > 0 ? c / groups : 0);
+  s.m = batch * s.ho * s.wo;
+  if (groups <= 0 || c % groups != 0 || o % groups != 0 || s.ho <= 0 || s.wo <= 0 || o <= 0) return -1;
+  if (s.m == 0) return 0;
+  return out_bf16 ? launch_grouped<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
+                  : launch_grouped<float>(x, w, scale, bias, out, s, groups, stream);
 }
 
 }  // extern "C"

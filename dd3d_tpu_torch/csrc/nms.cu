@@ -25,9 +25,10 @@
 //    row's 64-bit word of the scratch (B, N, T) uint64: bit b is set when
 //    j = 64 c + b > i, j < N and IoU(i, j) > threshold. Words left of the
 //    diagonal are never written and never read.
-// 2. nms_scan_kernel, serial over words: one warp an image and no block
+// 2. nms_scan_kernel, serial over words, for T <= 32 (N <= 2048, every
+//    serving and eval shape of the path): one warp an image and no block
 //    barrier. Lane w holds the removed-word w in a register, first set from
-//    ~valid (with the bits past N set), so T <= 32 and N <= 2048. The rows
+//    ~valid (with the bits past N set). The rows
 //    of word w (64 rows x T words, contiguous in the scratch) are copied to
 //    shared memory with cp.async one word ahead of their use, so no load
 //    waits on a decision. For each word w in turn, lane w resolves its 64
@@ -36,6 +37,21 @@
 //    shuffle). Lane w then broadcasts the final word with one shuffle, and
 //    every lane w' > w ORs in mask[i][w'] of each kept row i of word w,
 //    independently of the others. Last, keep = ~removed, as bools.
+// 2'. nms_scan_large_kernel, the same walk for T > 32 (N > 2048: the
+//    reference's PRE_NMS_TOPK of 1000 a level gives N = 5000; the sample
+//    aggregation past POST_NMS_TOPK 341). One block of 256 threads an image.
+//    The removed words live in dynamic shared memory (T x 8 bytes: 632 bytes
+//    at N = 5000), not one a lane, and nothing of the mask is staged: rows are
+//    read from the scratch where they are used (it stays in L2: 12.6 MB at
+//    (8, 5000)). For each word w: thread 0 resolves the 64-row chain from the
+//    diagonal words, which warps 2-3 loaded for w while the previous word's
+//    ORs ran (the mask never changes, so they can be read ahead); then every
+//    thread takes the columns w' > w strided by 256 and ORs in mask[i][w'] of
+//    each kept row i, one predicated load a row, all in flight at once. Two
+//    block barriers a word. Its limit is T x 8 bytes of shared memory, which
+//    passes 227 KB only at N > 1.8 million, where the scratch of one image
+//    (N x T x 8 bytes) is already 400 GB: the device memory, not the kernel,
+//    bounds N.
 //
 // Fusing both phases into one block an image would keep the mask in shared
 // memory, but at N = 2048 it is 512 KB, more than a block can hold, and it
@@ -73,7 +89,9 @@
 namespace {
 
 constexpr int kTile = 64;       // boxes a tile side, bits a word
-constexpr int kMaxWords = 32;   // one warp holds the removed words: N <= 2048
+constexpr int kMaxWords = 32;   // the one-warp scan holds the removed words a lane: N <= 2048
+constexpr int kLargeThreads = 256;  // the large scan's block
+constexpr int kMaxSharedBytes = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int kSplit = 4;       // threads a row in the mask kernel
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -228,6 +246,87 @@ __global__ void __launch_bounds__(32) nms_scan_kernel(const uint64_t* __restrict
   }
 }
 
+__global__ void __launch_bounds__(kLargeThreads) nms_scan_large_kernel(const uint64_t* __restrict__ mask,
+                                                                       const unsigned char* __restrict__ valid,
+                                                                       unsigned char* __restrict__ keep, int n,
+                                                                       int words) {
+  extern __shared__ uint64_t removed[];  // words entries
+  __shared__ uint64_t diag[2][kTile];
+  __shared__ uint64_t kept_word;
+  const size_t img = blockIdx.x;
+  const int t = threadIdx.x;
+  const uint64_t* rows = mask + img * n * words;
+  const unsigned char* v = valid + img * n;
+
+  // removed-word w from ~valid, the bits past N set
+  for (int w = t; w < words; w += kLargeThreads) {
+    uint64_t word = 0;
+    for (int b = 0; b < kTile; ++b) {
+      const int i = w * kTile + b;
+      if (i >= n || !v[i]) word |= 1ull << b;
+    }
+    removed[w] = word;
+  }
+  // the diagonal words of word 0: row b's word 0
+  if (t < kTile) diag[0][t] = t < n ? rows[static_cast<size_t>(t) * words] : 0;
+  __syncthreads();
+
+  for (int w = 0; w < words; ++w) {
+    const int nrows = min(kTile, n - w * kTile);
+    if (t == 0) {
+      // the chain: a row's bit, then its diagonal word ORed in
+      uint64_t r = removed[w];
+      const uint64_t* d = diag[w & 1];
+#pragma unroll
+      for (int b = 0; b < kTile; ++b) {
+        const uint64_t word = d[b];
+        if (b < nrows && !((r >> b) & 1)) r |= word;
+      }
+      removed[w] = r;
+      kept_word = ~r & (nrows == kTile ? ~0ull : (1ull << nrows) - 1);
+    } else if (t >= 2 * 32 && t < 2 * 32 + kTile && w + 1 < words) {
+      // meanwhile, read the next word's diagonal words ahead
+      const int b = t - 2 * 32, i = (w + 1) * kTile + b;
+      diag[(w + 1) & 1][b] = i < n ? rows[static_cast<size_t>(i) * words + w + 1] : 0;
+    }
+    __syncthreads();
+    const uint64_t kept = kept_word;
+    const uint64_t* rw = rows + static_cast<size_t>(w) * kTile * words;
+    for (int c = w + 1 + t; c < words; c += kLargeThreads) {
+      // four independent accumulators: no chain of 64 ORs
+      uint64_t acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int b = 0; b < kTile; ++b) {
+        if ((kept >> b) & 1) acc[b & 3] |= rw[static_cast<size_t>(b) * words + c];
+      }
+      removed[c] |= (acc[0] | acc[1]) | (acc[2] | acc[3]);
+    }
+    __syncthreads();  // removed[w + 1] is final, and diag[w & 1] may be read again for word w + 2
+  }
+
+  unsigned char* k = keep + img * n;
+  for (int i = t; i < n; i += kLargeThreads) k[i] = !((removed[i / kTile] >> (i % kTile)) & 1);
+}
+
+// Launches the scan of `words` words: the one-warp kernel up to kMaxWords,
+// the block kernel past it.
+cudaError_t launch_scan(const uint64_t* mask, const unsigned char* valid, unsigned char* keep, int batch, int n,
+                        int words, cudaStream_t s) {
+  if (words <= kMaxWords) {
+    nms_scan_kernel<<<batch, 32, 0, s>>>(mask, valid, keep, n, words);
+    return cudaGetLastError();
+  }
+  const size_t smem = static_cast<size_t>(words) * sizeof(uint64_t);
+  if (smem > kMaxSharedBytes - sizeof(uint64_t) * (2 * kTile + 1)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(nms_scan_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  nms_scan_large_kernel<<<batch, kLargeThreads, smem, s>>>(mask, valid, keep, n, words);
+  return cudaGetLastError();
+}
+
 __global__ void __launch_bounds__(256) nms_pack_kernel(const float* __restrict__ iou, uint64_t* __restrict__ mask,
                                                        int n, int words, float iou_threshold, long long total) {
   // blockDim.x is a multiple of 32, so a warp returns whole or not at all
@@ -250,24 +349,19 @@ __global__ void __launch_bounds__(256) nms_pack_kernel(const float* __restrict__
 
 extern "C" {
 
-// Largest N the kernels take: one warp's lanes hold the removed words.
-int dd3d_nms_max_n() { return kTile * kMaxWords; }
-
 // Launches the mask kernel and the scan kernel on `stream`, does not
 // synchronise; `mask` is scratch of batch * n * ceil(n / 64) uint64 words.
 // Returns cudaGetLastError().
 int dd3d_nms_keep(const float* boxes, const unsigned char* valid, uint64_t* mask, unsigned char* keep, int batch,
                   int n, float iou_threshold, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (n > kTile * kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (n + kTile - 1) / kTile;
   nms_mask_kernel<<<dim3(words * (words + 1) / 2, batch), kTile * kSplit, 0, s>>>(boxes, mask, n, words,
                                                                                  iou_threshold);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<batch, 32, 0, s>>>(mask, valid, keep, n, words);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_scan(mask, valid, keep, batch, n, words, s));
 }
 
 // Packs a score-sorted (batch, n, n) f32 suppression matrix `iou` into
@@ -275,7 +369,6 @@ int dd3d_nms_keep(const float* boxes, const unsigned char* valid, uint64_t* mask
 // i is set when j > i and iou[i][j] > iou_threshold. Does not synchronise.
 int dd3d_nms_pack_mask(const float* iou, uint64_t* mask, int batch, int n, float iou_threshold, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (n > kTile * kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
   const int words = (n + kTile - 1) / kTile;
   const long long total = static_cast<long long>(batch) * n * words;  // warps
   const int threads = 256;
@@ -286,15 +379,13 @@ int dd3d_nms_pack_mask(const float* iou, uint64_t* mask, int batch, int n, float
 }
 
 // The greedy walk alone, on a mask packed by dd3d_nms_pack_mask (or written
-// by nms_mask_kernel): keep (batch, n) from valid (batch, n), one warp an
+// by nms_mask_kernel): keep (batch, n) from valid (batch, n), one block an
 // image, on `stream`. Does not synchronise.
 int dd3d_nms_scan_keep(const uint64_t* mask, const unsigned char* valid, unsigned char* keep, int batch, int n,
                        void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (n > kTile * kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
   const int words = (n + kTile - 1) / kTile;
-  nms_scan_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(mask, valid, keep, n, words);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_scan(mask, valid, keep, batch, n, words, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

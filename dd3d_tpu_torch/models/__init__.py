@@ -27,7 +27,8 @@ def register_backbone(name):
 
 def build_feature_extractor(cfg):
     """Resolve `cfg.FE.BUILDER`."""
-    import dd3d_tpu_torch.models.dla  # noqa: F401  (populates the registry)
+    import dd3d_tpu_torch.models.bifpn  # noqa: F401  (populates the registry)
+    import dd3d_tpu_torch.models.dla  # noqa: F401
     import dd3d_tpu_torch.models.vovnet  # noqa: F401
 
     builder = BACKBONE_REGISTRY.get(cfg.FE.BUILDER)
@@ -40,6 +41,7 @@ def build_model(cfg, generator: Optional[torch.Generator] = None):
     """Resolve `cfg.MODEL.META_ARCHITECTURE` to an nn.Module in eval mode,
     on the CPU. With `generator`, every conv weight is drawn from it."""
     import dd3d_tpu_torch.models.dd3d  # noqa: F401
+    import dd3d_tpu_torch.models.dense_depth  # noqa: F401
     import dd3d_tpu_torch.models.nuscenes_dd3d  # noqa: F401
 
     builder = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)

@@ -88,7 +88,7 @@ def build_dd3d(cfg) -> DD3D:
     _check_ported(cfg)
     backbone = build_feature_extractor(cfg)
     strides = [backbone.out_feature_strides[f] for f in backbone.out_features]
-    channels = cfg.FE.FPN.OUT_CHANNELS
+    channels = backbone.out_channels
     fcos2d = FCOS2DHead(
         cfg.DD3D.NUM_CLASSES, channels, strides,
         num_cls_convs=cfg.DD3D.FCOS2D.NUM_CLS_CONVS,

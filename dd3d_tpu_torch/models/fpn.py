@@ -80,6 +80,7 @@ class FPN(nn.Module):
         self.bottom_up = bottom_up
         self.in_features = tuple(in_features)
         self.in_strides = dict(in_strides)
+        self.out_channels = out_channels
         self.fuse_type = fuse_type
         for f in self.in_features:
             idx = self.in_strides[f].bit_length() - 1

@@ -25,7 +25,8 @@ Counterpart of dd3d_tpu/models/layers.py. `model.train()` and
   `quant_scope` (a contextvars.ContextVar, never a module global), so two
   inference functions built from one model with different configs never
   see each other's settings. Eligible convs run through
-  ops/int8_conv.int8_conv_dequant.
+  ops/int8_conv.int8_conv_dequant, grouped ones (RegNet's Y-block `b`,
+  BiFPN's depthwise `dw`) through its grouped kernel.
 """
 import contextlib
 import contextvars
@@ -323,8 +324,6 @@ class FoldableConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
                  bias: bool = False, init: str = INIT_NORMAL_FAN_OUT, groups: int = 1):
         super().__init__()
-        if groups != 1 and self.quantizable:
-            raise ValueError("a grouped conv has no int8 path: build it as a PlainConv")
         self.kernel_size, self.stride, self.init, self.groups = kernel_size, stride, init, groups
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
@@ -358,8 +357,9 @@ class FoldableConv(nn.Module):
         spec = _QUANT.get()
         if spec.enabled and self.quantizable and (mul is not None or spec.unfolded):
             act_amax = _observe(spec, self.quant_path, x)
-            if x.shape[1] >= spec.min_ch:
-                return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain)
+            if x.shape[1] >= spec.min_ch:  # all input channels, not a group's (JAX :339)
+                return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain,
+                                         self.groups)
         return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad,
                         groups=self.groups)
 
@@ -368,21 +368,23 @@ class PlainConv(FoldableConv):
     """A conv that never quantizes: the counterpart of flax's plain nn.Conv
     (the FPN's P6/P7, dd3d_tpu/models/fpn.py:110-117; VoVNet's eSE `fc` and
     depthwise `dw`, dd3d_tpu/models/vovnet.py:55,68), which the JAX
-    package's int8 rule never reaches, even under TPU.QUANT_UNFOLDED. Only a
-    PlainConv takes `groups` > 1."""
+    package's int8 rule never reaches, even under TPU.QUANT_UNFOLDED."""
 
     quantizable = False
 
 
 class ConvNorm(FoldableConv):
-    """Conv -> norm (folded) -> optional relu, like detectron2's Conv2d with
-    `.norm`. bias is on iff there is no norm (dd3d_tpu ConvNorm)."""
+    """Conv -> norm (folded) -> optional relu or swish (BiFPN's, x *
+    sigmoid(x)), like detectron2's Conv2d with `.norm`. bias is on iff there
+    is no norm (dd3d_tpu ConvNorm)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, stride: int = 1,
-                 norm: str = "BN", relu: bool = False, init: str = INIT_NORMAL_FAN_OUT):
-        super().__init__(in_channels, out_channels, kernel_size, stride, bias=norm in ("", None), init=init)
+                 norm: str = "BN", relu: bool = False, init: str = INIT_NORMAL_FAN_OUT, groups: int = 1,
+                 swish: bool = False):
+        super().__init__(in_channels, out_channels, kernel_size, stride, bias=norm in ("", None), init=init,
+                         groups=groups)
         self.norm = make_norm(norm, out_channels)
-        self.relu = relu
+        self.relu, self.swish = relu, swish
 
     def forward(self, x):
         if self.norm is None:
@@ -391,6 +393,8 @@ class ConvNorm(FoldableConv):
             y = super().forward(x, *self.norm.folded())
         else:
             y = self.norm(super().forward(x))
+        if self.swish:
+            return F.silu(y)
         return F.relu(y) if self.relu else y
 
 

@@ -61,7 +61,7 @@ class NuscenesDD3D(nn.Module):
 def build_nuscenes_dd3d(cfg) -> NuscenesDD3D:
     if cfg.TPU.get("QUANT_INT8", False):
         raise NotImplementedError("TPU.QUANT_INT8 with NuscenesDD3D: int8 serving of the nuScenes experiments is "
-                                  "not ported (ROADMAP §1 item 13)")
+                                  "not ported (ROADMAP §1: int8 serving of the nuScenes experiments)")
     model = NuscenesDD3D(build_dd3d(cfg), cfg.DD3D.NUSC.MAX_NUM_ATTRIBUTES)
     assign_quant_paths(model)  # the flax scope paths under `base`
     return model

@@ -12,12 +12,18 @@ the TPU. PyTorch has no int8 convolution on CUDA.
   kernel's 2^31 elements (`batch_chunks`: a TTA bucket of 160 instances at
   640x1920 does); for CPU tensors it runs the plain PyTorch version,
   `int8_conv_plain`.
-- `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax)`:
-  the counterpart of `_int8_conv` as a whole (plus the bias), on the port's
-  NCHW (channels_last) activations and OIHW fp32 weights: per-output-channel
-  weight scales, the per-tensor activation scale (dynamic, or static from a
-  calibrated `act_amax`), then the quantize kernel (ops/quantize.py) and the
-  int8 conv kernel.
+- `int8_conv_grouped(xq, wq, scale, bias, stride, pad, out_dtype, groups)`:
+  the same with feature_group_count = groups > 1 (layers.py:273), wq
+  (O, kh, kw, C / groups): output channel o sums over the input channels of
+  its group only, with the same epilogue. CUDA tensors launch the grouped
+  kernel of the same source (a direct conv on the CUDA cores), CPU tensors
+  run `int8_conv_grouped_plain`.
+- `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax,
+  groups=1)`: the counterpart of `_int8_conv` as a whole (plus the bias), on
+  the port's NCHW (channels_last) activations and OIHW fp32 weights:
+  per-output-channel weight scales, the per-tensor activation scale
+  (dynamic, or static from a calibrated `act_amax`), then the quantize
+  kernel (ops/quantize.py) and the int8 conv kernel, grouped or not.
 """
 import ctypes
 from typing import Optional
@@ -67,6 +73,33 @@ def int8_conv_plain(xq, wq, scale, bias, stride: int, pad: int, out_dtype: torch
     return y.contiguous()
 
 
+def int8_conv_grouped_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+                                groups: int) -> torch.Tensor:
+    """Exact int32 accumulators (B, Ho, Wo, O) of the grouped int8 conv: the
+    im2col of `int8_conv_acc_plain`, cut into the groups' rows, and one
+    batched f64 product a group (integers below 2^53, so exact in any order,
+    on the CPU and on the card alike)."""
+    b, h, w, c = xq.shape
+    o, kh, kw, cg = wq.shape
+    if c != cg * groups or o % groups:
+        raise ValueError(f"{groups} groups do not divide xq {tuple(xq.shape)} and wq {tuple(wq.shape)}")
+    ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
+    wmat = wq.permute(0, 3, 1, 2).reshape(groups, o // groups, cg * kh * kw).double()
+    out = []
+    for i in range(b):
+        cols = F.unfold(xq[i:i + 1].permute(0, 3, 1, 2).double(), (kh, kw), padding=pad, stride=stride)
+        cols = cols[0].reshape(groups, cg * kh * kw, ho * wo)  # unfold's rows are (c, r, s), c slowest
+        out.append(torch.bmm(wmat, cols).to(torch.int32).reshape(o, ho, wo))
+    return torch.stack(out).permute(0, 2, 3, 1)
+
+
+def int8_conv_grouped_plain(xq, wq, scale, bias, stride: int, pad: int, out_dtype: torch.dtype,
+                            groups: int) -> torch.Tensor:
+    """The plain PyTorch version of `int8_conv_grouped`."""
+    y = dequant_plain(int8_conv_grouped_acc_plain(xq, wq, stride, pad, groups), scale, bias, out_dtype)
+    return y.contiguous()
+
+
 CHANNEL_MULTIPLE = 16  # the kernel stages 16-byte chunks, each within one (r, s) tap
 
 
@@ -91,15 +124,18 @@ def _library():
         lib = load_library("int8_conv.cu")
         lib.dd3d_int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.dd3d_int8_conv.restype = ctypes.c_int
+        lib.dd3d_int8_conv_grouped.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.dd3d_int8_conv_grouped.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(xq, wq, scale, bias, out_dtype):
+def _check(xq, wq, scale, bias, out_dtype, groups=1):
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"need int8 activations and weights; got {xq.dtype}, {wq.dtype}")
-    if xq.ndim != 4 or wq.ndim != 4 or wq.shape[3] != xq.shape[3]:
-        raise ValueError(f"need xq (B, H, W, C) and wq (O, kh, kw, C); got {tuple(xq.shape)}, {tuple(wq.shape)}")
+    if xq.ndim != 4 or wq.ndim != 4 or wq.shape[3] * groups != xq.shape[3] or wq.shape[0] % groups:
+        raise ValueError(f"need xq (B, H, W, C) and wq (O, kh, kw, C/{groups}) with O a multiple of {groups}; "
+                         f"got {tuple(xq.shape)}, {tuple(wq.shape)}")
     o = wq.shape[0]
     if scale.dtype != torch.float32 or scale.shape != (o,):
         raise ValueError(f"need a float32 scale of shape ({o},); got {scale.dtype} {tuple(scale.shape)}")
@@ -166,6 +202,43 @@ def batch_chunks(batch: int, per_image: int, limit: int = _MAX_ELEMENTS):
 int8_conv.launches = 0
 
 
+def int8_conv_grouped(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+                      stride: int, pad: int, out_dtype: torch.dtype, groups: int) -> torch.Tensor:
+    """Dequantized grouped int8 conv (B, Ho, Wo, O) of xq (B, H, W, C) and wq
+    (O, kh, kw, C / groups); see the module docstring.
+    `int8_conv_grouped.launches` counts kernel launches."""
+    _check(xq, wq, scale, bias, out_dtype, groups)
+    if xq.device.type == "cpu":
+        return int8_conv_grouped_plain(xq, wq, scale, bias, stride, pad, out_dtype, groups)
+    if xq.device.type != "cuda":
+        raise ValueError(f"no int8 conv kernel for device {xq.device}")
+    tensors = [xq, wq, scale] + ([] if bias is None else [bias])
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("xq, wq, scale and bias must be contiguous (xq NHWC, wq OHWI)")
+    b, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
+    ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}, stride {stride}, pad {pad}")
+    if wq.numel() > _MAX_ELEMENTS:
+        raise ValueError("the weight exceeds the kernel's 2^31-element limit")
+    out = torch.empty((b, ho, wo, o), dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        for i0, i1 in batch_chunks(b, max(h * w * c, ho * wo * o)):
+            err = _library().dd3d_int8_conv_grouped(
+                xq[i0:i1].data_ptr(), wq.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
+                out[i0:i1].data_ptr(), int(out_dtype == torch.bfloat16), i1 - i0, h, w, c, o, kh, kw, stride, pad,
+                groups, stream)
+            if err != 0:
+                raise RuntimeError(f"grouped int8 conv kernel launch failed: error {err}")
+            int8_conv_grouped.launches += 1
+    return out
+
+
+int8_conv_grouped.launches = 0
+
+
 def activation_scale(x: torch.Tensor, act_amax: Optional[float]) -> torch.Tensor:
     """The per-tensor activation scale `xs` as a one-element f32 tensor on
     x's device: max(amax, 1e-12) / 127 in f32 (layers.py:259-262). A static
@@ -188,11 +261,13 @@ def quantize_weight(weight: torch.Tensor):
 
 
 def int8_conv_dequant(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int, pad: int,
-                      out_dtype: torch.dtype, act_amax: Optional[float] = None, plain: bool = False) -> torch.Tensor:
+                      out_dtype: torch.dtype, act_amax: Optional[float] = None, plain: bool = False,
+                      groups: int = 1) -> torch.Tensor:
     """The port of `_int8_conv` plus the bias: x (B, C, H, W), weight
-    (O, C, kh, kw) fp32, bias (O,) fp32 or None; returns (B, O, Ho, Wo) in
-    `out_dtype` with channels_last strides. `plain` runs the kernels' plain
-    versions (on any device), for checking the kernels against them."""
+    (O, C / groups, kh, kw) fp32, bias (O,) fp32 or None; returns
+    (B, O, Ho, Wo) in `out_dtype` with channels_last strides. `plain` runs
+    the kernels' plain versions (on any device), for checking the kernels
+    against them."""
     x_nhwc = x.permute(0, 2, 3, 1)
     if not x_nhwc.is_contiguous():
         x_nhwc = x_nhwc.contiguous()  # an explicit copy to NHWC; the kernels take no other layout
@@ -200,7 +275,10 @@ def int8_conv_dequant(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torc
     wq, ws = quantize_weight(weight.float())
     scale = xs * ws  # the (O,) f32 vector first, as layers.py:276
     bias = None if bias is None else bias.float()
-    quantize, conv = (quantize_int8_plain, int8_conv_plain) if plain else (quantize_int8, int8_conv)
-    xq = quantize(x_nhwc, xs)
-    y = conv(xq, wq, scale, bias, stride, pad, out_dtype)
+    xq = (quantize_int8_plain if plain else quantize_int8)(x_nhwc, xs)
+    if groups == 1:
+        y = (int8_conv_plain if plain else int8_conv)(xq, wq, scale, bias, stride, pad, out_dtype)
+    else:
+        y = (int8_conv_grouped_plain if plain else int8_conv_grouped)(xq, wq, scale, bias, stride, pad, out_dtype,
+                                                                       groups)
     return y.permute(0, 3, 1, 2)

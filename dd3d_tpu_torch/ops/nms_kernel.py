@@ -5,7 +5,9 @@
 (B, N) bool, and returns the keep mask (B, N) bool:
 - for CUDA tensors it launches the kernels (or raises: there is no
   fallback): the suppression-bitmask kernel into a (B, N, ceil(N/64)) int64
-  scratch from `torch.empty`, then the scan kernel, one warp an image;
+  scratch from `torch.empty`, then the scan kernel, one warp an image up
+  to N = 2048 and one block an image past it. Any N is taken: the scratch,
+  B * N * ceil(N/64) * 8 bytes, is what bounds it;
 - for CPU tensors it runs the plain PyTorch version, `greedy_nms_plain`,
   which the CPU tests and chip_smoke.py hold the kernel against.
 
@@ -36,8 +38,6 @@ def _library():
         from dd3d_tpu_torch.kernels import load_library
 
         lib = load_library("nms.cu")
-        lib.dd3d_nms_max_n.argtypes = []
-        lib.dd3d_nms_max_n.restype = ctypes.c_int
         lib.dd3d_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.dd3d_nms_keep.restype = ctypes.c_int
@@ -69,8 +69,6 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -
         raise ValueError("boxes and valid must be contiguous")
     b, n = valid.shape
     lib = _library()
-    if n > lib.dd3d_nms_max_n():
-        raise ValueError(f"N={n} exceeds the kernel's maximum {lib.dd3d_nms_max_n()}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     mask = torch.empty((b, n, -(-n // 64)), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
@@ -107,8 +105,6 @@ def greedy_nms_scan(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float
         raise ValueError("iou and valid must be contiguous")
     b, n = valid.shape
     lib = _library()
-    if n > lib.dd3d_nms_max_n():
-        raise ValueError(f"N={n} exceeds the kernel's maximum {lib.dd3d_nms_max_n()}")
     keep = torch.empty((b, n), dtype=torch.bool, device=iou.device)
     mask = torch.empty((b, n, -(-n // 64)), dtype=torch.int64, device=iou.device)
     with torch.cuda.device(iou.device):

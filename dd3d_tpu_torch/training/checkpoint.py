@@ -71,6 +71,9 @@ def load_weights(model: torch.nn.Module, path: str) -> Optional[int]:
         return step
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
+    refusal = getattr(getattr(getattr(model, "base", model), "backbone", None), "no_reference_checkpoint", None)
+    if refusal:
+        raise ValueError(f"{path}: {refusal}")
     sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
     model.load_state_dict(reference_to_port_names(sd.get("model", sd), model), strict=True)
     return None

@@ -40,12 +40,18 @@ def seed_norm_statistics(model: torch.nn.Module, generator: torch.Generator) -> 
 
 
 def synthetic_batch(rng: np.random.RandomState, batch: int, height: int, width: int, max_gt: int = 64,
-                    num_classes: int = 5, max_gt_per_image: int = 12) -> Dict[str, np.ndarray]:
+                    num_classes: int = 5, max_gt_per_image: int = 12,
+                    depth_density: float = 0.0) -> Dict[str, np.ndarray]:
     """One batch: image (B, H, W, 3) uint8 BGR, intrinsics (B, 3, 3),
     gt_boxes2d (B, G, 4) xyxy, gt_classes (B, G), gt_boxes3d (B, G, 10) as
     [quat wxyz, proj_ctr, depth, size wlh], gt_valid (B, G), image_size
     (B, 2) and color_jitter (B, 3) blend weights; G = max_gt, 1 to
-    max_gt_per_image boxes an image."""
+    max_gt_per_image boxes an image. With `depth_density` > 0 also a sparse
+    GT `depth` (B, H, W) f32 for DD3DDenseDepth, as a projected lidar scan
+    gives it: that share of the pixels holds a depth (0 elsewhere), the
+    ground plane's below the horizon (1.65 m under the camera, KITTI's) and
+    5-80 m above it, a few of them past MAX_DEPTH (80 m), which the loss
+    masks."""
     f = 0.58 * width  # KITTI's focal length relative to its width
     k = np.array([[f, 0.0, width / 2], [0.0, f, height / 2], [0.0, 0.0, 1.0]])
     inv_k = np.linalg.inv(k)
@@ -84,4 +90,21 @@ def synthetic_batch(rng: np.random.RandomState, batch: int, height: int, width: 
             out["gt_valid"][b, i] = True
             i += 1
     out["color_jitter"] = rng.uniform(0.8, 1.2, (batch, 3)).astype(np.float32)
+    if depth_density > 0:
+        out["depth"] = sparse_depth(rng, batch, height, width, f, depth_density)
+    return out
+
+
+def sparse_depth(rng: np.random.RandomState, batch: int, height: int, width: int, focal: float,
+                 density: float) -> np.ndarray:
+    """(B, H, W) f32 sparse depth, 0 where a pixel has none: see
+    `synthetic_batch`."""
+    rows = np.arange(height, dtype=np.float64)[:, None] - height / 2
+    ground = np.where(rows > 0, 1.65 * focal / np.maximum(rows, 1e-6), np.inf)  # the ground plane's depth a row
+    depth = np.where(np.isfinite(ground), np.broadcast_to(ground, (height, width)), 0.0)
+    out = np.zeros((batch, height, width), np.float32)
+    for b in range(batch):
+        hit = rng.rand(height, width) < density
+        far = rng.uniform(5.0, 85.0, (height, width))
+        out[b] = np.where(hit, np.where(depth > 0, np.minimum(depth, 90.0), far), 0.0)
     return out

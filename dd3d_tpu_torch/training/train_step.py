@@ -1,7 +1,9 @@
 """The train step, counterpart of dd3d_tpu/training/train_step.py: color
 jitter -> forward in the compute dtype (model.train(): live BN on batch
 statistics) -> the meta-architecture's losses in f32 (`dd3d_losses`, or
-`nuscenes_dd3d_losses` for NuscenesDD3D) -> backward -> SGD update, and the
+`nuscenes_dd3d_losses` for NuscenesDD3D, `dd3d_dense_depth_losses` for
+DD3DDenseDepth, whose model also takes the inverse intrinsics, in f32, and
+whose batch carries a sparse GT `depth`) -> backward -> SGD update, and the
 metrics. Nothing in the step waits for the host: the metrics stay tensors
 on the device, and `loss_finite` replaces a Python-side assert.
 
@@ -47,6 +49,10 @@ def losses_for(cfg) -> Callable:
         from dd3d_tpu_torch.models.nuscenes_dd3d import nuscenes_dd3d_losses
 
         return nuscenes_dd3d_losses
+    if arch == "DD3DDenseDepth":
+        from dd3d_tpu_torch.models.dense_depth import dd3d_dense_depth_losses
+
+        return dd3d_dense_depth_losses
     raise NotImplementedError(f"training MODEL.META_ARCHITECTURE={arch!r} is not ported")
 
 
@@ -57,8 +63,9 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callab
     the collate_batch schema on the model's device: image (B, H, W, 3) BGR,
     intrinsics, gt_boxes2d, gt_classes, gt_boxes3d, gt_valid, and
     optionally color_jitter (B, 3); NuscenesDD3D's also gt_attributes and
-    gt_speeds."""
+    gt_speeds; DD3DDenseDepth's `depth` (B, H, W)."""
     losses_fn = losses_for(cfg)
+    dense_depth = cfg.MODEL.META_ARCHITECTURE == "DD3DDenseDepth"
     remat = str(cfg.TPU.get("REMAT", "none"))
     if remat not in ("none", ""):
         raise NotImplementedError(f"TPU.REMAT={remat!r} is not ported; the port stores all activations")
@@ -77,7 +84,10 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callab
         no_sync = model.no_sync() if hasattr(model, "no_sync") and not apply_update else contextlib.nullcontext()
         with no_sync:
             with quant_scope(QuantSpec()):
-                outputs = model(images)
+                if dense_depth:  # dd3d_tpu/training/train_step.py:87-95
+                    outputs = model(images, torch.linalg.inv(batch["intrinsics"].float()))
+                else:
+                    outputs = model(images)
             losses = losses_fn(cfg, outputs, batch, strides)
             total = sum(losses.values())
             (total * scale if scale != 1.0 else total).backward()

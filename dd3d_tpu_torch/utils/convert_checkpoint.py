@@ -59,6 +59,7 @@ _PATH_RULES = [
     (r"\bscales_([a-z0-9_]+?)\.(\d+)\b", r"scale_\1\2"),
     (r"\boffsets_([a-z0-9_]+?)\.(\d+)\b", r"offset_\1\2"),
     (r"\b(box3d_[a-z]+)\.(\d+)\b", r"\1\2"),
+    (r"\bdense_depth\.(\d+)\b", r"dense_depth\1"),  # DD3DDenseDepth's per-level predictors
 ]
 
 # The JAX package's canonicalization of VoVNet's OrderedDict slash names
@@ -121,7 +122,7 @@ def _flax_leaf(module, path: List[str], leaf: str) -> Tuple[str, List[str], str]
         names = {"weight": ("params", "scale"), "bias": ("params", "bias"), **_NORM_LEAVES}
         coll, name = names[leaf]
         return coll, path, name
-    if isinstance(module, (Scale, Offset)):
+    if isinstance(module, (Scale, Offset)) or getattr(module, "params_by_name", False):
         return "params", path, leaf
     if leaf in ("weight", "bias"):
         # ConvNorm holds its conv as a `conv` child in flax; a bare conv does not.

@@ -81,7 +81,12 @@ def nms_edge_case(name, n):
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("b,n", [(8, 512), (3, 300), (1, 1), (2, 63), (2, 64), (2, 65), (1, 2048)])
+# N past 2048 runs the block scan: its first word, the reference's
+# PRE_NMS_TOPK of 1000 at five levels (5000) and beyond
+NMS_LARGE_SIZES = ((2, 2049), (2, 4096), (8, 5000), (1, 10000))
+
+
+@pytest.mark.parametrize("b,n", [(8, 512), (3, 300), (1, 1), (2, 63), (2, 64), (2, 65), (1, 2048), *NMS_LARGE_SIZES])
 def test_kernel_matches_plain(card, b, n):
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
 
@@ -94,7 +99,7 @@ def test_kernel_matches_plain(card, b, n):
         assert torch.equal(keep, greedy_nms_plain(bt, vt, thr))
 
 
-@pytest.mark.parametrize("n", [1, 65, 300, 2048])
+@pytest.mark.parametrize("n", [1, 65, 300, 2048, 2049, 4096])
 @pytest.mark.parametrize("name", NMS_EDGE_CASES)
 def test_kernel_edge_cases(card, name, n):
     """Exact keep masks against the plain version and the greedy walk's
@@ -110,10 +115,18 @@ def test_kernel_edge_cases(card, name, n):
 
 
 def test_kernel_rejects_too_many_boxes(card):
+    """No N limit of the kernels' own is left: what bounds N is the
+    (B, N, ceil(N/64)) int64 scratch. At N = 2^20 it is 128 GiB, more than
+    the card holds, and its allocation raises before anything launches."""
+    from dd3d_tpu_torch.ops import nms_kernel
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
 
-    with pytest.raises(ValueError, match="maximum"):
-        greedy_nms(torch.zeros(1, 4096, 4, device=card), torch.ones(1, 4096, dtype=torch.bool, device=card), 0.5)
+    assert not hasattr(nms_kernel._library(), "dd3d_nms_max_n")
+    n = 2 ** 20
+    before = greedy_nms.launches
+    with pytest.raises(torch.OutOfMemoryError):
+        greedy_nms(torch.zeros(1, n, 4, device=card), torch.ones(1, n, dtype=torch.bool, device=card), 0.5)
+    assert greedy_nms.launches == before
 
 
 def scan_case(rng, b, n):
@@ -125,7 +138,8 @@ def scan_case(rng, b, n):
     return iou, rng.rand(b, n) > 0.1
 
 
-@pytest.mark.parametrize("b,n", [(12, 100), (2, 600), (1, 2048), (3, 65), (1, 1)])
+@pytest.mark.parametrize("b,n", [(12, 100), (2, 600), (1, 2048), (3, 65), (1, 1), (1, 2049), (2, 4096),
+                                 (1, 5000)])
 def test_scan_kernel_matches_plain(card, b, n):
     """The pack + scan kernels (ops/nms_kernel.greedy_nms_scan) against the
     plain greedy fixpoint, exactly: the per-image BEV NMS's (B, 100), a
@@ -148,9 +162,8 @@ def test_scan_kernel_matches_plain(card, b, n):
 def test_scan_kernel_rejects_what_it_does_not_take(card):
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_scan
 
-    with pytest.raises(ValueError, match="maximum"):
-        greedy_nms_scan(torch.zeros(1, 4096, 4096, device=card), torch.ones(1, 4096, dtype=torch.bool, device=card),
-                        0.5)
+    with pytest.raises(ValueError, match="need iou"):
+        greedy_nms_scan(torch.zeros(1, 8, 9, device=card), torch.ones(1, 8, dtype=torch.bool, device=card), 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         greedy_nms_scan(torch.zeros(1, 8, 8, device=card).transpose(1, 2),
                         torch.ones(1, 8, dtype=torch.bool, device=card), 0.5)
@@ -258,6 +271,51 @@ def test_int8_conv_kernel_matches_plain_at_v99_shapes(card, b, h, w, c, o, k, st
     test_int8_conv_kernel_matches_plain(card, b, h, w, c, o, k, stride)
 
 
+# every distinct grouped int8 conv of the dd3d_kitti_regnety_006_bifpn
+# forward at 384x1280 (batch 1 here): RegNetY-006's Y-block `b` convs (C/g =
+# 16; stride 2 in each stage's first block) and BiFPN's depthwise `dw` convs
+# (C/g = 1) at P3-P7, 160 channels
+REGNETY_GROUPED_SHAPES = [
+    (1, 192, 640, 48, 3, 2),   # s1_b0/b
+    (1, 96, 320, 112, 7, 2),   # s2_b0/b
+    (1, 48, 160, 112, 7, 1),   # s2_b1..2/b
+    (1, 48, 160, 256, 16, 2),  # s3_b0/b
+    (1, 24, 80, 256, 16, 1),   # s3_b1..6/b
+    (1, 24, 80, 608, 38, 2),   # s4_b0/b
+    (1, 12, 40, 608, 38, 1),   # s4_b1..3/b
+    (1, 48, 160, 160, 160, 1),  # P3 dw
+    (1, 24, 80, 160, 160, 1),   # P4 dw
+    (1, 12, 40, 160, 160, 1),   # P5 dw
+    (1, 6, 20, 160, 160, 1),    # P6 dw
+    (1, 3, 10, 160, 160, 1),    # P7 dw
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,g,stride", REGNETY_GROUPED_SHAPES + [
+    (2, 13, 17, 24, 6, 2),  # C/g = 4, ragged
+    (2, 9, 11, 12, 4, 1),   # C/g = 3: no 4-channel packs
+    (1, 7, 9, 8, 2, 1),     # O = 2 C: two outputs a group
+])
+def test_int8_conv_grouped_kernel_matches_plain(card, b, h, w, c, g, stride):
+    """Exact int32 accumulators and the bf16 / f32 epilogues bit for bit."""
+    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv_grouped, int8_conv_grouped_acc_plain
+
+    o = 2 * c if c == 8 else c
+    rng = np.random.RandomState(c + g)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.randint(-127, 128, (o, 3, 3, c // g)).astype(np.int8)).to(card)
+    scale = torch.from_numpy((rng.rand(o) * 1e-3 + 1e-5).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32)).to(card)
+    acc = int8_conv_grouped_acc_plain(xq, wq, stride, 1, g)
+    before = int8_conv_grouped.launches
+    assert torch.equal(int8_conv_grouped(xq, wq, torch.ones_like(scale), None, stride, 1, torch.float32, g),
+                       acc.float())
+    for dt in (torch.bfloat16, torch.float32):
+        assert torch.equal(int8_conv_grouped(xq, wq, scale, bias, stride, 1, dt, g),
+                           dequant_plain(acc, scale, bias, dt))
+    assert int8_conv_grouped.launches == before + 3
+
+
 def test_int8_conv_dequant_kernel_path_matches_plain(card):
     """The whole int8 conv (scales, quantize, conv, epilogue) through the
     kernels against the plain versions, on an NCHW-contiguous input (the
@@ -273,6 +331,10 @@ def test_int8_conv_dequant_kernel_path_matches_plain(card):
             got = int8_conv_dequant(inp, weight, bias, 1, 1, torch.bfloat16, amax)
             assert torch.equal(got, int8_conv_dequant(inp, weight, bias, 1, 1, torch.bfloat16, amax, plain=True))
             assert got.is_contiguous(memory_format=torch.channels_last)
+    grouped = torch.randn(64, 16, 3, 3, generator=gen).to(card)  # 4 groups
+    for amax in (None, 2.5):
+        got = int8_conv_dequant(x, grouped, None, 2, 1, torch.bfloat16, amax, groups=4)
+        assert torch.equal(got, int8_conv_dequant(x, grouped, None, 2, 1, torch.bfloat16, amax, plain=True, groups=4))
 
 
 def test_int8_kernels_reject_what_they_do_not_take(card):

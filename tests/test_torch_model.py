@@ -60,7 +60,7 @@ def test_activations_run_channels_last():
 
 
 @pytest.mark.parametrize("key,value", [("DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D", True),
-                                       ("FE.BUILDER", "build_fcos_regnety_bifpn_backbone"),
+                                       ("FE.BACKBONE.NAME", "DLA-46-C"),
                                        ("DD3D.FCOS3D.PER_LEVEL_PREDICTORS", True)])
 def test_unported_config_keys_raise(key, value):
     from dd3d_tpu_torch.models import build_model

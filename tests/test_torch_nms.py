@@ -101,6 +101,37 @@ def test_batched_nms_padded_several_classes(assume_sorted):
     assert keep_j.sum(axis=1).max() == 40  # the prefix cap was exercised
 
 
+def test_plain_nms_past_2048_matches_jax():
+    """N = 4096, past the one-warp scan (the card holds the block scan to
+    these plain versions, tests/test_torch_cuda.py): the box suppression,
+    the class-aware batched NMS at the reference's PRE_NMS_TOPK scale, and
+    the walk on a given suppression matrix (the BEV NMS's), each against
+    JAX's, exactly."""
+    rng = np.random.RandomState(12)
+    n = 4096
+    boxes, valid = _random_boxes(rng, 1, n)
+    boxes = boxes * 4  # spread over 800 px, as P3-P7's candidates are
+    keep_port = greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5).numpy()[0]
+    keep_xla = np.asarray(jax.jit(lambda bx, v: jnms.greedy_suppress(jnms.pairwise_iou_xyxy(bx, bx), v, 0.5))(
+        jnp.asarray(boxes[0]), jnp.asarray(valid[0])))
+    np.testing.assert_array_equal(keep_port, keep_xla)
+    assert 0 < keep_port.sum() < valid.sum()
+
+    scores = np.where(valid[0], rng.rand(n), jnms.NEG_INF).astype(np.float32)
+    classes = rng.randint(0, 5, n).astype(np.int32)
+    fn = jax.jit(lambda bx, sc, c: jnms.batched_nms_padded(bx, sc, c, 0.5, 100))
+    order_j, keep_j = (np.asarray(x) for x in fn(jnp.asarray(boxes[0]), jnp.asarray(scores), jnp.asarray(classes)))
+    order_p, keep_p = pnms.batched_nms_padded(torch.from_numpy(boxes), torch.from_numpy(scores)[None],
+                                              torch.from_numpy(classes).long()[None], 0.5, 100)
+    np.testing.assert_array_equal(order_p.numpy()[0], order_j)
+    np.testing.assert_array_equal(keep_p.numpy()[0], keep_j)
+
+    iou = (rng.rand(n, n) ** 8).astype(np.float32)
+    want = np.asarray(jax.jit(lambda m, v: jnms.greedy_suppress(m, v, 0.3))(jnp.asarray(iou), jnp.asarray(valid[0])))
+    got = pnms.greedy_suppress(torch.from_numpy(iou)[None], torch.from_numpy(valid), 0.3).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+
+
 def test_wrapper_takes_plain_path_on_cpu():
     boxes, valid, thr = _case("random-0.5")
     greedy_nms.launches = 0

@@ -124,7 +124,9 @@ def test_port_runs_without_jax(tmp_path):
     fixture, then run test-time augmentation and draw with every
     visualizer, then run dd3d_nusc_dla34's plain test (the sample
     aggregation, the nuScenes evaluator) and its TTA test on a one-sample
-    6-camera fixture, in a fresh interpreter: no jax or flax module, and nothing of
+    6-camera fixture, then serve dd3d_kitti_regnety_006_bifpn in static
+    int8 (its grouped convs quantized) and take a DD3DDenseDepth train
+    step, in a fresh interpreter: no jax or flax module, and nothing of
     the JAX package `dd3d_tpu`, may be imported on the way, the JAX
     package's engine library (dd3d_tpu/evaluators/native/libkitti_eval.so)
     must not be mapped, only the port's own build, and cv2 and PIL are
@@ -229,6 +231,20 @@ def test_port_runs_without_jax(tmp_path):
         f"plain = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r})\n"
         f"tta = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r}, use_tta=True)\n"
         "assert 'NDS' in plain['nuscenes'] and 'tta/nuscenes' in tta, (plain, tta)\n"
+        "from dd3d_tpu_torch.utils import coco, profiling\n"
+        "rcfg = get_experiment_cfg('dd3d_kitti_regnety_006_bifpn')\n"
+        "rcfg.FE.BIFPN.OUT_CHANNELS, rcfg.FE.BIFPN.NUM_REPEATS = 32, 1\n"
+        "rmodel = build_model(rcfg, generator=torch.Generator().manual_seed(0))\n"
+        "rcfg.TPU.QUANT_INT8, rcfg.TPU.QUANT_MIN_CH, rcfg.TPU.QUANT_UNFOLDED = True, 32, True\n"
+        "infer = get_inference_fn(rmodel, prepare_static_scales(rcfg, rmodel, [images]))\n"
+        "assert infer(images, torch.eye(3)[None])['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
+        "dcfg = get_experiment_cfg('dd3d_kitti_dla34')\n"
+        "dcfg.MODEL.META_ARCHITECTURE, dcfg.TPU.PALLAS_STEM_DW = 'DD3DDenseDepth', True\n"
+        "dmodel = build_model(dcfg, generator=torch.Generator().manual_seed(0))\n"
+        "seen = []\n"
+        "batches = [synthetic_batch(np.random.RandomState(0), 1, 128, 128, depth_density=0.1)]\n"
+        "train(dcfg, batches, model=dmodel, device='cpu', max_iter=1, metric_hook=lambda i, m: seen.append(m))\n"
+        "assert seen[0]['loss_finite'] == 1.0 and 'loss_dense_depth_lvl_4' in seen[0], seen\n"
         "import os\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libkitti_eval_' in maps and os.path.join('dd3d_tpu', 'evaluators') not in maps\n"
