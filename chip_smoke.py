@@ -191,12 +191,16 @@ process each, all at once.
     busy share, peak memory;
 31. its static int8 in bench.py's settings (QUANT_MIN_CH 32,
     QUANT_UNFOLDED): phase 7 at every ungrouped int8 site, the grouped
-    int8 conv kernel (csrc/int8_conv.cu) at every grouped site (RegNet's
-    Y-block `b`, BiFPN's depthwise `dw`; 39 a forward) bit for bit against
-    its plain version and timed beside cuDNN's bf16 grouped conv and its
-    bound, summed over a forward; phase 8's path checks with the grouped
-    kernel's launches; int8 against bf16 in turns; then `predict` in bf16,
-    `calibrate_int8` and `predict` in static int8 on a 375x1200 frame;
+    int8 conv kernels (csrc/int8_conv.cu) at every grouped site (RegNet's
+    Y-block `b` on the `mma` route, BiFPN's depthwise `dw` on the
+    `depthwise` route; 39 a forward): every route a shape admits (its own
+    and `direct`) bit for bit against the plain version, timed in turns
+    (direct, own, own, direct, twice) beside cuDNN's bf16 grouped conv and
+    the bound, summed over a forward; phase 8's path checks with the grouped
+    launches by route; int8 against bf16 in turns; the int8 batch's device
+    time with every grouped conv on `direct` and on its own route in
+    turns; then `predict` in bf16, `calibrate_int8` and `predict` in static
+    int8 on a 375x1200 frame;
 32. its bf16 train step at batch 8, 384x1280 (ms a step, peak memory,
     launches, busy share), then the training CLI for 2 steps on the
     8-frame fixture and EVAL_ONLY from its checkpoint (KITTI-3D and
@@ -729,7 +733,7 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, 
     (cfg, launches by kernel)."""
     from dd3d_tpu_torch.models.calibrate import prepare_static_scales
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
-    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_grouped
+    from dd3d_tpu_torch.ops.int8_conv import grouped_route, int8_conv, int8_conv_grouped
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
     from dd3d_tpu_torch.ops.quantize import quantize_int8
 
@@ -745,17 +749,27 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, 
     kernels = (quantize_int8, int8_conv, int8_conv_grouped, greedy_nms)
     for k in kernels:
         k.launches = 0
+    int8_conv_grouped.launches_by_route.update(dict.fromkeys(int8_conv_grouped.launches_by_route, 0))
     dets = [infer(im, intrinsics) for im in images]
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
+    by_route = dict(int8_conv_grouped.launches_by_route)
     log(f"{phase} served {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, static int8: launches {launches}, "
-        f"{per_forward} quantized convs a forward and {grouped_per_forward} grouped ones")
+        f"grouped by route {by_route}, {per_forward} quantized convs a forward and {grouped_per_forward} grouped "
+        "ones")
     expected = per_forward * N_BATCHES
     expected_grouped = grouped_per_forward * N_BATCHES
     if (launches["quantize_int8"] != expected + expected_grouped or launches["int8_conv"] != expected
             or launches["int8_conv_grouped"] != expected_grouped):
         raise AssertionError(f"{phase}: expected {expected + expected_grouped} quantize, {expected} int8 conv and "
                              f"{expected_grouped} grouped int8 conv launches, got {launches}")
+    expected_by_route = dict.fromkeys(by_route, 0)
+    for (_, _, _, c, o, k, stride, g), n in (grouped or {}).items():
+        if c >= min_ch:
+            expected_by_route[grouped_route(c, o, k, k, stride, g)] += n * N_BATCHES
+    if by_route != expected_by_route:
+        raise AssertionError(f"{phase}: expected grouped launches by route {expected_by_route}, got {by_route}")
+    launches["int8_conv_grouped_by_route"] = by_route
     if launches["greedy_nms"] != N_BATCHES:
         raise AssertionError(f"{phase}: NMS kernel launched {launches['greedy_nms']} times for {N_BATCHES} batches")
     if infer.quant.misses:
@@ -2879,19 +2893,26 @@ def cudnn_bf16_grouped(xq, wq, stride, pad, groups):
 
 
 def phase31_grouped_sites(grouped, device, card):
-    """The grouped int8 conv kernel against its plain version at every
-    distinct grouped shape of the regnety forward at batch 8, 384x1280
-    (accumulators, bf16 and f32 epilogues bit for bit), and its device time
-    beside cuDNN's bf16 grouped conv of the same codes and the bound, summed
-    as count x ms over a forward. Returns (max error, {(kernel, plain,
-    bound, bound_by, cudnn) ms at the largest shape}, sums)."""
+    """The grouped int8 conv at every distinct grouped shape of the regnety
+    forward at batch 8, 384x1280: on every route the shape admits (its own,
+    and `direct`), accumulators, bf16 and f32 epilogues bit for bit against
+    the plain version; device time of its own route and of `direct` in
+    turns (direct, own, own, direct, twice; medians), beside cuDNN's bf16
+    grouped conv of the same codes and the bound; its own route no slower
+    than `direct`, and the forward's sum on the own routes below cuDNN's.
+    Sums are count x ms over a forward. Returns (max error, (own route,
+    plain, bound, bound_by, cudnn) ms at the largest shape, sums {"own",
+    "direct", "cudnn", "bound", "n"})."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv_grouped, int8_conv_grouped_acc_plain
+    from dd3d_tpu_torch.ops.int8_conv import (dequant_plain, grouped_routes, int8_conv_grouped,
+                                              int8_conv_grouped_acc_plain)
 
     prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
     gen = torch.Generator().manual_seed(SEED + 31)
-    max_err, sums, largest = 0.0, [0.0, 0.0, 0.0, 0], None
+    max_err, largest = 0.0, None
+    sums = dict.fromkeys(("own", "direct", "cudnn", "bound"), 0.0)
+    sums["n"] = 0
     for key, count in sorted(grouped.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3]):
         b, h, w, c, o, k, stride, g = key
         pad = (k - 1) // 2
@@ -2900,34 +2921,80 @@ def phase31_grouped_sites(grouped, device, card):
         scale = (torch.rand(o, generator=gen) * 1e-3 + 1e-5).to(device)
         bias = torch.randn(o, generator=gen).to(device)
         acc = int8_conv_grouped_acc_plain(xq, wq, stride, pad, g)
-        checks = [("acc", int8_conv_grouped(xq, wq, torch.ones(o, device=device), None, stride, pad,
-                                            torch.float32, g), acc.float())]
-        for dt in (torch.bfloat16, torch.float32):
-            checks.append((str(dt), int8_conv_grouped(xq, wq, scale, bias, stride, pad, dt, g),
-                           dequant_plain(acc, scale, bias, dt)))
-        torch.cuda.synchronize()
-        for name, got, want in checks:
-            max_err = max(max_err, float((got.float() - want.float()).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"phase31 grouped {key} {name}: kernel and plain differ")
-        k_ms = device_ms(lambda: int8_conv_grouped(xq, wq, scale, bias, stride, pad, torch.bfloat16, g), 10, prof)
+        want = {"acc": acc.float(), **{str(dt): dequant_plain(acc, scale, bias, dt)
+                                       for dt in (torch.bfloat16, torch.float32)}}
+        routes = grouped_routes(c, o, k, k, stride, g)
+        for route in routes:
+            got = {"acc": int8_conv_grouped(xq, wq, torch.ones(o, device=device), None, stride, pad,
+                                            torch.float32, g, route=route),
+                   **{str(dt): int8_conv_grouped(xq, wq, scale, bias, stride, pad, dt, g, route=route)
+                      for dt in (torch.bfloat16, torch.float32)}}
+            torch.cuda.synchronize()
+            for name, value in got.items():
+                max_err = max(max_err, float((value.float() - want[name].float()).abs().max()))
+                if not torch.equal(value, want[name]):
+                    raise AssertionError(f"phase31 grouped {key} {route} {name}: kernel and plain differ")
+        own = routes[0]
+        turns = {"direct": [], own: []}
+        for route in ("direct", own, own, "direct") * 2:
+            turns[route].append(device_ms(lambda: int8_conv_grouped(xq, wq, scale, bias, stride, pad,
+                                                                    torch.bfloat16, g, route=route), 10, prof))
+        # medians: a profiler window now and then reads a few times long
+        own_ms, direct_ms = float(np.median(turns[own])), float(np.median(turns["direct"]))
         c_ms = device_ms(cudnn_bf16_grouped(xq, wq, stride, pad, g), 10, prof)
         bnd, by = grouped_conv_bound(xq, wq, stride, pad, g)
         log(f"phase31 grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/forward: "
-            f"accumulators, bf16 and f32 epilogues equal to the plain version (tolerance 0); device time kernel "
-            f"{k_ms:.4f} ms, cuDNN bf16 grouped {c_ms:.4f} ms, bound {bnd:.5f} ms by {by} ({bnd / k_ms:.2f} of it)")
-        sums[0] += count * k_ms
-        sums[1] += count * c_ms
-        sums[2] += count * bnd
-        sums[3] += count
+            f"routes {routes} each equal to the plain version (accumulators, bf16 and f32; tolerance 0); device "
+            f"time in turns (direct, {own}, {own}, direct, twice): {own} "
+            + " / ".join(f"{t:.4f}" for t in turns[own]) + " ms, direct "
+            + " / ".join(f"{t:.4f}" for t in turns["direct"]) + f" ms; medians {own} {own_ms:.4f}, direct "
+            f"{direct_ms:.4f} ms; cuDNN bf16 grouped {c_ms:.4f} ms; bound {bnd:.5f} ms by {by} ({bnd / own_ms:.2f} "
+            f"of it on {own}, {bnd / direct_ms:.2f} on direct)")
+        if own_ms > direct_ms:
+            raise AssertionError(f"phase31 grouped {key}: the {own} route ({own_ms:.4f} ms) is slower than direct "
+                                 f"({direct_ms:.4f} ms)")
+        for name, ms in (("own", own_ms), ("direct", direct_ms), ("cudnn", c_ms), ("bound", bnd)):
+            sums[name] += count * ms
+        sums["n"] += count
         if largest is None:
             p_ms = cuda_ms(lambda: dequant_plain(int8_conv_grouped_acc_plain(xq, wq, stride, pad, g), scale, bias,
                                                  torch.bfloat16), 3)
-            largest = (k_ms, p_ms, bnd, by, c_ms)
+            largest = (own_ms, p_ms, bnd, by, c_ms)
             log(f"phase31 grouped int8 conv at its largest shape {key}: plain version {p_ms:.3f} ms (CUDA events)")
-    log(f"phase31 timing on {card}: grouped int8 convs a forward ({sums[3]} convs), device time: kernel "
-        f"{sums[0]:.3f} ms, cuDNN bf16 grouped {sums[1]:.3f} ms, bound {sums[2]:.4f} ms (count x ms summed)")
+    log(f"phase31 timing on {card}: grouped int8 convs a forward ({sums['n']} convs), device time: own routes "
+        f"{sums['own']:.4f} ms, direct {sums['direct']:.4f} ms, cuDNN bf16 grouped {sums['cudnn']:.4f} ms, bound "
+        f"{sums['bound']:.4f} ms ({sums['bound'] / sums['own']:.2f} of it; count x ms summed)")
+    if sums["own"] >= sums["cudnn"]:
+        raise AssertionError(f"phase31: the grouped convs of a forward take {sums['own']:.4f} ms on their routes, "
+                             f"not below cuDNN bf16 grouped's {sums['cudnn']:.4f} ms")
     return max_err, largest, sums
+
+
+def grouped_routes_forward_ms(infer, images, intrinsics):
+    """Device ms a batch of the int8 path `infer` (serving_profile) with
+    every grouped conv on `direct` (the first, PR 11 kernel) and on its own
+    route, in turns (direct, own, own, direct): ({"direct": [...], "own":
+    [...]}, launches by route in the direct turns). `direct` is forced by
+    standing a wrapper with route="direct" in for the module's
+    int8_conv_grouped for the span of its turn; the wrapper counts its
+    launches on that module name, so the stand-in carries counters too."""
+    from dd3d_tpu_torch.ops import int8_conv as int8_ops
+
+    dispatch = int8_ops.int8_conv_grouped
+
+    def on_direct(*args, **kwargs):
+        return dispatch(*args, **kwargs, route="direct")
+
+    on_direct.launches = 0
+    on_direct.launches_by_route = dict.fromkeys(int8_ops.GROUPED_ROUTES, 0)
+    times = {"direct": [], "own": []}
+    for arm in ("direct", "own", "own", "direct"):
+        int8_ops.int8_conv_grouped = on_direct if arm == "direct" else dispatch
+        try:
+            times[arm].append(serving_profile(infer, images, intrinsics)[0])
+        finally:
+            int8_ops.int8_conv_grouped = dispatch
+    return times, on_direct.launches_by_route
 
 
 def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card):
@@ -2936,7 +3003,9 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card)
     every grouped site (phase31_grouped_sites), phase 8's path checks with
     scales from 2 batches (launches of all four kernels, no scale miss,
     kernel and plain int8 detections identical, drift against bf16), int8
-    against bf16 in turns; then the CLIs on a 375x1200 frame: `predict` in
+    against bf16 in turns, the int8 batch's device time with the grouped
+    convs on `direct` and on their own routes in turns; then the CLIs on a
+    375x1200 frame: `predict` in
     bf16, `calibrate_int8`, and `predict` in static int8 from its scales.
     Returns (launches by kernel, max error of the ungrouped sites, of the
     grouped ones, the grouped kernel's numbers at its largest shape, images/s
@@ -2952,6 +3021,10 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card)
     g_err, g_largest, g_sums = phase31_grouped_sites(grouped, device, card)
     cfg8, launches = phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=regnety_int8_cfg(),
                                       phase="phase31", grouped=grouped)
+    want = {"direct": 0, "depthwise": 24 * N_BATCHES, "mma": 15 * N_BATCHES}
+    if launches["int8_conv_grouped_by_route"] != want:
+        raise AssertionError(f"phase31: grouped launches by route {launches['int8_conv_grouped_by_route']}, "
+                             f"expected {want} (24 BiFPN dw and 15 Y-block b convs a forward)")
     paths = {"int8": get_inference_fn(model, cfg8), "bf16": get_inference_fn(model, bf16_cfg)}
     runs = {"int8": [], "bf16": []}
     for name in ("int8", "bf16", "bf16", "int8"):
@@ -2960,6 +3033,12 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card)
     log(f"phase31 timing on {card}: serving in turns (int8, bf16, bf16, int8), median ms/batch int8 "
         f"{runs['int8'][0]:.3f} / {runs['int8'][1]:.3f}, bf16 {runs['bf16'][0]:.3f} / {runs['bf16'][1]:.3f}: "
         f"static int8 {ips['int8']:.2f} images/s, bf16 {ips['bf16']:.2f} images/s")
+    fwd, forced = grouped_routes_forward_ms(paths["int8"], images, intrinsics)
+    if forced["direct"] == 0 or forced["depthwise"] or forced["mma"]:
+        raise AssertionError(f"phase31: the direct turns' grouped launches by route {forced}")
+    log(f"phase31 timing on {card}: static int8 serving, device time a batch (profiler) in turns (direct, own, own, "
+        f"direct): every grouped conv on direct {fwd['direct'][0]:.3f} / {fwd['direct'][1]:.3f} ms (launches by "
+        f"route {forced}), on its own route {fwd['own'][0]:.3f} / {fwd['own'][1]:.3f} ms")
 
     frames = os.path.join(tmp, "regnety_frames")
     os.makedirs(frames, exist_ok=True)
@@ -3297,9 +3376,11 @@ def main():
         f"dd3d_kitti_dla34's serving with 1000 candidates a level: {large_nms}")
     g_ms, g_plain, g_bound, g_by, g_cudnn = grouped_t
     log(f"timing on {card}: {REGNETY} bf16 serving {rg_ips:.2f} images/s (phase 30); in turns static int8 "
-        f"{rg_turns['int8']:.2f}, bf16 {rg_turns['bf16']:.2f} images/s (phase 31); its {grouped_sums[3]} grouped "
-        f"int8 convs a forward {grouped_sums[0]:.3f} ms of device time against cuDNN bf16 grouped "
-        f"{grouped_sums[1]:.3f} ms and the bound {grouped_sums[2]:.4f} ms; at the largest grouped shape "
+        f"{rg_turns['int8']:.2f}, bf16 {rg_turns['bf16']:.2f} images/s (phase 31); its {grouped_sums['n']} grouped "
+        f"int8 convs a forward {grouped_sums['own']:.4f} ms of device time on their own routes (direct "
+        f"{grouped_sums['direct']:.4f} ms) against cuDNN bf16 grouped {grouped_sums['cudnn']:.4f} ms and the bound "
+        f"{grouped_sums['bound']:.4f} ms; launches by route {rg_launches['int8_conv_grouped_by_route']}; at the "
+        f"largest grouped shape "
         f"{g_ms:.4f} ms (cuDNN {g_cudnn:.4f}, bound {g_bound:.5f} by {g_by}); train step {rg_train_ms:.2f} ms at "
         f"batch {BATCH}, peak {rg_train_peak:.2f} GiB (phase 32); DD3DDenseDepth train step {dd_train_ms:.2f} ms, "
         f"peak {dd_peak:.2f} GiB, dW launches {dd_dw_launches} (phase 33)")

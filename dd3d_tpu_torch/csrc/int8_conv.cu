@@ -53,23 +53,67 @@
 // the bits of the plain PyTorch version.
 
 // A second entry, dd3d_int8_conv_grouped, is the same function with
-// feature_group_count = g > 1 (layers.py:273): RegNet's Y-block group convs
-// (C/g = 16) and BiFPN's depthwise convs (C/g = 1) of the
-// dd3d_kitti_regnety_006_bifpn experiment. Output channel o reads the input
-// channels of its group, (o / (O/g)) * C/g onward. A direct convolution on
-// the CUDA cores: a thread owns one output channel at kPix neighbouring
-// output columns, so each weight it loads serves kPix sums; neighbouring
-// threads own neighbouring channels, so the stores and the input reads of a
-// warp are contiguous. With C % 4 == 0 and C/g % 4 == 0 it takes four
-// channels a __dp4a (int8 dot of 4-byte packs into int32), else one a
-// multiply-add. What bounds it: bytes. Its largest instance at batch 8,
-// 384x1280 (s1_b0/b: (8, 192, 640, 48) -> (8, 96, 320, 48), stride 2) reads
-// 47 MB and writes 24 MB of bf16 (21 us at 3.35 TB/s) for 0.17 G
-// multiply-adds, far under the CUDA cores' int rate; the depthwise convs do
-// 9 multiply-adds an output. The epilogue is `dequant` above, shared, so it
-// gives the plain version's bits too. A tile of inputs in shared memory
-// (each input is read by 9 threads of a 3x3 window at stride 1) is later
-// work.
+// feature_group_count = g > 1 (layers.py:273): output channel o reads the
+// input channels of its group, (o / (O/g)) * C/g onward. The caller names one
+// of three routes (ops/int8_conv.py::grouped_route picks one by shape); each
+// keeps the plain version's bits, through the same epilogue operations
+// (`dequant`, `dequant_pair`).
+// Sizes are those of the dd3d_kitti_regnety_006_bifpn forward at batch 8,
+// 384x1280, where every grouped conv is bound by bytes.
+//
+// - depthwise (C/g = 1, O = C, C % 16 == 0, 3x3, stride 1 or 2): BiFPN's
+//   24 `dw` convs, (8, 48, 160, 160) at P3 down to (8, 3, 10, 160) at P7.
+//   What bounds it: reading x once and writing the output once (P3: 9.8 MB
+//   in, 19.7 MB of bf16 out, 8.8 us at 3.35 TB/s). The work, 9 multiply-adds
+//   an output, is small, but a thread that fetched every tap from L1 one byte
+//   at a time (the direct route) is bound by load instructions. Design: a
+//   block owns 8 output rows x 32 columns x 32 channels and stages its input
+//   tile with the halo in shared memory with 16-byte cp.async, zero-filled
+//   for the padding, so each input byte comes from device memory ~1.33
+//   times (10 x 34 pixels for 8 x 32 at stride 1). The 9 x 32 weights sit
+//   in shared memory as f32. A thread owns 8 channels at 4 neighbouring
+//   columns of one row: it reads each staged pixel's 8 bytes once a tap row,
+//   converts the codes to f32 exactly (a byte permute under the exponent of
+//   2^23, then one subtraction) and sums with f32 FMAs, exact because every
+//   partial sum is an integer below 9 * 127^2 < 2^24. The tile's row stride
+//   puts the four rows a half-warp reads on distinct banks. The epilogue
+//   writes 8 channels a pixel: one 16-byte store of bf16, two of f32. A
+//   thread is held to 128 registers (two blocks an SM): unbounded, the
+//   compiler kept every staged read and weight live (216 registers, one
+//   block an SM, 1.6x slower at P3).
+// - mma (C/g 16 or 32, O/g a multiple of 8 up to 64, 3x3, stride 1 or 2):
+//   RegNet's 15 Y-block `b` convs (C/g = O/g = 16; stride 2 in each stage's
+//   first block). s1_b0/b, (8, 192, 640, 48) -> (8, 96, 320, 48), is 1.70 G
+//   multiply-adds (245,760 outputs x 48 channels x 144), 0.42 G __dp4a on
+//   the CUDA cores: instruction-bound there. On the tensor cores it is bound
+//   by bytes (47 MB read, 24 MB of bf16 written: 21 us). Design: an implicit
+//   GEMM a group, M = output pixels, N = O/g, K = 9 taps x C/g, on mma.sync
+//   m16n8k32 (s8 x s8 -> s32). A 32-byte k-step covers two taps of 16
+//   channels, and the ninth tap of C/g = 16 takes one m16n8k16 step, so K is
+//   not padded. A block owns 8 x 16 output pixels for a run of groups of at
+//   most 64 channels (each pixel's slice one coalesced read). It stages the
+//   input tile with its halo ((2*8+1) x (2*16+1) pixels at stride 2) and
+//   the run's weights with cp.async, and feeds A with ldmatrix: each 16-byte
+//   matrix row is one pixel's channels of one tap, at a per-lane address. A
+//   pixel takes an odd number of 16-byte units and a stride-2 tile keeps the
+//   even and odd input columns in separate halves, so the 8 rows of each
+//   ldmatrix lie on distinct banks. A warp owns one output row of the tile
+//   (16 pixels) and takes the run's groups in turn, up to 16 output channels
+//   at a time; its epilogue dequantizes the MMA fragments into shared memory
+//   and writes 16-byte rows. The tile's geometry is fixed at compile time,
+//   so the loops hold no division by a runtime value, and a thread is held
+//   to 64 registers (four blocks an SM).
+// - direct (any shape; served alone where C/g is not 1, 16 or 32, O/g is
+//   not 1 or a multiple of 8, or the kernel is not 3x3: C/g = 3 or 4,
+//   O = 2C, ...): the first version, kept as the general route. A thread
+//   owns one output channel at kPix neighbouring output columns, so each
+//   weight it loads serves kPix sums; neighbouring threads own neighbouring
+//   channels, so a warp's stores and input reads are contiguous. With
+//   C % 4 == 0 and C/g % 4 == 0 it takes four channels a __dp4a, else one
+//   a multiply-add. What bounds it: load instructions, not bytes. Nothing
+//   is staged in shared memory, so each input is loaded again, from L1 or
+//   L2, by every thread whose window covers it (9 times at stride 1); at
+//   the regnety shapes it reaches 0.02-0.07 of the byte bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,6 +209,36 @@ template <typename OutT>
 struct alignas(2 * sizeof(OutT)) Pair {  // two neighbouring channels, one store
   OutT v[2];
 };
+
+// The tiled routes' epilogue, for two neighbouring channels at once: the
+// operations of `dequant` on the sums as exact floats, with the bias already
+// rounded as the output dtype adds it (bias_term, once a channel) and a bf16
+// pair rounded by one conversion (to nearest even, each element: the same
+// bits).
+__device__ __forceinline__ float bias_term(const float* bias, int o, float) {
+  return bias != nullptr ? __ldg(bias + o) : 0.0f;
+}
+
+__device__ __forceinline__ float bias_term(const float* bias, int o, __nv_bfloat16) {
+  return bias != nullptr ? __bfloat162float(__float2bfloat16_rn(__ldg(bias + o))) : 0.0f;
+}
+
+__device__ __forceinline__ Pair<__nv_bfloat16> dequant_pair(float s0, float s1, float sc0, float sc1, float b0,
+                                                            float b1, bool has_bias, __nv_bfloat16) {
+  __nv_bfloat162 y = __floats2bfloat162_rn(__fmul_rn(s0, sc0), __fmul_rn(s1, sc1));
+  if (has_bias) y = __floats2bfloat162_rn(__fadd_rn(__low2float(y), b0), __fadd_rn(__high2float(y), b1));
+  return Pair<__nv_bfloat16>{{__low2bfloat16(y), __high2bfloat16(y)}};
+}
+
+__device__ __forceinline__ Pair<float> dequant_pair(float s0, float s1, float sc0, float sc1, float b0, float b1,
+                                                    bool has_bias, float) {
+  float v0 = __fmul_rn(s0, sc0), v1 = __fmul_rn(s1, sc1);
+  if (has_bias) {
+    v0 = __fadd_rn(v0, b0);
+    v1 = __fadd_rn(v1, b1);
+  }
+  return Pair<float>{{v0, v1}};
+}
 
 template <int BN, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -415,6 +489,384 @@ int launch_grouped(const void* x, const void* w, const float* scale, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The depthwise route ----
+
+constexpr int kDwThreads = 256;    // 8 warps
+constexpr int kDwPix = 4;          // output columns a thread
+constexpr int kDwTH = 8;           // output rows a block: lane / 4
+constexpr int kDwTW = 8 * kDwPix;  // output columns a block: a run of kDwPix a warp
+constexpr int kDwCB = 32;          // channels a block: 8 a thread, lane % 4
+
+// Bytes between the staged tile's rows: at least a row of pixels, a multiple
+// of 16 (cp.async), and such that the four rows a half-warp reads (lane / 4,
+// so `s` input rows apart) start 32 or 96 bytes apart modulo 128: their
+// 32-byte runs then cover the 32 banks once.
+__host__ __device__ constexpr int dw_row_bytes(int s) {
+  int rs = ((kDwTW - 1) * s + 3) * kDwCB;
+  while ((s * rs) % 128 != 32 && (s * rs) % 128 != 96) rs += 16;
+  return rs;
+}
+
+// Four int8 codes of a word to exact floats: byte b ^ 0x80 = b + 128 goes
+// under the exponent of 2^23 (the float 2^23 + b + 128), then 2^23 + 128 is
+// subtracted.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t word, float* v) {
+  const uint32_t u = word ^ 0x80808080u;
+  v[0] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)), 8388736.0f);
+  v[1] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)), 8388736.0f);
+  v[2] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)), 8388736.0f);
+  v[3] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)), 8388736.0f);
+}
+
+// 8 neighbouring channels of one output pixel from their exact sums, with
+// their scales and bias terms: one 16-byte store of bf16, two of f32.
+template <typename OutT>
+__device__ __forceinline__ void store8(OutT* dst, const float (&sum)[8], const float (&sc)[8], const float (&bi)[8],
+                                       bool has_bias) {
+  alignas(16) Pair<OutT> v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = dequant_pair(sum[2 * e], sum[2 * e + 1], sc[2 * e], sc[2 * e + 1], bi[2 * e], bi[2 * e + 1], has_bias,
+                        OutT());
+  }
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(v)) / 16; ++i) {
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(v)[i];
+  }
+}
+
+// x int8 (B, H, W, C); w int8 (C, 3, 3, 1); out (B, Ho, Wo, C). Grid: (output
+// tiles of kDwTH x kDwTW, runs of kDwCB channels, images).
+template <int S, typename OutT>
+__global__ void __launch_bounds__(kDwThreads, 2)  // <= 128 registers: two blocks an SM
+int8_conv_depthwise_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                           const float* __restrict__ scale, const float* __restrict__ bias, OutT* __restrict__ out,
+                           ConvShape s, int tiles_w) {
+  constexpr int kRows = (kDwTH - 1) * S + 3, kCols = (kDwTW - 1) * S + 3;
+  constexpr int kRowBytes = dw_row_bytes(S);
+  __shared__ __align__(16) unsigned char tile[kRows * kRowBytes];
+  __shared__ __align__(16) float wsm[9][kDwCB];
+
+  const int tid = threadIdx.x;
+  const int oh0 = (blockIdx.x / tiles_w) * kDwTH, ow0 = (blockIdx.x % tiles_w) * kDwTW;
+  const int c0 = blockIdx.y * kDwCB;
+  const int b = blockIdx.z;
+  const int h0 = oh0 * S - s.pad, w0 = ow0 * S - s.pad;
+  const int8_t* xb = x + static_cast<size_t>(b) * s.h * s.w * s.c;
+
+  // The input tile with its halo, two 16-byte chunks a pixel; zeros outside
+  // the image and past the last channel.
+  for (int i = tid; i < kRows * kCols * 2; i += kDwThreads) {
+    const int half = i & 1, pix = i >> 1;
+    const int r = pix / kCols, q = pix - r * kCols;
+    const int hi = h0 + r, wi = w0 + q, c = c0 + half * 16;
+    const bool ok = hi >= 0 && hi < s.h && wi >= 0 && wi < s.w && c < s.c;
+    cp_async16(smem_u32(tile + r * kRowBytes + q * kDwCB + half * 16),
+               ok ? xb + (static_cast<size_t>(hi) * s.w + wi) * s.c + c : x, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = tid; i < 9 * kDwCB; i += kDwThreads) {
+    const int tap = i / kDwCB, c = c0 + i % kDwCB;
+    wsm[tap][i % kDwCB] = c < s.c ? static_cast<float>(w[c * 9 + tap]) : 0.0f;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int oct = lane % 4, row = lane / 4;
+  float acc[kDwPix][8];
+#pragma unroll
+  for (int p = 0; p < kDwPix; ++p) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[p][e] = 0.0f;
+  }
+  const unsigned char* src = tile + row * S * kRowBytes + warp * kDwPix * S * kDwCB + oct * 8;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    float wr[3][8];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float4 lo = *reinterpret_cast<const float4*>(&wsm[r * 3 + q][oct * 8]);
+      const float4 hi = *reinterpret_cast<const float4*>(&wsm[r * 3 + q][oct * 8 + 4]);
+      wr[q][0] = lo.x; wr[q][1] = lo.y; wr[q][2] = lo.z; wr[q][3] = lo.w;
+      wr[q][4] = hi.x; wr[q][5] = hi.y; wr[q][6] = hi.z; wr[q][7] = hi.w;
+    }
+    // Column k of the thread's window feeds output p through tap q where
+    // k = p * S + q.
+#pragma unroll
+    for (int k = 0; k < (kDwPix - 1) * S + 3; ++k) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + r * kRowBytes + k * kDwCB);
+      float v[8];
+      s8x4_to_f32(raw.x, v);
+      s8x4_to_f32(raw.y, v + 4);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        if (k < q || (k - q) % S != 0 || (k - q) / S >= kDwPix) continue;
+        const int p = (k - q) / S;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[p][e] = __fmaf_rn(wr[q][e], v[e], acc[p][e]);
+      }
+    }
+  }
+
+  const int oh = oh0 + row, c = c0 + oct * 8;
+  if (oh >= s.ho || c >= s.c) return;
+  float sc[8], bi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sc[e] = __ldg(scale + c + e);
+    bi[e] = bias_term(bias, c + e, OutT());
+  }
+#pragma unroll
+  for (int p = 0; p < kDwPix; ++p) {
+    const int ow = ow0 + warp * kDwPix + p;
+    if (ow < s.wo) {
+      store8(out + ((static_cast<size_t>(b) * s.ho + oh) * s.wo + ow) * s.o + c, acc[p], sc, bi, bias != nullptr);
+    }
+  }
+}
+
+template <typename OutT>
+int launch_grouped_depthwise(const void* x, const void* w, const float* scale, const float* bias, void* out,
+                             const ConvShape& s, void* stream) {
+  const int tiles_w = (s.wo + kDwTW - 1) / kDwTW, tiles_h = (s.ho + kDwTH - 1) / kDwTH;
+  const dim3 grid(tiles_h * tiles_w, (s.c + kDwCB - 1) / kDwCB, s.batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  const int8_t* wi = static_cast<const int8_t*>(w);
+  OutT* o = static_cast<OutT*>(out);
+  if (s.stride == 1) {
+    int8_conv_depthwise_kernel<1, OutT><<<grid, kDwThreads, 0, st>>>(xi, wi, scale, bias, o, s, tiles_w);
+  } else {
+    int8_conv_depthwise_kernel<2, OutT><<<grid, kDwThreads, 0, st>>>(xi, wi, scale, bias, o, s, tiles_w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The mma route ----
+
+constexpr int kMmaThreads = 256;  // 8 warps, one an output row of the tile
+constexpr int kMmaTH = 8;         // output rows a block
+constexpr int kMmaTW = 16;        // output columns a block: the 16 rows of an m16 tile
+constexpr int kMmaRunBytes = 64;  // channels of a block's run of groups, at most: 4 units of 16 bytes
+static_assert(kMmaTH == kMmaThreads / 32, "a warp an output row");
+
+// The staged halo tile of stride S: rows, columns, and the column at which
+// the odd input columns start (stride 2) or 0.
+template <int S>
+struct MmaTile {
+  static constexpr int kRows = (kMmaTH - 1) * S + 3;
+  static constexpr int kCols = (kMmaTW - 1) * S + 3;
+  static constexpr int kHalf = S == 1 ? 0 : (kCols + 1) / 2;
+  static constexpr int kColsAlloc = S == 1 ? kCols : 2 * kHalf;
+};
+
+// The mma route's shared-memory plan, set on the host.
+struct MmaPlan {
+  int groups, cg, og;
+  int gb;         // groups a block
+  int pix_bytes;  // a staged pixel: gb * cg bytes, + 16 where that is an even number of 16-byte units
+  int w_row;      // a staged weight row: 9 * cg bytes, + 16 likewise
+  int tile_bytes, w_bytes;
+  int tiles_w;
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&a)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(a[0]), "=r"(a[1]) : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k16(int (&d)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// An int32 sum as a float, exactly. With C/g = 16 (kM = 1) |sum| <= 144 *
+// 127^2 < 2^22: the sum goes into the mantissa of 1.5 * 2^23, which is then
+// subtracted (an integer add and a float add, where the conversion
+// instruction runs at a quarter of their rate).
+template <int kM>
+__device__ __forceinline__ float exact_float(int sum) {
+  if (kM == 1) return __fsub_rn(__int_as_float(sum + 0x4B400000), 12582912.0f);
+  return __int2float_rn(sum);
+}
+
+// x int8 (B, H, W, C); w int8 (O, 3, 3, C/g); out (B, Ho, Wo, O). kM = C/g / 16:
+// K runs over 9 * kM 16-byte chunks, chunk t * kM + u holding tap t's
+// channels 16u onward (the weight's OHWI order). Grid: (output tiles of
+// kMmaTH x kMmaTW, runs of p.gb groups, images).
+template <int S, int kM, typename OutT>
+__global__ void __launch_bounds__(kMmaThreads, 4)  // <= 64 registers: four blocks an SM
+int8_conv_grouped_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                             const float* __restrict__ scale, const float* __restrict__ bias,
+                             OutT* __restrict__ out, ConvShape s, MmaPlan p) {
+  using Tile = MmaTile<S>;
+  constexpr int kChunks = 9 * kM;
+  constexpr int kStageRow = 16 * static_cast<int>(sizeof(OutT)) + 16;  // a staged output pixel, padded
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* tile = smem;
+  unsigned char* wsm = smem + p.tile_bytes;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  unsigned char* stage = wsm + p.w_bytes + warp * 16 * kStageRow;
+  const int oh0 = (blockIdx.x / p.tiles_w) * kMmaTH, ow0 = (blockIdx.x % p.tiles_w) * kMmaTW;
+  const int g0 = blockIdx.y * p.gb, ng = min(p.gb, p.groups - g0);
+  const int b = blockIdx.z;
+  const int h0 = oh0 * S - s.pad, w0 = ow0 * S - s.pad;
+  const int8_t* xb = x + static_cast<size_t>(b) * s.h * s.w * s.c;
+
+  // The input tile with its halo: the run's channels of each pixel (unit u,
+  // 16 bytes, a thread), zeros outside the image and past the last group.
+  const int units = p.gb * p.cg / 16, u = tid % 4;
+  for (int pix = tid / 4; pix < Tile::kRows * Tile::kCols; pix += kMmaThreads / 4) {
+    if (u >= units) break;
+    const int r = pix / Tile::kCols, q = pix - r * Tile::kCols;
+    const int hi = h0 + r, wi = w0 + q, c = g0 * p.cg + u * 16;
+    const bool ok = hi >= 0 && hi < s.h && wi >= 0 && wi < s.w && c < s.c;
+    const int qs = S == 1 ? q : (q & 1) * Tile::kHalf + (q >> 1);
+    cp_async16(smem_u32(tile + (r * Tile::kColsAlloc + qs) * p.pix_bytes + u * 16),
+               ok ? xb + (static_cast<size_t>(hi) * s.w + wi) * s.c + c : x, ok);
+  }
+  // The run's weights: output channels g0 * O/g onward, 9 * C/g bytes each.
+  for (int i = tid; i < p.gb * p.og * kChunks; i += kMmaThreads) {
+    const int n = i / kChunks, v = i - n * kChunks;
+    const int o = g0 * p.og + n;
+    const bool ok = o < s.o;
+    cp_async16(smem_u32(wsm + n * p.w_row + v * 16), ok ? w + static_cast<size_t>(o) * kChunks * 16 + v * 16 : w,
+               ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // Warp `warp` computes output row `warp` of the tile for every group of
+  // the run and every pass of up to 16 output channels (two n8 tiles).
+  // ldmatrix: lane l gives the row address of matrix l / 8, which is output
+  // pixel l % 16 at chunk kk + l / 16; chunk t * kM + v is tap t = (r, q),
+  // channels 16v onward, and at stride 2 input column 2c + q lies at
+  // (q & 1) * kHalf + c + (q >> 1).
+  auto chunk_offset = [&](int ch) {
+    const int t = ch / kM, r = t / 3, q = t % 3;
+    return (r * Tile::kColsAlloc + (S == 1 ? q : (q & 1) * Tile::kHalf + (q >> 1))) * p.pix_bytes + (ch % kM) * 16;
+  };
+  const uint32_t a_row = smem_u32(tile) + (warp * S * Tile::kColsAlloc + (lane & 15)) * p.pix_bytes;
+  const int gid = lane / 4, tig = lane % 4;
+  const int oh = oh0 + warp;
+  for (int j = 0; j < ng; ++j) {
+    for (int n0 = 0; n0 < p.og; n0 += 16) {
+      const int ntiles = p.og - n0 >= 16 ? 2 : 1;
+      const uint32_t a_base = a_row + j * p.cg;
+      const unsigned char* b_base = wsm + (j * p.og + n0 + gid) * p.w_row + tig * 4;
+      int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int kk = 0; kk + 1 < kChunks; kk += 2) {
+        uint32_t a[4];
+        ldmatrix_x4(a, a_base + chunk_offset(kk + (lane >> 4)));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < ntiles) {
+            const unsigned char* bp = b_base + h * 8 * p.w_row + kk * 16;
+            mma_k32(acc[h], a, *reinterpret_cast<const uint32_t*>(bp), *reinterpret_cast<const uint32_t*>(bp + 16));
+          }
+        }
+      }
+      if (kChunks % 2) {
+        uint32_t a[2];
+        ldmatrix_x2(a, a_base + chunk_offset(kChunks - 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h < ntiles) {
+            mma_k16(acc[h], a, *reinterpret_cast<const uint32_t*>(b_base + h * 8 * p.w_row + (kChunks - 1) * 16));
+          }
+        }
+      }
+
+      // Epilogue: accumulator e of n8 tile h is pixel gid (+8 for e >= 2),
+      // channel 8h + 2 tig (+1 for odd e). Dequantize into the warp's
+      // staging rows, then write each pixel's channels in 16-byte runs.
+      const int o0 = (g0 + j) * p.og + n0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= ntiles) continue;
+        const int col = h * 8 + tig * 2, o = o0 + col;
+        const float sc0 = __ldg(scale + o), sc1 = __ldg(scale + o + 1);
+        const float b0 = bias_term(bias, o, OutT()), b1 = bias_term(bias, o + 1, OutT());
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          *reinterpret_cast<Pair<OutT>*>(stage + (gid + 8 * e2) * kStageRow + col * sizeof(OutT)) =
+              dequant_pair(exact_float<kM>(acc[h][2 * e2]), exact_float<kM>(acc[h][2 * e2 + 1]), sc0, sc1, b0, b1,
+                           bias != nullptr, OutT());
+        }
+      }
+      __syncwarp();
+      // 16-byte units a pixel: 8 channels of bf16, 4 of f32; 1, 2 or 4
+      const int shift = (ntiles - 1) + (sizeof(OutT) == 4 ? 1 : 0);
+      for (int i = lane; i < (16 << shift); i += 32) {
+        const int px = i >> shift, v = i & ((1 << shift) - 1);
+        const int ow = ow0 + px;
+        if (oh < s.ho && ow < s.wo) {
+          OutT* dst = out + ((static_cast<size_t>(b) * s.ho + oh) * s.wo + ow) * s.o + o0 + v * (16 / sizeof(OutT));
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(stage + px * kStageRow + v * 16);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int S, int kM, typename OutT>
+int launch_mma_kernel(const int8_t* x, const int8_t* w, const float* scale, const float* bias, OutT* out,
+                      const ConvShape& s, const MmaPlan& p, cudaStream_t stream) {
+  const int smem = p.tile_bytes + p.w_bytes + (kMmaThreads / 32) * 16 * (16 * static_cast<int>(sizeof(OutT)) + 16);
+  cudaError_t err = cudaFuncSetAttribute(int8_conv_grouped_mma_kernel<S, kM, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(((s.ho + kMmaTH - 1) / kMmaTH) * p.tiles_w, (p.groups + p.gb - 1) / p.gb, s.batch);
+  int8_conv_grouped_mma_kernel<S, kM, OutT><<<grid, kMmaThreads, smem, stream>>>(x, w, scale, bias, out, s, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_grouped_mma(const void* x, const void* w, const float* scale, const float* bias, void* out,
+                       const ConvShape& s, int groups, void* stream) {
+  MmaPlan p;
+  p.groups = groups;
+  p.cg = s.c / groups;
+  p.og = s.o / groups;
+  p.gb = groups < kMmaRunBytes / p.cg ? groups : kMmaRunBytes / p.cg;
+  p.pix_bytes = p.gb * p.cg + ((p.gb * p.cg / 16) % 2 ? 0 : 16);
+  p.w_row = 9 * p.cg + ((9 * p.cg / 16) % 2 ? 0 : 16);
+  p.tile_bytes = (s.stride == 1 ? MmaTile<1>::kRows * MmaTile<1>::kColsAlloc
+                                : MmaTile<2>::kRows * MmaTile<2>::kColsAlloc) * p.pix_bytes;
+  p.w_bytes = p.gb * p.og * p.w_row;
+  p.tiles_w = (s.wo + kMmaTW - 1) / kMmaTW;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  const int8_t* wi = static_cast<const int8_t*>(w);
+  OutT* o = static_cast<OutT*>(out);
+  if (p.cg == 16) {
+    return s.stride == 1 ? launch_mma_kernel<1, 1>(xi, wi, scale, bias, o, s, p, st)
+                         : launch_mma_kernel<2, 1>(xi, wi, scale, bias, o, s, p, st);
+  }
+  return s.stride == 1 ? launch_mma_kernel<1, 2>(xi, wi, scale, bias, o, s, p, st)
+                       : launch_mma_kernel<2, 2>(xi, wi, scale, bias, o, s, p, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,12 +894,15 @@ int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float
 // The grouped conv: x int8 (batch, h, w, c); w int8 (o, kh, kw, c / groups);
 // scale, bias and out as dd3d_int8_conv. c and o must be multiples of
 // groups; no channel padding is needed. Every tensor contiguous and under
-// 2^31 elements (the wrapper checks). Launches on `stream`, does not
-// synchronise; returns cudaGetLastError(), or -1 on a shape the kernel does
-// not take.
+// 2^31 elements (the wrapper checks). `route` names the kernel: 0 direct
+// (any shape), 1 depthwise (c / groups == 1, o == c, c % 16 == 0), 2 mma
+// (c / groups 16 or 32, o / groups a multiple of 8 up to 64); 1 and 2 take
+// 3x3 kernels at stride 1 or 2 and 16-byte aligned x, w and out. Launches on
+// `stream`, does not synchronise; returns cudaGetLastError(), or -1 on a
+// shape or route the kernels do not take.
 int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, const float* bias, void* out,
                            int out_bf16, int batch, int h, int w_, int c, int o, int kh, int kw, int stride, int pad,
-                           int groups, void* stream) {
+                           int groups, int route, void* stream) {
   ConvShape s;
   s.batch = batch; s.h = h; s.w = w_; s.c = c; s.o = o; s.kh = kh; s.kw = kw; s.stride = stride; s.pad = pad;
   s.ho = (h + 2 * pad - kh) / stride + 1;
@@ -455,7 +910,22 @@ int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, con
   s.k = kh * kw * (groups > 0 ? c / groups : 0);
   s.m = batch * s.ho * s.wo;
   if (groups <= 0 || c % groups != 0 || o % groups != 0 || s.ho <= 0 || s.wo <= 0 || o <= 0) return -1;
+  const int cg = c / groups, og = o / groups;
+  const bool tiled = kh == 3 && kw == 3 && (stride == 1 || stride == 2) && pad >= 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (route == 1 && !(tiled && cg == 1 && og == 1 && c % 16 == 0)) return -1;
+  if (route == 2 && !(tiled && (cg == 16 || cg == 32) && og % 8 == 0 && og <= 64)) return -1;
+  if (route < 0 || route > 2) return -1;
   if (s.m == 0) return 0;
+  if (route == 1) {
+    return out_bf16 ? launch_grouped_depthwise<__nv_bfloat16>(x, w, scale, bias, out, s, stream)
+                    : launch_grouped_depthwise<float>(x, w, scale, bias, out, s, stream);
+  }
+  if (route == 2) {
+    return out_bf16 ? launch_grouped_mma<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
+                    : launch_grouped_mma<float>(x, w, scale, bias, out, s, groups, stream);
+  }
   return out_bf16 ? launch_grouped<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
                   : launch_grouped<float>(x, w, scale, bias, out, s, groups, stream);
 }

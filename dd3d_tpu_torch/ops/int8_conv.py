@@ -15,9 +15,13 @@ the TPU. PyTorch has no int8 convolution on CUDA.
 - `int8_conv_grouped(xq, wq, scale, bias, stride, pad, out_dtype, groups)`:
   the same with feature_group_count = groups > 1 (layers.py:273), wq
   (O, kh, kw, C / groups): output channel o sums over the input channels of
-  its group only, with the same epilogue. CUDA tensors launch the grouped
-  kernel of the same source (a direct conv on the CUDA cores), CPU tensors
-  run `int8_conv_grouped_plain`.
+  its group only, with the same epilogue. CUDA tensors launch one of the
+  grouped kernels of the same source, chosen by shape (`grouped_route`):
+  `depthwise` (C/g = 1, O = C: BiFPN's `dw` convs, a shared-memory tile on
+  the CUDA cores), `mma` (C/g = 16 or 32, O/g a multiple of 8: RegNet's
+  Y-block `b` convs, an implicit GEMM a group on the tensor cores) or
+  `direct` (any shape, a direct conv on the CUDA cores); `route=` forces one
+  the shape admits. CPU tensors run `int8_conv_grouped_plain`.
 - `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax,
   groups=1)`: the counterpart of `_int8_conv` as a whole (plus the bias), on
   the port's NCHW (channels_last) activations and OIHW fp32 weights:
@@ -124,7 +128,7 @@ def _library():
         lib = load_library("int8_conv.cu")
         lib.dd3d_int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.dd3d_int8_conv.restype = ctypes.c_int
-        lib.dd3d_int8_conv_grouped.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.dd3d_int8_conv_grouped.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         lib.dd3d_int8_conv_grouped.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -202,12 +206,45 @@ def batch_chunks(batch: int, per_image: int, limit: int = _MAX_ELEMENTS):
 int8_conv.launches = 0
 
 
+GROUPED_ROUTES = ("direct", "depthwise", "mma")  # the C entry's route codes 0, 1, 2
+
+
+def grouped_routes(c: int, o: int, kh: int, kw: int, stride: int, groups: int):
+    """The routes of csrc/int8_conv.cu's grouped conv that take this shape,
+    the preferred first; `direct` takes every shape. `depthwise`: one input
+    and one output channel a group, C % 16 == 0; `mma`: C/g of 16 or 32,
+    O/g a multiple of 8 up to 64; both 3x3 at stride 1 or 2."""
+    cg, og = c // groups, o // groups
+    tiled = kh == 3 and kw == 3 and stride in (1, 2)
+    routes = []
+    if tiled and cg == 1 and og == 1 and c % 16 == 0:
+        routes.append("depthwise")
+    if tiled and cg in (16, 32) and og % 8 == 0 and og <= 64:
+        routes.append("mma")
+    return tuple(routes) + ("direct",)
+
+
+def grouped_route(c: int, o: int, kh: int, kw: int, stride: int, groups: int) -> str:
+    """The route `int8_conv_grouped` launches for this shape."""
+    return grouped_routes(c, o, kh, kw, stride, groups)[0]
+
+
 def int8_conv_grouped(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-                      stride: int, pad: int, out_dtype: torch.dtype, groups: int) -> torch.Tensor:
+                      stride: int, pad: int, out_dtype: torch.dtype, groups: int,
+                      route: Optional[str] = None) -> torch.Tensor:
     """Dequantized grouped int8 conv (B, Ho, Wo, O) of xq (B, H, W, C) and wq
-    (O, kh, kw, C / groups); see the module docstring.
-    `int8_conv_grouped.launches` counts kernel launches."""
+    (O, kh, kw, C / groups); see the module docstring. `route` (default
+    `grouped_route`'s choice) names the kernel, and raises if the shape does
+    not admit it. `int8_conv_grouped.launches` counts kernel launches,
+    `int8_conv_grouped.launches_by_route` the same by route."""
     _check(xq, wq, scale, bias, out_dtype, groups)
+    b, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
+    admitted = grouped_routes(c, o, kh, kw, stride, groups)
+    route = admitted[0] if route is None else route
+    if route not in admitted:
+        raise ValueError(f"the grouped int8 conv's {route!r} route does not take C={c}, O={o}, {kh}x{kw}, "
+                         f"stride {stride}, {groups} groups (it takes {admitted})")
     if xq.device.type == "cpu":
         return int8_conv_grouped_plain(xq, wq, scale, bias, stride, pad, out_dtype, groups)
     if xq.device.type != "cuda":
@@ -215,28 +252,32 @@ def int8_conv_grouped(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, b
     tensors = [xq, wq, scale] + ([] if bias is None else [bias])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("xq, wq, scale and bias must be contiguous (xq NHWC, wq OHWI)")
-    b, h, w, c = xq.shape
-    o, kh, kw, _ = wq.shape
     ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}, stride {stride}, pad {pad}")
     if wq.numel() > _MAX_ELEMENTS:
         raise ValueError("the weight exceeds the kernel's 2^31-element limit")
+    if route != "direct" and (xq.data_ptr() % 16 or wq.data_ptr() % 16):
+        raise ValueError(f"the {route} route needs xq and wq 16-byte aligned")
     out = torch.empty((b, ho, wo, o), dtype=out_dtype, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         for i0, i1 in batch_chunks(b, max(h * w * c, ho * wo * o)):
+            # the tiled routes take C % 16 == 0 and O % 8 == 0, so each run's
+            # images start 16-byte aligned
             err = _library().dd3d_int8_conv_grouped(
                 xq[i0:i1].data_ptr(), wq.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
                 out[i0:i1].data_ptr(), int(out_dtype == torch.bfloat16), i1 - i0, h, w, c, o, kh, kw, stride, pad,
-                groups, stream)
+                groups, GROUPED_ROUTES.index(route), stream)
             if err != 0:
-                raise RuntimeError(f"grouped int8 conv kernel launch failed: error {err}")
+                raise RuntimeError(f"grouped int8 conv kernel ({route}) launch failed: error {err}")
             int8_conv_grouped.launches += 1
+            int8_conv_grouped.launches_by_route[route] += 1
     return out
 
 
 int8_conv_grouped.launches = 0
+int8_conv_grouped.launches_by_route = dict.fromkeys(GROUPED_ROUTES, 0)
 
 
 def activation_scale(x: torch.Tensor, act_amax: Optional[float]) -> torch.Tensor:

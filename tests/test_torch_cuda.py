@@ -291,29 +291,95 @@ REGNETY_GROUPED_SHAPES = [
 ]
 
 
+def _grouped_case(card, b, h, w, c, o, g, stride, seed):
+    rng = np.random.RandomState(seed)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.randint(-127, 128, (o, 3, 3, c // g)).astype(np.int8)).to(card)
+    scale = torch.from_numpy((rng.rand(o) * 1e-3 + 1e-5).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32)).to(card)
+    return xq, wq, scale, bias
+
+
+def _check_grouped_route(xq, wq, scale, bias, stride, g, route, launches_per_call=1):
+    """The `route` kernel's int32 accumulators and bf16 / f32 epilogues bit
+    for bit against the plain version, each launch counted on its route."""
+    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv_grouped, int8_conv_grouped_acc_plain
+
+    acc = int8_conv_grouped_acc_plain(xq, wq, stride, 1, g)
+    before = int8_conv_grouped.launches
+    by_route = dict(int8_conv_grouped.launches_by_route)
+    assert torch.equal(int8_conv_grouped(xq, wq, torch.ones_like(scale), None, stride, 1, torch.float32, g,
+                                         route=route), acc.float())
+    for dt in (torch.bfloat16, torch.float32):
+        assert torch.equal(int8_conv_grouped(xq, wq, scale, bias, stride, 1, dt, g, route=route),
+                           dequant_plain(acc, scale, bias, dt))
+    torch.cuda.synchronize()
+    assert int8_conv_grouped.launches == before + 3 * launches_per_call
+    expected = dict(by_route, **{route: by_route[route] + 3 * launches_per_call})
+    assert int8_conv_grouped.launches_by_route == expected
+
+
 @pytest.mark.parametrize("b,h,w,c,g,stride", REGNETY_GROUPED_SHAPES + [
     (2, 13, 17, 24, 6, 2),  # C/g = 4, ragged
     (2, 9, 11, 12, 4, 1),   # C/g = 3: no 4-channel packs
     (1, 7, 9, 8, 2, 1),     # O = 2 C: two outputs a group
 ])
 def test_int8_conv_grouped_kernel_matches_plain(card, b, h, w, c, g, stride):
-    """Exact int32 accumulators and the bf16 / f32 epilogues bit for bit."""
-    from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv_grouped, int8_conv_grouped_acc_plain
+    """Exact int32 accumulators and the bf16 / f32 epilogues bit for bit, on
+    the route the dispatcher picks and on `direct`, which every shape admits."""
+    from dd3d_tpu_torch.ops.int8_conv import grouped_routes
 
     o = 2 * c if c == 8 else c
-    rng = np.random.RandomState(c + g)
-    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)).to(card)
-    wq = torch.from_numpy(rng.randint(-127, 128, (o, 3, 3, c // g)).astype(np.int8)).to(card)
-    scale = torch.from_numpy((rng.rand(o) * 1e-3 + 1e-5).astype(np.float32)).to(card)
-    bias = torch.from_numpy(rng.randn(o).astype(np.float32)).to(card)
-    acc = int8_conv_grouped_acc_plain(xq, wq, stride, 1, g)
-    before = int8_conv_grouped.launches
-    assert torch.equal(int8_conv_grouped(xq, wq, torch.ones_like(scale), None, stride, 1, torch.float32, g),
-                       acc.float())
-    for dt in (torch.bfloat16, torch.float32):
-        assert torch.equal(int8_conv_grouped(xq, wq, scale, bias, stride, 1, dt, g),
-                           dequant_plain(acc, scale, bias, dt))
-    assert int8_conv_grouped.launches == before + 3
+    case = _grouped_case(card, b, h, w, c, o, g, stride, c + g)
+    for route in grouped_routes(c, o, 3, 3, stride, g):
+        _check_grouped_route(*case, stride, g, route)
+
+
+@pytest.mark.parametrize("b,h,w,c,o,g,stride,route", [
+    (2, 13, 37, 32, 32, 32, 1, "depthwise"),    # H and W that no 8 x 32 tile divides
+    (2, 21, 70, 48, 48, 48, 2, "depthwise"),    # stride 2; C = 48: a half-filled run of 32 channels
+    (1, 9, 33, 160, 160, 160, 1, "depthwise"),  # batch 1
+    (1, 5, 3, 16, 16, 16, 2, "depthwise"),      # a tile larger than the image
+    (2, 20, 36, 64, 64, 2, 1, "mma"),           # C/g = 32
+    (2, 16, 24, 64, 32, 4, 1, "mma"),           # O/g = 8: one n8 tile
+    (2, 12, 20, 48, 72, 3, 2, "mma"),           # O/g = 24: a pass of two n8 tiles, then one
+    (2, 23, 45, 64, 64, 4, 2, "mma"),           # odd H and W at stride 2
+    (1, 11, 19, 112, 112, 7, 1, "mma"),         # 7 groups: a run of 4, then a ragged run of 3
+    (2, 9, 11, 12, 12, 4, 1, "direct"),         # C/g = 3
+    (2, 13, 17, 24, 24, 6, 2, "direct"),        # C/g = 4
+    (1, 7, 9, 8, 16, 2, 1, "direct"),           # O = 2 C
+])
+def test_int8_conv_grouped_route_edges(card, b, h, w, c, o, g, stride, route):
+    """Each route at its edges, bit for bit, and the dispatcher's choice."""
+    from dd3d_tpu_torch.ops.int8_conv import grouped_route
+
+    assert grouped_route(c, o, 3, 3, stride, g) == route
+    _check_grouped_route(*_grouped_case(card, b, h, w, c, o, g, stride, b + h + c), stride, g, route)
+
+
+@pytest.mark.parametrize("c,o,g,stride,route", [(32, 32, 32, 2, "depthwise"), (64, 64, 4, 2, "mma"),
+                                                 (24, 24, 6, 1, "direct")])
+def test_int8_conv_grouped_routes_on_runs_of_images(card, monkeypatch, c, o, g, stride, route):
+    """A batch split by `batch_chunks` into runs of 2 images (as past 2^31
+    elements): one launch a run, each run's pointers where they belong."""
+    from dd3d_tpu_torch.ops import int8_conv as mod
+
+    chunks = mod.batch_chunks
+    monkeypatch.setattr(mod, "batch_chunks", lambda batch, per_image: chunks(batch, per_image, 2 * per_image))
+    _check_grouped_route(*_grouped_case(card, 5, 14, 22, c, o, g, stride, c + o), stride, g, route,
+                         launches_per_call=3)
+
+
+def test_int8_conv_grouped_rejects_a_route_the_shape_does_not_take(card):
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv_grouped
+
+    xq, wq, scale, _ = _grouped_case(card, 1, 8, 8, 24, 24, 6, 1, 0)
+    with pytest.raises(ValueError, match="route"):
+        int8_conv_grouped(xq, wq, scale, None, 1, 1, torch.float32, 6, route="mma")
+    _, wq, scale, _ = _grouped_case(card, 1, 8, 8, 64, 64, 4, 1, 0)
+    shifted = torch.zeros(8 * 8 * 64 + 1, dtype=torch.int8, device=card)[1:].view(1, 8, 8, 64)  # 1 byte off
+    with pytest.raises(ValueError, match="aligned"):
+        int8_conv_grouped(shifted, wq, scale, None, 1, 1, torch.float32, 4, route="mma")
 
 
 def test_int8_conv_dequant_kernel_path_matches_plain(card):
