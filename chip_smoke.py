@@ -20,11 +20,15 @@ dd3d_nusc_dla34 (NuscenesDD3D: serving with the rotated BEV NMS and the
 6-camera sample aggregation, EVAL_ONLY with the nuScenes evaluator and the
 TTA test, training), then NMS past N = 2048, dd3d_kitti_regnety_006_bifpn
 (RegNetY-006 + BiFPN: serving in bf16 and static int8 with the grouped int8
-conv, the train step, the CLIs) and DD3DDenseDepth's train step, and fails
-loudly (non-zero exit) if any phase fails. The four CUDA sources (nine
+conv, the train step, the CLIs) and DD3DDenseDepth's train step, then the
+quantize kernel on every bf16 value and the int8 conv's s8 epilogue at
+every head-tower shape, and fails loudly (non-zero exit) if any phase fails.
+In static int8 the head towers' links run fused (the next conv's quantize
+in the int8 conv's s8 epilogue); phases 9, 22 and 31 serve each backbone
+with the links fused and unfused in turns. The four CUDA sources (nine
 kernels: nms.cu holds the NMS mask, the one-warp and the block scan and the
-BEV NMS's pack; int8_conv.cu the int8 conv and the grouped one) and the
-host code (csrc/imageio.cpp,
+BEV NMS's pack; int8_conv.cu the int8 conv, with its s8 epilogue, and the
+grouped one) and the host code (csrc/imageio.cpp,
 csrc/kitti_eval.cpp with OpenMP, g++) are built first, one compiler
 process each, all at once.
 
@@ -48,13 +52,20 @@ process each, all at once.
    every conv shape the int8 path reaches at 384x1280 (the stem's too):
    int32 accumulators exactly, bf16 and f32 epilogues bit for bit;
 8. the static-int8 path: calibrate on 2 batches, serve 4 batches of 8, check
-   the launch counts of all three kernels and that no scale missed; the
-   plain int8 versions give identical detections; drift against bf16 is
-   bounded as in tests/test_int8_infer.py;
+   the launch counts of all three kernels (one quantize fewer and one s8
+   int8 conv for each fused tower link, counted from the model's
+   structure: 60 a forward) and that no scale missed; the plain int8
+   versions give identical detections; drift against bf16 is bounded as in
+   tests/test_int8_infer.py;
 9. timing: images/s of int8 and bf16 in turns, each int8 kernel against
    its plain version and its bound at a serving shape, and the int8 conv
    kernel beside cuDNN's bf16 conv and its bound at every shape of phase 7,
-   summed as count x ms a forward;
+   summed as count x ms a forward; the tower links fused and unfused
+   (`no_fusion`) in turns: identical detections on every batch, launches a
+   forward of the quantize, of the int8 conv by output kind and of the
+   ReLU, device time a batch (profiler) and images/s; the quantize at the
+   shape of each of the fused forward's 55 standalone launches beside
+   `x.to(torch.int8)` (the same bytes) and the bound, summed;
 10. the stem weight-gradient kernel (csrc/conv_dw.cu) against its plain
     version on seeded bf16 inputs at the two stem shapes of the train step,
     the TPU benchmark's two shapes, a ragged one, and the two stem shapes
@@ -139,8 +150,9 @@ process each, all at once.
 22. its static int8 in scripts/bench_v99.py's settings (QUANT_MIN_CH 32,
     scales from 2 batches): phase 7 at every distinct int8 conv site of
     this path, the quantize kernel at stage 2's concat input, phase 8's
-    path checks, int8 against bf16 in turns, and the int8 sites summed
-    against cuDNN's bf16 conv and the bound;
+    path checks, int8 against bf16 in turns, the int8 sites summed
+    against cuDNN's bf16 conv and the bound, and the tower links fused and
+    unfused in turns as in phase 9 (36 links: the predictors stay bf16);
 23. its bf16 train step at batch 8, 384x1280, on seeded synthetic batches:
     finite losses, ms a step over 8 timed steps, peak memory, launches;
 24. its CLIs on the 8-frame fixture: `train` for 4 steps of batch 8
@@ -199,8 +211,9 @@ process each, all at once.
     the bound, summed over a forward; phase 8's path checks with the grouped
     launches by route; int8 against bf16 in turns; the int8 batch's device
     time with every grouped conv on `direct` and on its own route in
-    turns; then `predict` in bf16, `calibrate_int8` and `predict` in static
-    int8 on a 375x1200 frame;
+    turns; the tower links fused and unfused in turns as in phase 9; then
+    `predict` in bf16, `calibrate_int8` and `predict` in static int8 on a
+    375x1200 frame;
 32. its bf16 train step at batch 8, 384x1280 (ms a step, peak memory,
     launches, busy share), then the training CLI for 2 steps on the
     8-frame fixture and EVAL_ONLY from its checkpoint (KITTI-3D and
@@ -209,11 +222,21 @@ process each, all at once.
     TPU.PALLAS_STEM_DW) bf16 train steps at batch 8, 384x1280 on seeded
     synthetic batches with sparse GT depth through make_train_step: finite
     losses, parameters moving, the dW kernel twice a step, ms a step, peak
-    memory, busy share.
+    memory, busy share;
+34. the quantize kernel (division-free, csrc/quantize.cuh) against its
+    plain version on all 65,282 non-NaN bf16 values at 20 scales, as bf16
+    and f32 input, through both packet widths, and on ragged and unaligned
+    tensors (tests/test_torch_cuda.py's checks, loaded by path);
+35. the int8 conv's s8 epilogue against `int8_conv_requant_plain`, bit for
+    bit, at every head-tower shape of DLA-34, V2-99 and RegNetY + BiFPN and
+    a ragged M (the same file's check); at the P3 tower conv the device time
+    of the s8 epilogue (at a calibrated and at a round scale), the bf16 one
+    and the unfused link, in turns, beside the plain version, cuDNN and the
+    bound.
 
 Before the last line, the card's name and power limit and one JSON line of
-the six kernel entries (the greedy NMS, the BEV NMS's scan, quantize, int8
-conv, grouped int8 conv, dW): launches on the main paths (DLA-34's,
+the seven kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
+int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv, dW): launches on the main paths (DLA-34's,
 V2-99's, nuScenes', RegNetY's and DenseDepth's), error against the plain
 version, ms, the plain version's ms, the bound (bytes or operations at the
 published H100 peaks) and, where one PyTorch call computes the same thing,
@@ -226,6 +249,7 @@ The last line printed is {"ok": true, "device": {...}}.
 `--vis-rank ARGS` are phases 14, 15, 16 and 19's CLIs, each inside the
 process that torch.distributed.run starts; they are not run by hand.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -642,12 +666,12 @@ def int8_conv_sites(model, images, unfolded=True, grouped=None):
     sites, grouped = {}, {} if grouped is None else grouped
     real = L.int8_conv_dequant
 
-    def record(x, weight, bias, stride, pad, out_dtype, act_amax=None, plain=False, groups=1):
+    def record(x, weight, bias, stride, pad, out_dtype, act_amax=None, plain=False, groups=1, **kwargs):
         key = (x.shape[0], x.shape[2], x.shape[3], x.shape[1], weight.shape[0], weight.shape[2], stride)
         into = sites if groups == 1 else grouped
         key = key if groups == 1 else key + (groups,)
         into[key] = into.get(key, 0) + 1
-        return real(x, weight, bias, stride, pad, out_dtype, act_amax, plain, groups)
+        return real(x, weight, bias, stride, pad, out_dtype, act_amax, plain, groups, **kwargs)
 
     L.int8_conv_dequant = record
     try:
@@ -723,14 +747,31 @@ def top_scores(det, n=50):
     return torch.sort(det["scores"].float().reshape(-1), descending=True).values[:n]
 
 
+def fused_links_per_forward(model, cfg) -> int:
+    """The head-tower links whose quantize runs in the int8 conv's s8
+    epilogue in one static-int8 forward, from the model's structure alone:
+    each tower conv's output is read by one conv, the next tower conv or,
+    after the last, the predictors (int8 only under QUANT_UNFOLDED), at
+    every level, where the tower is at least QUANT_MIN_CH wide."""
+    links = 0
+    for head, towers in ((model.fcos2d_head, ("cls_tower", "box2d_tower")), (model.fcos3d_head, ("box3d_tower",))):
+        for name in towers:
+            tower = getattr(head, name)
+            if tower[0].weight.shape[1] >= cfg.TPU.QUANT_MIN_CH:
+                per_level = len(tower) - 1 + int(bool(cfg.TPU.QUANT_UNFOLDED))
+                links += per_level * len(tower[0].norm)
+    return links
+
+
 def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, phase="phase8", grouped=None):
     """The static-int8 serving path: calibrate on 2 batches with
     prepare_static_scales, serve N_BATCHES batches through get_inference_fn,
     check every kernel's launch count (the grouped kernel's at the `grouped`
-    sites) and that no scale missed; the same batch through the plain int8
-    versions and the plain NMS gives identical detections; drift against
-    bf16 within the bounds of tests/test_int8_infer.py:116-121. Returns
-    (cfg, launches by kernel)."""
+    sites; the int8 conv's by output kind: one s8 launch and one quantize
+    fewer for each fused tower link) and that no scale missed; the same
+    batch through the plain int8 versions and the plain NMS gives identical
+    detections; drift against bf16 within the bounds of
+    tests/test_int8_infer.py:116-121. Returns (cfg, launches by kernel)."""
     from dd3d_tpu_torch.models.calibrate import prepare_static_scales
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
     from dd3d_tpu_torch.ops.int8_conv import grouped_route, int8_conv, int8_conv_grouped
@@ -745,24 +786,34 @@ def phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=None, 
     per_forward = sum(n for (_, _, _, c, _, _, _), n in sites.items() if c >= min_ch)
     grouped_per_forward = sum(n for key, n in (grouped or {}).items() if key[3] >= min_ch)
 
+    fused = fused_links_per_forward(model, cfg)
     infer = get_inference_fn(model, cfg)
     kernels = (quantize_int8, int8_conv, int8_conv_grouped, greedy_nms)
     for k in kernels:
         k.launches = 0
     int8_conv_grouped.launches_by_route.update(dict.fromkeys(int8_conv_grouped.launches_by_route, 0))
+    int8_conv.launches_by_out.update(dict.fromkeys(int8_conv.launches_by_out, 0))
     dets = [infer(im, intrinsics) for im in images]
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
-    by_route = dict(int8_conv_grouped.launches_by_route)
+    by_route, by_out = dict(int8_conv_grouped.launches_by_route), dict(int8_conv.launches_by_out)
     log(f"{phase} served {N_BATCHES} batches of {BATCH} at {HEIGHT}x{WIDTH}, static int8: launches {launches}, "
-        f"grouped by route {by_route}, {per_forward} quantized convs a forward and {grouped_per_forward} grouped "
-        "ones")
+        f"int8 conv by output kind {by_out}, grouped by route {by_route}, {per_forward} quantized convs a forward "
+        f"and {grouped_per_forward} grouped ones, {fused} fused tower links a forward")
     expected = per_forward * N_BATCHES
     expected_grouped = grouped_per_forward * N_BATCHES
-    if (launches["quantize_int8"] != expected + expected_grouped or launches["int8_conv"] != expected
+    expected_quantize = expected + expected_grouped - fused * N_BATCHES
+    if (launches["quantize_int8"] != expected_quantize or launches["int8_conv"] != expected
             or launches["int8_conv_grouped"] != expected_grouped):
-        raise AssertionError(f"{phase}: expected {expected + expected_grouped} quantize, {expected} int8 conv and "
+        raise AssertionError(f"{phase}: expected {expected_quantize} quantize, {expected} int8 conv and "
                              f"{expected_grouped} grouped int8 conv launches, got {launches}")
+    if by_out != {"f32": 0, "bf16": expected - fused * N_BATCHES, "s8": fused * N_BATCHES}:
+        raise AssertionError(f"{phase}: int8 conv launches by output kind {by_out}, expected "
+                             f"{expected - fused * N_BATCHES} bf16 and {fused * N_BATCHES} s8")
+    launches["int8_conv_by_out"] = by_out
+    launches["fused_links_per_forward"] = fused
+    launches["quantize_per_forward"] = {"fused": expected_quantize // N_BATCHES,
+                                        "unfused": (expected + expected_grouped) // N_BATCHES}
     expected_by_route = dict.fromkeys(by_route, 0)
     for (_, _, _, c, o, k, stride, g), n in (grouped or {}).items():
         if c >= min_ch:
@@ -930,6 +981,154 @@ def phase9_int8_timing(int8_cfg_static, bf16_cfg, model, images, intrinsics, qua
         f"kernel {gop / out['int8_conv'][0]:.1f} TOP/s; the same conv in bf16 through cuDNN {cudnn:.4f} ms "
         f"({gop / cudnn:.1f} TFLOP/s)")
     return {"int8": runs["int8"], "bf16": runs["bf16"]}, out
+
+
+class no_fusion:
+    """The unfused int8 path, for comparison: a stand-in for
+    `TowerConv.link_amax` that finds no consumer's amax, so every tower link
+    runs as before the s8 epilogue (int8 conv to bf16, ReLU, quantize). No
+    config key selects it."""
+
+    def __enter__(self):
+        from dd3d_tpu_torch.models.layers import TowerConv
+
+        self.real = TowerConv.__dict__["link_amax"]
+        TowerConv.link_amax = lambda *args: None
+        return self
+
+    def __exit__(self, *exc):
+        from dd3d_tpu_torch.models.layers import TowerConv
+
+        TowerConv.link_amax = self.real
+
+
+class counted_relu:
+    """Count the calls of torch.nn.functional.relu (one kernel launch each
+    on the card) while entered."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self.real, self.calls = F.relu, 0
+
+        def relu(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        F.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.relu = self.real
+
+
+def fusion_ab(model, cfg8, images, intrinsics, phase, card):
+    """The static-int8 path with the tower links fused (the s8 epilogue) and
+    unfused (`no_fusion`), in turns (fused, unfused, unfused, fused): each
+    turn serves the N_BATCHES batches counting the launches of the quantize,
+    of the int8 conv by output kind and the ReLU calls, then takes the
+    profiler's device time and launches a batch (serving_profile) and the
+    median ms a batch over one timed pass (after a warm-up batch). Every
+    batch's detections must be
+    identical in both arms. Returns {arm: {"launches": per forward,
+    "device_ms": [...], "ms": [...], "kernels": [...]}}."""
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    t0 = time.time()
+    infer = get_inference_fn(model, cfg8)
+    out, dets = {}, {}
+    for arm in ("fused", "unfused", "unfused", "fused"):
+        with (no_fusion() if arm == "unfused" else contextlib.nullcontext()):
+            quantize_int8.launches = int8_conv.launches = 0
+            int8_conv.launches_by_out.update(dict.fromkeys(int8_conv.launches_by_out, 0))
+            with counted_relu() as relu:
+                got = [infer(im, intrinsics) for im in images]
+            torch.cuda.synchronize()
+            counts = {"quantize_int8": quantize_int8.launches / N_BATCHES, "relu": relu.calls / N_BATCHES,
+                      **{f"int8_conv_{k}": v / N_BATCHES for k, v in int8_conv.launches_by_out.items()}}
+            dev_ms, n_kernels = serving_profile(infer, images, intrinsics)
+            infer(images[0], intrinsics)
+            times = []
+            for im in images:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                infer(im, intrinsics)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            ms = float(np.median(times))
+        entry = out.setdefault(arm, {"launches": counts, "device_ms": [], "ms": [], "kernels": []})
+        if entry["launches"] != counts:
+            raise AssertionError(f"{phase}: the {arm} arm's launches moved between turns: {entry['launches']}, "
+                                 f"{counts}")
+        entry["device_ms"].append(dev_ms)
+        entry["ms"].append(ms)
+        entry["kernels"].append(n_kernels)
+        if arm in dets:
+            continue
+        dets[arm] = got
+    for i, (a, b) in enumerate(zip(dets["fused"], dets["unfused"])):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"{phase}: batch {i}'s {k} differs between the fused and the unfused int8 path")
+    f, u = out["fused"], out["unfused"]
+    if f["launches"]["int8_conv_s8"] == 0 or u["launches"]["int8_conv_s8"] != 0:
+        raise AssertionError(f"{phase}: s8 launches a forward, fused {f['launches']}, unfused {u['launches']}")
+    for arm, e in out.items():
+        e["images_per_s"] = BATCH / (np.mean(e["ms"]) / 1e3)
+        log(f"{phase} int8 tower links {arm} on {card}: launches a forward {e['launches']}; device time a batch "
+            f"(profiler) {e['device_ms'][0]:.3f} / {e['device_ms'][1]:.3f} ms, {e['kernels'][0]:.0f} kernels a "
+            f"batch; median {e['ms'][0]:.3f} / {e['ms'][1]:.3f} ms a batch = {e['images_per_s']:.2f} images/s")
+    log(f"{phase} fused against unfused: identical detections on {N_BATCHES} batches; quantize launches a forward "
+        f"{u['launches']['quantize_int8']:.0f} -> {f['launches']['quantize_int8']:.0f}, ReLU "
+        f"{u['launches']['relu']:.0f} -> {f['launches']['relu']:.0f}; device time "
+        f"{np.mean(u['device_ms']):.3f} -> {np.mean(f['device_ms']):.3f} ms a batch ({time.time() - t0:.1f} s)")
+    return out
+
+
+def standalone_quantize_timing(model, cfg8, images, intrinsics, phase, card):
+    """The quantize kernel at the shapes of every standalone launch of one
+    static-int8 forward with the tower links fused
+    (bench_quantize.quantize_shapes), each shape's device time (profiler) in
+    turns with `x.to(torch.int8)` of the same tensor (kernel, cast, cast,
+    kernel): the cast moves the same bytes (2 in, 1 out an element), so it
+    is a yardstick of the bandwidth a streaming kernel reaches on this card
+    now; it is not the same function. Summed as count x ms over the
+    forward, beside the summed byte bound. Returns the totals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.bench_quantize import quantize_shapes
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    shapes = quantize_shapes(get_inference_fn(model, cfg8), images[0], intrinsics)
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    gen = torch.Generator().manual_seed(SEED + 34)
+    tot = {"kernel": 0.0, "cast": 0.0, "bound": 0.0, "n": 0}
+    for (shape, dtype), count in sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][0])):
+        x = (torch.randn(shape, generator=gen) * 3).to(images[0].device, dtype)
+        xs = (x.float().abs().amax() / 127).reshape(1)
+        fns = {"kernel": lambda: quantize_int8(x, xs), "cast": lambda: x.to(torch.int8)}
+        t = {"kernel": [], "cast": []}
+        for name in ("kernel", "cast", "cast", "kernel"):
+            t[name].append(device_ms(fns[name], 10, prof))
+        bnd = bound_ms(x.numel() * (x.element_size() + 1), 0, "f32")[0]
+        k_ms, c_ms = float(np.mean(t["kernel"])), float(np.mean(t["cast"]))
+        log(f"{phase} standalone quantize {shape} {str(dtype)[6:]} x{count}/forward: kernel "
+            f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms, cast {t['cast'][0]:.4f} / {t['cast'][1]:.4f} ms, "
+            f"bound {bnd:.5f} ms by bytes ({bnd / k_ms:.2f} of the kernel, {bnd / c_ms:.2f} of the cast)")
+        tot["kernel"] += count * k_ms
+        tot["cast"] += count * c_ms
+        tot["bound"] += count * bnd
+        tot["n"] += count
+    log(f"{phase} timing on {card}: the {tot['n']} standalone quantizes of a fused static-int8 forward, device time "
+        f"summed: kernel {tot['kernel']:.4f} ms, the same-bytes cast {tot['cast']:.4f} ms, bound {tot['bound']:.4f} "
+        f"ms ({tot['bound'] / tot['kernel']:.2f} of the kernel's time, {tot['bound'] / tot['cast']:.2f} of the "
+        f"cast's)")
+    return tot
 
 
 # (B, H, W, CI, CO, k): the stem's base_layer and level0 convs of the train
@@ -1949,6 +2148,7 @@ def zero_launches():
 
     for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, conv_dw_s1_same):
         k.launches = 0
+    int8_conv.launches_by_out.update(dict.fromkeys(int8_conv.launches_by_out, 0))
 
 
 def phase20_tta(tmp, overfit_dir, device, card):
@@ -2322,6 +2522,7 @@ def phase22_v99_int8(model, bf16_cfg, images, intrinsics, device, card):
         f"{runs['int8'][0]:.3f} / {runs['int8'][1]:.3f}, bf16 {runs['bf16'][0]:.3f} / {runs['bf16'][1]:.3f}: "
         f"static int8 {ips['int8']:.2f} images/s, bf16 {ips['bf16']:.2f} images/s")
     sums = int8_conv_sites_timing(cases, cfg8.TPU.QUANT_MIN_CH, phase="phase22")
+    launches["fusion"] = fusion_ab(model, cfg8, images, intrinsics, "phase22", card)
     log(f"phase22 ok ({time.time() - t0:.2f} s)")
     return launches, conv_err, quant_err, ips, sums
 
@@ -3039,6 +3240,7 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card)
     log(f"phase31 timing on {card}: static int8 serving, device time a batch (profiler) in turns (direct, own, own, "
         f"direct): every grouped conv on direct {fwd['direct'][0]:.3f} / {fwd['direct'][1]:.3f} ms (launches by "
         f"route {forced}), on its own route {fwd['own'][0]:.3f} / {fwd['own'][1]:.3f} ms")
+    launches["fusion"] = fusion_ab(model, cfg8, images, intrinsics, "phase31", card)
 
     frames = os.path.join(tmp, "regnety_frames")
     os.makedirs(frames, exist_ok=True)
@@ -3213,6 +3415,86 @@ def phase33_dense_depth_train(device, card):
     return med, peak, dw
 
 
+def phase34_quantize_exhaustive(device):
+    """The quantize kernel (csrc/quantize.cu, division-free by
+    csrc/quantize.cuh) against its plain version on every non-NaN bf16
+    value at 20 scales, as bf16 and as f32 input, and on ragged and
+    unaligned bf16 and f32 tensors: tests/test_torch_cuda.py's checks, loaded
+    by path. Returns the max |kernel - plain| (0: they assert equality)."""
+    tests = card_tests()
+    t0 = time.time()
+    tests.test_quantize_kernel_equals_plain_on_every_bf16_value(device)
+    for dtype in (torch.bfloat16, torch.float32):
+        tests.test_quantize_kernel_ragged_and_unaligned(device, dtype)
+    torch.cuda.synchronize()
+    log(f"phase34 ok ({time.time() - t0:.2f} s): the quantize kernel equals its plain version on all "
+        f"{65536 - 254} non-NaN bf16 values at {len(tests.QUANT_SCALES)} scales (bf16 and f32 input), and on ragged "
+        "and unaligned tensors (tolerance 0: codes must be equal)")
+    return 0
+
+
+def phase35_s8_epilogue(device, card):
+    """The int8 conv's s8 epilogue (ReLU and the next quantize) against
+    `int8_conv_requant_plain`, bit for bit, at every head-tower shape of
+    DLA-34, V2-99 and RegNetY + BiFPN and a ragged M (tests/test_torch_cuda.py,
+    loaded by path); then at the P3 tower conv (8, 48, 160, 256) -> 256, the
+    device time (profiler) of the conv with the s8 epilogue, with the bf16
+    one, and of the unfused link (bf16 conv, ReLU, quantize kernel), in
+    turns, beside the plain version, cuDNN's bf16 conv and the bound. The s8
+    arm runs at two scales of the next conv: a calibrated one (a bf16 amax
+    of the output / 127, as calibration gives) and the round 0.05, at which
+    bf16 values x 20 land on exact .5 ties often (each takes the FMA step of
+    csrc/quantize.cuh). Returns (max error, (ms, plain_ms, bound_ms,
+    bound_by, library_ms)) at the calibrated scale."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_requant_plain
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    tests = card_tests()
+    t0 = time.time()
+    for shape in tests.TOWER_SHAPES:
+        tests.test_int8_conv_s8_epilogue_matches_plain(device, *shape)
+    torch.cuda.synchronize()
+    log(f"phase35 s8 epilogue equal to int8_conv_requant_plain at {len(tests.TOWER_SHAPES)} tower shapes, bf16 and "
+        f"f32 epilogues (tolerance 0) ({time.time() - t0:.2f} s)")
+    gen = torch.Generator().manual_seed(SEED + 35)
+    b, h, w, c = QUANT_SHAPE
+    xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, dtype=torch.int8).to(device)
+    wq = torch.randint(-127, 128, (c, 3, 3, c), generator=gen, dtype=torch.int8).to(device)
+    scale = (torch.rand(c, generator=gen) * 1e-4 + 1e-5).to(device)
+    bias = torch.randn(c, generator=gen).to(device)
+    amax = int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16).amax()  # a bf16 value, as calibration records
+    xs_next = (amax.float() / 127).reshape(1)
+    xs_round = torch.tensor([0.05], device=device)
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    arms = {
+        "s8": lambda: int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16, requant=xs_next),
+        "s8 at 0.05": lambda: int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16, requant=xs_round),
+        "bf16": lambda: int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16),
+        "unfused": lambda: quantize_int8(torch.relu(int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16)), xs_next),
+    }
+    t = {k: [] for k in arms}
+    for name in (*arms, *reversed(arms)):
+        t[name].append(device_ms(arms[name], 10, prof))
+    plain = lambda: int8_conv_requant_plain(xq, wq, scale, bias, 1, 1, torch.bfloat16, xs_next)  # noqa: E731
+    plain()
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = device_ms(cudnn_bf16_conv(xq, wq, 1, 1), 10, prof)
+    bnd, by = int8_conv_bound(xq, wq, 1, 1, out_bytes=1)
+    ms = {k: float(np.mean(v)) for k, v in t.items()}
+    log(f"phase35 timing on {card}: P3 tower conv {QUANT_SHAPE} -> {c}, 3x3, device time in turns: s8 epilogue "
+        f"{t['s8'][0]:.4f} / {t['s8'][1]:.4f} ms at the calibrated scale {float(xs_next):.6g} "
+        f"({100 * (ms['s8'] / ms['bf16'] - 1):+.1f} % against the bf16 epilogue), "
+        f"{t['s8 at 0.05'][0]:.4f} / {t['s8 at 0.05'][1]:.4f} ms at 0.05 "
+        f"({100 * (ms['s8 at 0.05'] / ms['bf16'] - 1):+.1f} %), bf16 epilogue {t['bf16'][0]:.4f} / "
+        f"{t['bf16'][1]:.4f} ms, the unfused link (bf16 conv, ReLU, quantize) {t['unfused'][0]:.4f} / "
+        f"{t['unfused'][1]:.4f} ms; plain {plain_ms:.3f} ms, cuDNN bf16 conv {library_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"by {by} ({bnd / ms['s8']:.2f} of the s8 conv)")
+    log(f"phase35 ok ({time.time() - t0:.2f} s)")
+    return 0, (ms["s8"], plain_ms, bnd, by, library_ms)
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -3257,6 +3539,8 @@ def main():
     serving, kernel_ms = phase9_int8_timing(cfg8, cfg, model, images, intrinsics, quant_case, conv_case)
     int8_conv_sites_timing(conv_cases, cfg8.TPU.QUANT_MIN_CH)
     del conv_cases
+    fusion = {"DLA-34": fusion_ab(model, cfg8, images, intrinsics, "phase9", card)}
+    standalone = standalone_quantize_timing(model, cfg8, images, intrinsics, "phase9", card)
     torch.cuda.synchronize()
 
     dw_err, stem_cases = phase10_conv_dw(device)
@@ -3322,6 +3606,12 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         dd_train_ms, dd_peak, dd_dw_launches = phase33_dense_depth_train(device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    quant_err = max(quant_err, phase34_quantize_exhaustive(device))
+    s8_err, s8_t = phase35_s8_epilogue(device, card)
+    torch.cuda.synchronize()
+    fusion.update({"V2-99": v99_launches["fusion"], "RegNetY": rg_launches["fusion"]})
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -3384,6 +3674,17 @@ def main():
         f"{g_ms:.4f} ms (cuDNN {g_cudnn:.4f}, bound {g_bound:.5f} by {g_by}); train step {rg_train_ms:.2f} ms at "
         f"batch {BATCH}, peak {rg_train_peak:.2f} GiB (phase 32); DD3DDenseDepth train step {dd_train_ms:.2f} ms, "
         f"peak {dd_peak:.2f} GiB, dW launches {dd_dw_launches} (phase 33)")
+    for name, ab in fusion.items():
+        f, u = ab["fused"], ab["unfused"]
+        log(f"timing on {card}: {name} static int8, tower links fused against unfused (in turns): quantize launches a "
+            f"forward {u['launches']['quantize_int8']:.0f} -> {f['launches']['quantize_int8']:.0f}, int8 conv "
+            f"s8 {f['launches']['int8_conv_s8']:.0f}, ReLU {u['launches']['relu']:.0f} -> {f['launches']['relu']:.0f}; "
+            f"device time a batch {np.mean(u['device_ms']):.3f} -> {np.mean(f['device_ms']):.3f} ms; "
+            f"{u['images_per_s']:.2f} -> {f['images_per_s']:.2f} images/s")
+    log(f"timing on {card}: the {standalone['n']} standalone quantizes of a fused DLA-34 int8 forward "
+        f"{standalone['kernel']:.4f} ms of device time, the same-bytes cast {standalone['cast']:.4f} ms, bound "
+        f"{standalone['bound']:.4f} ms; at {QUANT_SHAPE} bf16 {kernel_ms['quantize_int8'][0]:.4f} ms against "
+        f"{kernel_ms['quantize_int8'][2]:.4f} by bytes; the P3 tower conv with the s8 epilogue {s8_t[0]:.4f} ms")
     launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms
                 + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"] + large_nms + rg_nms
                 + rg_launches["greedy_nms"] + rg_eval_nms,
@@ -3391,10 +3692,11 @@ def main():
                 "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"]
                 + rg_launches["quantize_int8"],
                 "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"] + rg_launches["int8_conv"],
+                "int8_conv_requant": sum(x["int8_conv_by_out"]["s8"] for x in (launches, v99_launches, rg_launches)),
                 "int8_conv_grouped": rg_launches["int8_conv_grouped"]}
     quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err, rg_conv_err)
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
-             "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"],
+             "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"], "int8_conv_requant": s8_t,
              "int8_conv_grouped": grouped_t, "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              max(nms_err, large_err)),
@@ -3404,6 +3706,8 @@ def main():
              launches["quantize_int8"], quant_err),
             ("int8_conv", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246", launches["int8_conv"],
              conv_err),
+            ("int8_conv_requant", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:246",
+             launches["int8_conv_requant"], s8_err),
             ("int8_conv_grouped", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
              launches["int8_conv_grouped"], grouped_err),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",

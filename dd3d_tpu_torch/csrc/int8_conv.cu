@@ -45,6 +45,19 @@
 //   and one's epilogue and barriers overlap the other's MMAs.
 // - The epilogue dequantizes in registers, stages the output tile in the
 //   freed ring and writes whole rows with 16-byte stores.
+// - s8 output (out_kind 2 and 3): where a head tower chains two int8 convs
+//   (tower conv i -> i + 1, the last -> the fused predictors), the epilogue
+//   also applies the ReLU and the next conv's quantize at its static scale
+//   (`quantize_one` of quantize.cuh, the standalone kernel's arithmetic),
+//   so the conv writes 1 byte an element in place of a bf16 tensor that a
+//   ReLU would read and write and the quantize kernel read again (9 bytes
+//   an element, three launches). The dequantized tile is staged as for a
+//   bf16 (f32) output; the pass that writes it out reads 16 values a
+//   thread and stores their 16 codes at once. Quantizing in that pass, and
+//   not on the 64 accumulators a thread holds, keeps one inlined copy of
+//   `quantize_one` for 16 values instead of 64 (a first version that
+//   quantized in registers ran the P3 tower conv 23 % slower than its bf16
+//   epilogue).
 //
 // Exact: int32 accumulation cannot overflow for |codes| <= 127 and
 // K < 2^31 / 127^2 = 133,000 (the largest K of the path is 3*3*512 = 4608),
@@ -118,6 +131,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "quantize.cuh"
 
 namespace {
 
@@ -240,10 +257,36 @@ __device__ __forceinline__ Pair<float> dequant_pair(float s0, float s1, float sc
   return Pair<float>{{v0, v1}};
 }
 
-template <int BN, typename OutT>
+// The s8 output's 16 codes from 16 staged dequantized values (MathT, the
+// epilogue's dtype; 32 or 64 bytes of the tile): the next conv's codes of
+// their ReLU at its scale (`quantize_one`, the standalone kernel's
+// arithmetic), packed into one 16-byte word.
+template <typename MathT>
+__device__ __forceinline__ uint4 requant16(const unsigned char* src, const QuantScale& next) {
+  constexpr int kLoads = 16 * static_cast<int>(sizeof(MathT)) / 16;
+  uint4 raw[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) raw[i] = reinterpret_cast<const uint4*>(src)[i];
+  const MathT* v = reinterpret_cast<const MathT*>(raw);
+  uint32_t words[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float f = fmaxf(to_f32(v[4 * w + i]), 0.0f);  // the ReLU, then the quantize
+      word |= static_cast<uint32_t>(static_cast<unsigned char>(quantize_one(f, next))) << (8 * i);
+    }
+    words[w] = word;
+  }
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+template <int BN, typename OutT, typename MathT>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-                 const float* __restrict__ bias, OutT* __restrict__ out, ConvShape s) {
+                 const float* __restrict__ bias, OutT* __restrict__ out, const float* __restrict__ xs_next,
+                 ConvShape s) {
   constexpr int kATile = kBM * kBK;
   constexpr int kStage = (kBM + BN) * kBK;
   constexpr int kARows = kBM / (kThreads / 8);  // rows a thread stages: 4
@@ -341,12 +384,13 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
 
   // Epilogue: dequantize in registers, stage the 128 x BN tile in shared
   // memory (the ring is free once every warpgroup is past its last MMA),
-  // then write whole rows with 16-byte stores. Accumulator 4j + e of a
-  // thread: row 16 * warp + g (+8 for e >= 2) of its warpgroup's 64,
-  // column 8j + 2t (+1 for odd e).
+  // then write whole rows with 16-byte stores (8 bf16 or 4 f32; for s8 out,
+  // 16 codes of 16 staged values, ReLU and quantize applied on the way).
+  // Accumulator 4j + e of a thread: row 16 * warp + g (+8 for e >= 2) of
+  // its warpgroup's 64, column 8j + 2t (+1 for odd e).
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  constexpr int kRowBytes = BN * static_cast<int>(sizeof(OutT)) + 16;  // +16: rows in other banks
+  constexpr int kRowBytes = BN * static_cast<int>(sizeof(MathT)) + 16;  // +16: rows in other banks
   unsigned char* tile = smem_raw + (smem0 - smem_u32(smem_raw));
   const int lane = tid % 32, warp = (tid % 128) / 32;
   const int g = lane / 4, t = lane % 4;
@@ -356,48 +400,63 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, con
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = j * 8 + t * 2, o = n0 + col;
-      const OutT v0 = o < s.o ? dequant(acc[4 * j + 2 * half], scale, bias, o, OutT()) : OutT();
-      const OutT v1 = o + 1 < s.o ? dequant(acc[4 * j + 2 * half + 1], scale, bias, o + 1, OutT()) : OutT();
-      *reinterpret_cast<Pair<OutT>*>(tile + rl * kRowBytes + col * sizeof(OutT)) = Pair<OutT>{{v0, v1}};
+      const MathT v0 = o < s.o ? dequant(acc[4 * j + 2 * half], scale, bias, o, MathT()) : MathT();
+      const MathT v1 = o + 1 < s.o ? dequant(acc[4 * j + 2 * half + 1], scale, bias, o + 1, MathT()) : MathT();
+      *reinterpret_cast<Pair<MathT>*>(tile + rl * kRowBytes + col * sizeof(MathT)) = Pair<MathT>{{v0, v1}};
     }
   }
   __syncthreads();
-  constexpr int kVec = 16 / static_cast<int>(sizeof(OutT));
+  constexpr int kVec = 16 / static_cast<int>(sizeof(OutT));  // elements a 16-byte store
   constexpr int kChunks = BN / kVec;
+  constexpr int kSrcBytes = kVec * static_cast<int>(sizeof(MathT));  // their staged bytes
   const bool rows_aligned = s.o % kVec == 0;
+  QuantScale next;
+  if constexpr (std::is_same<OutT, int8_t>::value) next = make_quant_scale(*xs_next);
   for (int i = tid; i < kBM * kChunks; i += kThreads) {
     const int rl = i / kChunks, o = n0 + (i % kChunks) * kVec;
     const int m = m0 + rl;
     if (m >= s.m || o >= s.o) continue;
-    const unsigned char* src = tile + rl * kRowBytes + (i % kChunks) * 16;
+    const unsigned char* src = tile + rl * kRowBytes + (i % kChunks) * kSrcBytes;
     OutT* dst = out + static_cast<long long>(m) * s.o + o;
     if (rows_aligned && o + kVec <= s.o) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      if constexpr (std::is_same<OutT, int8_t>::value) {
+        *reinterpret_cast<uint4*>(dst) = requant16<MathT>(src, next);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      }
     } else {
-      for (int e = 0; e < kVec && o + e < s.o; ++e) dst[e] = reinterpret_cast<const OutT*>(src)[e];
+      for (int e = 0; e < kVec && o + e < s.o; ++e) {
+        if constexpr (std::is_same<OutT, int8_t>::value) {
+          dst[e] = quantize_one(fmaxf(to_f32(reinterpret_cast<const MathT*>(src)[e]), 0.0f), next);
+        } else {
+          dst[e] = reinterpret_cast<const OutT*>(src)[e];
+        }
+      }
     }
   }
 }
 
-template <int BN, typename OutT>
-int launch(const void* x, const void* w, const float* scale, const float* bias, void* out, const ConvShape& s,
-           cudaStream_t stream) {
+template <int BN, typename OutT, typename MathT>
+int launch(const void* x, const void* w, const float* scale, const float* bias, void* out, const float* xs_next,
+           const ConvShape& s, cudaStream_t stream) {
   constexpr int smem = kStages * (kBM + BN) * kBK + 1024;  // + slack for the 1024-byte alignment
   static_assert(kStages * (kBM + BN) * kBK >= kBM * (BN * 4 + 16), "the epilogue tile must fit the ring");
   cudaError_t err =
-      cudaFuncSetAttribute(int8_conv_kernel<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(int8_conv_kernel<BN, OutT, MathT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.m + kBM - 1) / kBM, (s.o + BN - 1) / BN);
-  int8_conv_kernel<BN, OutT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale, bias, static_cast<OutT*>(out), s);
+  int8_conv_kernel<BN, OutT, MathT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale, bias, static_cast<OutT*>(out), xs_next,
+      s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename OutT>
-int launch_out(const void* x, const void* w, const float* scale, const float* bias, void* out, const ConvShape& s,
-               void* stream) {
+template <typename OutT, typename MathT = OutT>
+int launch_out(const void* x, const void* w, const float* scale, const float* bias, void* out, const float* xs_next,
+               const ConvShape& s, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return s.o <= 64 ? launch<64, OutT>(x, w, scale, bias, out, s, st) : launch<128, OutT>(x, w, scale, bias, out, s, st);
+  return s.o <= 64 ? launch<64, OutT, MathT>(x, w, scale, bias, out, xs_next, s, st)
+                   : launch<128, OutT, MathT>(x, w, scale, bias, out, xs_next, s, st);
 }
 
 constexpr int kGroupedThreads = 256;
@@ -872,13 +931,18 @@ int launch_grouped_mma(const void* x, const void* w, const float* scale, const f
 extern "C" {
 
 // x int8 (batch, h, w, c); w int8 (o, kh, kw, c); scale f32 (o); bias f32 (o)
-// or null; out (batch, ho, wo, o), bf16 when out_bf16 else f32. c must be a
-// multiple of 16, every tensor contiguous, x and w 16-byte aligned, and each
-// tensor under 2^31 elements (the wrapper checks). Launches on `stream`,
-// does not synchronise; returns cudaGetLastError(), or -1 on a shape the
-// kernel does not take.
-int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float* bias, void* out, int out_bf16,
-                   int batch, int h, int w_, int c, int o, int kh, int kw, int stride, int pad, void* stream) {
+// or null; out (batch, ho, wo, o) of the output kind `out_kind`:
+//   0 f32, 1 bf16: the dequantized conv in that dtype;
+//   2 s8 (bf16 epilogue), 3 s8 (f32 epilogue): the int8 codes of the next
+//   conv, quantize(ReLU(the dequantized conv in that dtype)) at the scale
+//   xs_next (one f32 on the device; null for kinds 0 and 1).
+// c must be a multiple of 16, every tensor contiguous, x and w 16-byte
+// aligned, and each tensor under 2^31 elements (the wrapper checks).
+// Launches on `stream`, does not synchronise; returns cudaGetLastError(), or
+// -1 on a shape or output kind the kernel does not take.
+int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float* bias, void* out, int out_kind,
+                   const float* xs_next, int batch, int h, int w_, int c, int o, int kh, int kw, int stride, int pad,
+                   void* stream) {
   ConvShape s;
   s.batch = batch; s.h = h; s.w = w_; s.c = c; s.o = o; s.kh = kh; s.kw = kw; s.stride = stride; s.pad = pad;
   s.ho = (h + 2 * pad - kh) / stride + 1;
@@ -886,9 +950,14 @@ int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float
   s.k = kh * kw * c;
   s.m = batch * s.ho * s.wo;
   if (c % 16 != 0 || s.ho <= 0 || s.wo <= 0 || o <= 0) return -1;
+  if (out_kind < 0 || out_kind > 3 || (out_kind >= 2) != (xs_next != nullptr)) return -1;
   if (s.m == 0) return 0;
-  return out_bf16 ? launch_out<__nv_bfloat16>(x, w, scale, bias, out, s, stream)
-                  : launch_out<float>(x, w, scale, bias, out, s, stream);
+  switch (out_kind) {
+    case 0: return launch_out<float>(x, w, scale, bias, out, nullptr, s, stream);
+    case 1: return launch_out<__nv_bfloat16>(x, w, scale, bias, out, nullptr, s, stream);
+    case 2: return launch_out<int8_t, __nv_bfloat16>(x, w, scale, bias, out, xs_next, s, stream);
+    default: return launch_out<int8_t, float>(x, w, scale, bias, out, xs_next, s, stream);
+  }
 }
 
 // The grouped conv: x int8 (batch, h, w, c); w int8 (o, kh, kw, c / groups);

@@ -4,13 +4,15 @@ Each source under dd3d_tpu_torch/csrc/ has a plain C interface. A `.cu`
 source is compiled with nvcc for sm_90a, the host code (`imageio.cpp`, the
 image reader; `kitti_eval.cpp`, the KITTI R40 engine) with g++ and OpenMP,
 into a shared library under dd3d_tpu_torch/kernels/_build/ (listed in
-.gitignore), named by a hash of the source and the flags, on first use in a
+.gitignore), named by a hash of the source, the csrc/ headers it includes
+and the flags, on first use in a
 process, and loaded with ctypes. Nothing is built when a module is imported,
 and a failed build raises: no prebuilt library stands in.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,11 +49,34 @@ def _compiler(source: str):
     return gxx, GXX_FLAGS
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _files(source: str):
+    """`csrc/<source>` and every csrc/ header it includes with quotes,
+    directly or through another header, in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(_PKG, "csrc", name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _paths(source: str):
+    """(source path, library path): the library is named by a hash of the
+    source, the headers it includes and the flags, so that a changed header
+    rebuilds every library that includes it."""
     src_path = os.path.join(_PKG, "csrc", source)
     flags = NVCC_FLAGS if source.endswith(".cu") else GXX_FLAGS
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in _files(source):
+        with open(os.path.join(_PKG, "csrc", name), "rb") as f:
+            h.update(b"\0" + name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     name = os.path.splitext(source)[0]
     return src_path, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 

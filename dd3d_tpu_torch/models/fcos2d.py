@@ -2,7 +2,8 @@
 dd3d_tpu/models/fcos2d.py.
 
 - `FCOS2DHead` (v2): shared cls/box2d conv towers with per-level batch norms
-  folded into each level's application of the shared kernel, predictors for
+  folded into each level's application of the shared kernel (static int8:
+  each link fused into an s8 epilogue, `layers.run_tower`), predictors for
   class logits / ltrb box regression (relu'd) / centerness, learnable
   per-level `Scale` on the box regression.
 - `fcos2d_loss`: sigmoid focal (cls) + centerness-weighted gIoU (box) + BCE
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dd3d_tpu_torch.models.layers import PredictorConv, Scale, TowerConv, fused_predictor_apply
+from dd3d_tpu_torch.models.layers import PredictorConv, Scale, TowerConv, fused_predictor_apply, run_tower
 from dd3d_tpu_torch.ops.losses import iou_loss_ltrb_t, sigmoid_bce, sigmoid_focal_loss
 from dd3d_tpu_torch.ops.nms import NEG_INF
 from dd3d_tpu_torch.utils.comm import all_reduce_sum
@@ -46,16 +47,16 @@ class FCOS2DHead(nn.Module):
         outputs as a fourth list with `return_cls_tower` (NuscenesDD3D's
         attribute and speed predictors read them)."""
         logits, box_reg_out, ctr_out, cls_tower_out = [], [], [], []
+        box_preds = [self.box2d_reg, self.centerness]
         for l, x in enumerate(features):
-            x_cls = x_box = x
-            for conv in self.cls_tower:
-                x_cls = conv(x_cls, l)
+            # the cls tower's output has a second reader with return_cls_tower,
+            # so its last link then stays a tensor
+            x_cls = run_tower(self.cls_tower, x, l, None if return_cls_tower else [self.cls_logits])
             cls_tower_out.append(x_cls)
-            for conv in self.box2d_tower:
-                x_box = conv(x_box, l)
+            x_box = run_tower(self.box2d_tower, x, l, box_preds)
             logits.append(self.cls_logits(x_cls))
             # box2d_reg + centerness both read the box tower output: one conv.
-            reg, ctr = fused_predictor_apply(x_box, [self.box2d_reg, self.centerness])
+            reg, ctr = fused_predictor_apply(x_box, box_preds)
             if self.scales_box2d_reg is not None:
                 reg = self.scales_box2d_reg[l](reg)
             box_reg_out.append(F.relu(reg))  # relu (improved FCOS), not exp

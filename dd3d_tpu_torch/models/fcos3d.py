@@ -15,7 +15,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
-from dd3d_tpu_torch.models.layers import Offset, PredictorConv, Scale, TowerConv, fused_predictor_apply
+from dd3d_tpu_torch.models.layers import Offset, PredictorConv, Scale, TowerConv, fused_predictor_apply, run_tower
 from dd3d_tpu_torch.models.loss_geometry import allocentric_to_egocentric_t, corners_t, normalize_rows, unproject_t
 from dd3d_tpu_torch.ops.losses import sigmoid_bce, smooth_l1_loss
 from dd3d_tpu_torch.ops.geometry import allocentric_to_egocentric, unproject_points2d
@@ -61,8 +61,7 @@ class FCOS3DHead(nn.Module):
         quat_out, ctr_out, depth_out, size_out, conf_out = [], [], [], [], []
         preds = [self.box3d_quat[0], self.box3d_ctr[0], self.box3d_depth[0], self.box3d_size[0], self.box3d_conf[0]]
         for l, x in enumerate(features):
-            for conv in self.box3d_tower:
-                x = conv(x, l)
+            x = run_tower(self.box3d_tower, x, l, preds)
             quat, ctr, depth, size3d, conf3d = fused_predictor_apply(x, preds)
             if self.use_scale:
                 ctr = self.scales_proj_ctr[l](ctr)

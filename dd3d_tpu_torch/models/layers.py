@@ -27,6 +27,12 @@ Counterpart of dd3d_tpu/models/layers.py. `model.train()` and
   see each other's settings. Eligible convs run through
   ops/int8_conv.int8_conv_dequant, grouped ones (RegNet's Y-block `b`,
   BiFPN's depthwise `dw`) through its grouped kernel.
+- Along a head tower (`run_tower`), a conv that quantizes and whose
+  consumer (the next tower conv, or the predictors after the last) quantizes
+  at a known static scale writes the consumer's int8 codes from its
+  epilogue (`TowerConv.link_amax` says when), with the ReLU fused: no bf16
+  tensor, ReLU or quantize launch between the two. The result is the
+  unfused path's, bit for bit.
 """
 import contextlib
 import contextvars
@@ -41,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, check_kernel_size
-from dd3d_tpu_torch.ops.int8_conv import int8_conv_dequant
+from dd3d_tpu_torch.ops.int8_conv import QuantizedActivation, int8_conv_dequant
 
 logger = logging.getLogger(__name__)
 
@@ -343,7 +349,16 @@ class FoldableConv(nn.Module):
         check_kernel_size(self.kernel_size)
         self.kernel_weight_grad = True
 
-    def forward(self, x, mul=None, add=None):
+    def quantizes(self, spec: QuantSpec, folded: bool, in_channels: int) -> bool:
+        """Whether this conv runs as an int8 conv under `spec`, with a folded
+        norm or not, on an input of `in_channels` channels."""
+        return spec.enabled and self.quantizable and (folded or spec.unfolded) and in_channels >= spec.min_ch
+
+    def forward(self, x, mul=None, add=None, requant_amax=None):
+        """The conv (the norm's `mul`/`add` folded in). With `requant_amax`
+        (TowerConv's fused link), the QuantizedActivation of its ReLU at
+        that static amax's scale; a QuantizedActivation `x` must take the
+        int8 path."""
         weight, bias = self.weight, self.bias
         if mul is not None:
             weight = weight * mul[:, None, None, None]  # fp32, before the cast
@@ -359,7 +374,9 @@ class FoldableConv(nn.Module):
             act_amax = _observe(spec, self.quant_path, x)
             if x.shape[1] >= spec.min_ch:  # all input channels, not a group's (JAX :339)
                 return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain,
-                                         self.groups)
+                                         self.groups, requant_amax=requant_amax)
+        if isinstance(x, QuantizedActivation) or requant_amax is not None:
+            raise RuntimeError("a fused int8 link reached a conv that does not quantize")
         return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad,
                         groups=self.groups)
 
@@ -416,17 +433,62 @@ class TowerConv(FoldableConv):
     folded into its own application of the kernel (never averaged), then relu;
     a live BN in train mode normalizes each level with its own batch
     statistics instead (dd3d_tpu/models/fcos2d.py:140-149).
-    Reference names: `<tower>.<i>.weight`, `<tower>.<i>.norm.<level>.*`."""
+    Reference names: `<tower>.<i>.weight`, `<tower>.<i>.norm.<level>.*`.
+
+    `forward(x, level, consumer)` takes the conv that reads this one's
+    output, when nothing else reads it: the next TowerConv of the tower, or
+    the list of predictors fused after the last one. Where `link_amax`
+    gives the consumer's static amax, the conv, its ReLU and the consumer's
+    quantize run as one int8 conv with an s8 epilogue, and the result is a
+    QuantizedActivation that the consumer reads in place of the tensor."""
 
     def __init__(self, channels: int, num_levels: int, norm: str):
         super().__init__(channels, channels, 3, init=INIT_NORMAL_FAN_OUT)
         self.norm = PerLevelNorms(num_levels, channels, norm)
 
-    def forward(self, x, level: int):
+    def link_amax(self, spec: QuantSpec, level: int, in_channels: int, out_shape, consumer) -> Optional[float]:
+        """The consumer's static amax where this link fuses, else None. It
+        fuses where this conv quantizes (its norm folded), the consumer
+        quantizes (a TowerConv by the same rule, the predictors under
+        QUANT_UNFOLDED), no calibration captures (it needs the bf16 maxima),
+        and the consumer's path has a scale at the tag of this conv's
+        output `out_shape` (NCHW). A read of `spec.scales` only: the
+        consumer's `_observe` records a miss, once, as on the unfused path."""
+        if consumer is None or spec.capture is not None or not spec.scales:
+            return None
+        if not (self.norm[level].foldable and self.quantizes(spec, True, in_channels)):
+            return None
+        if isinstance(consumer, TowerConv):
+            if not consumer.quantizes(spec, consumer.norm[level].foldable, out_shape[1]):
+                return None
+            path = consumer.quant_path
+        else:
+            if not (spec.enabled and spec.unfolded):
+                return None
+            path = consumer[0].quant_path
+        return spec.scales.get(path, {}).get(f"{out_shape[2]}x{out_shape[3]}x{out_shape[1]}")
+
+    def forward(self, x, level: int, consumer=None):
         norm = self.norm[level]
         if norm.foldable:
-            return F.relu(super().forward(x, *norm.folded()))
+            mul, add = norm.folded()
+            amax = self.link_amax(_QUANT.get(), level, x.shape[1], (x.shape[0], self.weight.shape[0],
+                                                                     x.shape[2], x.shape[3]), consumer)
+            if amax is not None:
+                return super().forward(x, mul, add, requant_amax=amax)
+            return F.relu(super().forward(x, mul, add))
         return F.relu(norm(super().forward(x)))
+
+
+def run_tower(convs, x, level: int, predictors=None):
+    """A head tower's convs in turn on one level's features, each handed the
+    conv that reads its output: the next one, and after the last the
+    predictor group `predictors` (None where the tower's output has another
+    reader, so that it stays a tensor). Returns the last conv's output, a
+    QuantizedActivation where that link fused."""
+    for i, conv in enumerate(convs):
+        x = conv(x, level, convs[i + 1] if i + 1 < len(convs) else predictors)
+    return x
 
 
 class PredictorConv(nn.Module):
@@ -456,7 +518,8 @@ def fused_predictor_apply(x, preds):
     kernels, then split. Exact: each output channel is computed as by its own
     conv; a bias-free predictor gets a zero bias slice (dd3d_tpu :457-515).
     Under TPU.QUANT_UNFOLDED the group is one int8 conv, keyed by the first
-    sibling's scope path, whatever QUANT_MIN_CH is (:474-499)."""
+    sibling's scope path, whatever QUANT_MIN_CH is (:474-499); `x` may then
+    be the QuantizedActivation of a fused tower link."""
     k = preds[0].kernel_size
     if any(m.kernel_size != k for m in preds):
         raise ValueError("fused predictors need one kernel size")
@@ -469,6 +532,8 @@ def fused_predictor_apply(x, preds):
     if spec.enabled and spec.unfolded:
         act_amax = _observe(spec, preds[0].quant_path, x)
         y = int8_conv_dequant(x, weight, bias, 1, k // 2, x.dtype, act_amax, spec.plain)
+    elif isinstance(x, QuantizedActivation):
+        raise RuntimeError("a fused int8 link reached predictors that do not quantize")
     else:
         y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=k // 2)
     return list(torch.split(y, [m.out_channels for m in preds], dim=1))

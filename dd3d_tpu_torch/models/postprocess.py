@@ -10,6 +10,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from dd3d_tpu_torch.utils import comm
+
 
 def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False, group_size: int = 1, scan=None):
     """A plain callable `infer(images, intrinsics, pose_quat=None,
@@ -130,8 +132,9 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
     thread runs the loader two batches ahead, so mapping overlaps the
     forward; an exception in the loader is raised here. `model` may be a
     DistributedDataParallel wrapper: its module runs. Each rank evaluates the
-    batches of its own loader on its own card, and every rank must reach
-    the evaluators' `evaluate` (a gather). `suppress` and
+    batches of its own loader on its own card, then every rank joins
+    `comm.raise_if_any_rank_failed` before the evaluators' `evaluate` (a
+    gather): an error on one rank is raised on every rank. `suppress` and
     `group_size` are passed on to `get_inference_fn`: with the sample
     aggregation on, every batch must hold whole samples and their poses
     (pose_quat / pose_tvec, which the nuScenes mapper emits), else this
@@ -142,6 +145,23 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
     input (the resized image), its 2D boxes rescaled to it and its 3D
     wireframes, at score >= 0.3 (dd3d_tpu/models/postprocess.py:184-297,
     whose copy to W&B through `put_image` is not ported)."""
+    error = None
+    try:
+        _process_dataset(model, cfg, dataloader, evaluators, visualize_dir, max_vis, suppress, group_size)
+    except Exception as e:  # this rank's part failed: every rank learns it before the gather
+        error = e
+    comm.raise_if_any_rank_failed(error)
+    results = {}
+    for ev in evaluators:
+        r = ev.evaluate()
+        if r:
+            results.update(r)
+    return results
+
+
+def _process_dataset(model, cfg, dataloader, evaluators, visualize_dir, max_vis, suppress, group_size):
+    """This rank's part of `inference_on_dataset`: the forward of every
+    batch of its loader into the evaluators' `process`, and the drawings."""
     infer = get_inference_fn(getattr(model, "module", model), cfg, suppress=suppress, group_size=group_size)
     aggregate = bool(cfg.DD3D.INFERENCE.get("NUSC_SAMPLE_AGGREGATE", False)) and group_size > 1
     for ev in evaluators:
@@ -198,13 +218,6 @@ def inference_on_dataset(model, cfg, dataloader, evaluators, visualize_dir=None,
     finally:
         stop.set()
         thread.join(timeout=5)
-
-    results = {}
-    for ev in evaluators:
-        r = ev.evaluate()
-        if r:
-            results.update(r)
-    return results
 
 
 def visualize_predictions(batch, meta, per_image, visualize_dir: str, max_n: int) -> int:

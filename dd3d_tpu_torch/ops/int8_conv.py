@@ -11,7 +11,11 @@ the TPU. PyTorch has no int8 convolution on CUDA.
   kernel (or raises), once per run of images when a tensor would exceed the
   kernel's 2^31 elements (`batch_chunks`: a TTA bucket of 160 instances at
   640x1920 does); for CPU tensors it runs the plain PyTorch version,
-  `int8_conv_plain`.
+  `int8_conv_plain`. With `requant=xs_next` (a one-element f32 tensor) it
+  returns the next conv's NHWC int8 codes instead,
+  `quantize_int8(relu(out), xs_next)` computed in the kernel's epilogue
+  (`int8_conv_requant_plain` on the CPU): a head tower's link from one int8
+  conv to the next, with no bf16 tensor in between.
 - `int8_conv_grouped(xq, wq, scale, bias, stride, pad, out_dtype, groups)`:
   the same with feature_group_count = groups > 1 (layers.py:273), wq
   (O, kh, kw, C / groups): output channel o sums over the input channels of
@@ -23,14 +27,19 @@ the TPU. PyTorch has no int8 convolution on CUDA.
   `direct` (any shape, a direct conv on the CUDA cores); `route=` forces one
   the shape admits. CPU tensors run `int8_conv_grouped_plain`.
 - `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax,
-  groups=1)`: the counterpart of `_int8_conv` as a whole (plus the bias), on
-  the port's NCHW (channels_last) activations and OIHW fp32 weights:
-  per-output-channel weight scales, the per-tensor activation scale
-  (dynamic, or static from a calibrated `act_amax`), then the quantize
-  kernel (ops/quantize.py) and the int8 conv kernel, grouped or not.
+  groups=1, requant_amax=None)`: the counterpart of `_int8_conv` as a whole
+  (plus the bias), on the port's NCHW (channels_last) activations and OIHW
+  fp32 weights: per-output-channel weight scales, the per-tensor activation
+  scale (dynamic, or static from a calibrated `act_amax`), then the quantize
+  kernel (ops/quantize.py) and the int8 conv kernel, grouped or not. `x`
+  may be a `QuantizedActivation`, the codes a previous conv's s8 epilogue
+  wrote: the quantize is then skipped. With `requant_amax` (the next conv's
+  static amax) it returns such a holder: ReLU and the next quantize fused
+  into this conv's epilogue.
 """
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -75,6 +84,14 @@ def int8_conv_plain(xq, wq, scale, bias, stride: int, pad: int, out_dtype: torch
     """The plain PyTorch version of `int8_conv`."""
     y = dequant_plain(int8_conv_acc_plain(xq, wq, stride, pad), scale, bias, out_dtype)
     return y.contiguous()
+
+
+def int8_conv_requant_plain(xq, wq, scale, bias, stride: int, pad: int, out_dtype: torch.dtype,
+                            xs_next: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `int8_conv(..., requant=xs_next)`: the
+    unfused composition, the dequantized conv in `out_dtype`, its ReLU, then
+    the next conv's quantize at `xs_next`. NHWC int8."""
+    return quantize_int8_plain(F.relu(int8_conv_plain(xq, wq, scale, bias, stride, pad, out_dtype)), xs_next)
 
 
 def int8_conv_grouped_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
@@ -126,7 +143,8 @@ def _library():
         from dd3d_tpu_torch.kernels import load_library
 
         lib = load_library("int8_conv.cu")
-        lib.dd3d_int8_conv.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.dd3d_int8_conv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
+                                       + [ctypes.c_void_p])
         lib.dd3d_int8_conv.restype = ctypes.c_int
         lib.dd3d_int8_conv_grouped.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         lib.dd3d_int8_conv_grouped.restype = ctypes.c_int
@@ -152,12 +170,30 @@ def _check(xq, wq, scale, bias, out_dtype, groups=1):
         raise ValueError("xq, wq, scale and bias must be on one device")
 
 
+OUT_KINDS = ("f32", "bf16", "s8")  # int8_conv.launches_by_out's keys
+
+
+def _out_kind(out_dtype: torch.dtype, requant: Optional[torch.Tensor]) -> int:
+    """The C entry's out_kind: 0 f32, 1 bf16, 2 s8 after a bf16 epilogue, 3
+    s8 after an f32 one."""
+    bf16 = int(out_dtype == torch.bfloat16)
+    return bf16 if requant is None else 3 - bf16
+
+
 def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-              stride: int, pad: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """Dequantized int8 conv (B, Ho, Wo, O); see the module docstring.
-    `int8_conv.launches` counts kernel launches."""
+              stride: int, pad: int, out_dtype: torch.dtype, requant: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dequantized int8 conv (B, Ho, Wo, O), or with `requant` the next
+    conv's int8 codes of its ReLU; see the module docstring.
+    `int8_conv.launches` counts kernel launches, `int8_conv.launches_by_out`
+    the same by output kind (`OUT_KINDS`)."""
     _check(xq, wq, scale, bias, out_dtype)
+    if requant is not None and (requant.dtype != torch.float32 or requant.numel() != 1
+                                or requant.device != xq.device):
+        raise ValueError(f"requant must be a one-element float32 scale on {xq.device}; got {requant.dtype} with "
+                         f"{requant.numel()} elements on {requant.device}")
     if xq.device.type == "cpu":
+        if requant is not None:
+            return int8_conv_requant_plain(xq, wq, scale, bias, stride, pad, out_dtype, requant)
         return int8_conv_plain(xq, wq, scale, bias, stride, pad, out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"no int8 conv kernel for device {xq.device}")
@@ -166,6 +202,7 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opt
         raise ValueError("xq, wq, scale and bias must be contiguous (xq NHWC, wq OHWI)")
     b, h, w, _ = xq.shape
     o, kh, kw, _ = wq.shape
+    kind = _out_kind(out_dtype, requant)
     xq, wq = pad_channels(xq, wq)
     ho, wo = _out_size(h, kh, stride, pad), _out_size(w, kw, stride, pad)
     if ho <= 0 or wo <= 0:
@@ -175,18 +212,19 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, bias: Opt
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
     c = xq.shape[3]
-    out = torch.empty((b, ho, wo, o), dtype=out_dtype, device=xq.device)
+    out = torch.empty((b, ho, wo, o), dtype=out_dtype if requant is None else torch.int8, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         for i0, i1 in batch_chunks(b, max(h * w * c, ho * wo * o)):
             # each chunk's images start 16-byte aligned: h*w*c is a multiple of 16
             err = _library().dd3d_int8_conv(
                 xq[i0:i1].data_ptr(), wq.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
-                out[i0:i1].data_ptr(), int(out_dtype == torch.bfloat16), i1 - i0, h, w, c, o, kh, kw, stride, pad,
-                stream)
+                out[i0:i1].data_ptr(), kind, None if requant is None else requant.data_ptr(), i1 - i0, h, w, c, o,
+                kh, kw, stride, pad, stream)
             if err != 0:
                 raise RuntimeError(f"int8 conv kernel launch failed: error {err}")
             int8_conv.launches += 1
+            int8_conv.launches_by_out[OUT_KINDS[min(kind, 2)]] += 1
     return out
 
 
@@ -204,6 +242,7 @@ def batch_chunks(batch: int, per_image: int, limit: int = _MAX_ELEMENTS):
 
 
 int8_conv.launches = 0
+int8_conv.launches_by_out = dict.fromkeys(OUT_KINDS, 0)
 
 
 GROUPED_ROUTES = ("direct", "depthwise", "mma")  # the C entry's route codes 0, 1, 2
@@ -280,16 +319,41 @@ int8_conv_grouped.launches = 0
 int8_conv_grouped.launches_by_route = dict.fromkeys(GROUPED_ROUTES, 0)
 
 
+def static_scale(act_amax: float) -> float:
+    """The scale of a static amax: max(f32(amax), 1e-12) / 127 in f32
+    (layers.py:259-260; the amax is a double from JSON)."""
+    return float(np.maximum(np.float32(act_amax), np.float32(1e-12)) / np.float32(127.0))
+
+
 def activation_scale(x: torch.Tensor, act_amax: Optional[float]) -> torch.Tensor:
     """The per-tensor activation scale `xs` as a one-element f32 tensor on
     x's device: max(amax, 1e-12) / 127 in f32 (layers.py:259-262). A static
-    amax (a double from JSON) is cast to f32 before the max and the divide;
-    the dynamic amax is max|x|, a torch reduction (exact in any order)."""
+    amax is `static_scale`; the dynamic amax is max|x|, a torch reduction
+    (exact in any order)."""
     if act_amax is None:
         amax = x.abs().amax().float()
         return (torch.clamp(amax, min=1e-12) / 127.0).reshape(1)
-    xs = np.maximum(np.float32(act_amax), np.float32(1e-12)) / np.float32(127.0)
-    return torch.full((1,), float(xs), dtype=torch.float32, device=x.device)
+    return torch.full((1,), static_scale(act_amax), dtype=torch.float32, device=x.device)
+
+
+@dataclass(frozen=True)
+class QuantizedActivation:
+    """An activation held as the int8 codes that the conv before it wrote in
+    its s8 epilogue, for the conv that reads it: `codes` (B, H, W, C) NHWC
+    int8, `xs` the one-element f32 scale tensor they were made at (on the
+    codes' device), `xs_value` the same scale as a float, and `dtype` the
+    activation's dtype on the unfused path (the consumer's output dtype).
+    `shape` is the activation's NCHW shape, as the modules see it."""
+
+    codes: torch.Tensor
+    xs: torch.Tensor
+    xs_value: float
+    dtype: torch.dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        b, h, w, c = self.codes.shape
+        return torch.Size((b, c, h, w))
 
 
 def quantize_weight(weight: torch.Tensor):
@@ -301,22 +365,48 @@ def quantize_weight(weight: torch.Tensor):
     return wq.permute(0, 2, 3, 1).contiguous(), ws
 
 
-def int8_conv_dequant(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int, pad: int,
-                      out_dtype: torch.dtype, act_amax: Optional[float] = None, plain: bool = False,
-                      groups: int = 1) -> torch.Tensor:
+def int8_conv_dequant(x: Union[torch.Tensor, QuantizedActivation], weight: torch.Tensor, bias: Optional[torch.Tensor],
+                      stride: int, pad: int, out_dtype: torch.dtype, act_amax: Optional[float] = None,
+                      plain: bool = False, groups: int = 1,
+                      requant_amax: Optional[float] = None) -> Union[torch.Tensor, QuantizedActivation]:
     """The port of `_int8_conv` plus the bias: x (B, C, H, W), weight
     (O, C / groups, kh, kw) fp32, bias (O,) fp32 or None; returns
     (B, O, Ho, Wo) in `out_dtype` with channels_last strides. `plain` runs
     the kernels' plain versions (on any device), for checking the kernels
-    against them."""
-    x_nhwc = x.permute(0, 2, 3, 1)
-    if not x_nhwc.is_contiguous():
-        x_nhwc = x_nhwc.contiguous()  # an explicit copy to NHWC; the kernels take no other layout
-    xs = activation_scale(x_nhwc, act_amax)
+    against them.
+
+    A `QuantizedActivation` x skips the quantize: its codes are the conv's
+    input. Its scale must be the one this conv's static `act_amax` gives
+    (else ValueError: the producer looked up another amax). With
+    `requant_amax` (ungrouped convs only), the result is the
+    QuantizedActivation of ReLU(this conv's output) at the scale of that
+    static amax, written by the int8 conv's s8 epilogue."""
+    if isinstance(x, QuantizedActivation):
+        if act_amax is None or static_scale(act_amax) != x.xs_value:
+            raise ValueError(f"the quantized activation was made at scale {x.xs_value!r}; this conv's static amax "
+                             f"{act_amax!r} gives {None if act_amax is None else static_scale(act_amax)!r}")
+        xq, xs = x.codes, x.xs
+    else:
+        x_nhwc = x.permute(0, 2, 3, 1)
+        if not x_nhwc.is_contiguous():
+            x_nhwc = x_nhwc.contiguous()  # an explicit copy to NHWC; the kernels take no other layout
+        xs = activation_scale(x_nhwc, act_amax)
+        xq = None
     wq, ws = quantize_weight(weight.float())
     scale = xs * ws  # the (O,) f32 vector first, as layers.py:276
     bias = None if bias is None else bias.float()
-    xq = (quantize_int8_plain if plain else quantize_int8)(x_nhwc, xs)
+    if xq is None:
+        xq = (quantize_int8_plain if plain else quantize_int8)(x_nhwc, xs)
+    if requant_amax is not None:
+        if groups != 1:
+            raise ValueError("the s8 epilogue is the ungrouped int8 conv's only")
+        xs_value = static_scale(requant_amax)
+        xs_next = torch.full((1,), xs_value, dtype=torch.float32, device=xq.device)
+        if plain:
+            codes = int8_conv_requant_plain(xq, wq, scale, bias, stride, pad, out_dtype, xs_next)
+        else:
+            codes = int8_conv(xq, wq, scale, bias, stride, pad, out_dtype, requant=xs_next)
+        return QuantizedActivation(codes, xs_next, xs_value, out_dtype)
     if groups == 1:
         y = (int8_conv_plain if plain else int8_conv)(xq, wq, scale, bias, stride, pad, out_dtype)
     else:

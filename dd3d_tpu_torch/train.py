@@ -102,8 +102,9 @@ def do_train(cfg, model, output_dir, device):
         try:
             do_test(cfg, state.model, output_dir, step=step)
         except Exception:
-            if comm.is_distributed():
-                raise  # a rank that skips the evaluators' gather would leave the others waiting in it
+            # logged and training goes on, as scripts/train.py:128-131: where
+            # one rank failed, every rank raised here before the evaluators'
+            # gather (comm.raise_if_any_rank_failed), so none waits in it
             LOG.exception("Periodic eval failed")
 
     return train(cfg, data_iter(), model=model, device=device, output_dir=output_dir,
@@ -116,7 +117,8 @@ def do_test(cfg, model, output_dir, step=None, use_tta=False):
     results, which are logged and, on rank 0, appended to
     `<output_dir>/metrics.jsonl` at `step`. Each rank draws the predictions
     of its first 8 images into `<output_dir>/visualization`. `use_tta` runs
-    the test-time-augmented test instead (`_do_test_tta`)."""
+    the test-time-augmented test instead (`_do_test_tta`). A failure on any
+    rank before the evaluators' gather raises on every rank."""
     from dd3d_tpu_torch.data.build import build_test_dataloader
     from dd3d_tpu_torch.evaluators import get_evaluator
     from dd3d_tpu_torch.models.postprocess import inference_on_dataset
@@ -125,9 +127,12 @@ def do_test(cfg, model, output_dir, step=None, use_tta=False):
     if use_tta:
         return _do_test_tta(cfg, model, dataset_name, output_dir, step)
     group_size = group_size_of(cfg)
-    loader = build_test_dataloader(cfg, dataset_name=dataset_name, group_size=group_size,
-                                   shard_idx=comm.get_rank(), num_shards=comm.get_world_size())
-    evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
+    try:
+        loader = build_test_dataloader(cfg, dataset_name=dataset_name, group_size=group_size,
+                                       shard_idx=comm.get_rank(), num_shards=comm.get_world_size())
+        evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
+    except Exception as e:  # join the agreement the other ranks hold in inference_on_dataset
+        comm.raise_if_any_rank_failed(e)
     vis_dir = os.path.join(output_dir, "visualization") if output_dir else None
     results = inference_on_dataset(model, cfg, loader, evaluators, visualize_dir=vis_dir, group_size=group_size)
     _log_results(results, output_dir, step)
@@ -148,18 +153,40 @@ def _do_test_tta(cfg, model, dataset_name, output_dir, step=None):
     DD3DWithTTA.infer_batch, or NuscenesDD3DWithTTA's, whose merged
     detections of each sample then go through the sample aggregation when
     DD3D.INFERENCE.NUSC_SAMPLE_AGGREGATE is set, into the evaluators; the
-    results carry the `tta/` prefix."""
+    results carry the `tta/` prefix. A failure on any rank before the
+    evaluators' gather raises on every rank."""
+    from dd3d_tpu_torch.evaluators import get_evaluator
+
+    error, evaluators, tta = None, [], None
+    try:
+        evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
+        tta = _process_tta(cfg, model, dataset_name, evaluators)
+    except Exception as e:  # this rank's part failed: every rank learns it before the gather
+        error = e
+    comm.raise_if_any_rank_failed(error)
+    results = {}
+    for ev in evaluators:
+        r = ev.evaluate()
+        if r:
+            results.update({f"tta/{k}": v for k, v in r.items()})
+    LOG.info("TTA canvas buckets (instances): %s; host seconds %s", dict(tta.stats["buckets"]),
+             {k: round(v, 3) for k, v in tta.stats["seconds"].items()})
+    _log_results(results, output_dir, step)
+    return results
+
+
+def _process_tta(cfg, model, dataset_name, evaluators):
+    """This rank's part of `_do_test_tta`: its shard through the TTA model
+    into the evaluators' `process`. Returns the TTA model (its stats)."""
     from dd3d_tpu_torch.data.catalog import DatasetCatalog
     from dd3d_tpu_torch.data.imageio import read_image_bgr
     from dd3d_tpu_torch.data.samplers import InferenceGroupSampler, InferenceSampler
-    from dd3d_tpu_torch.evaluators import get_evaluator
     from dd3d_tpu_torch.models.cross_camera import get_group_idxs
     from dd3d_tpu_torch.models.tta import DD3DWithTTA, NuscenesDD3DWithTTA
     from dd3d_tpu_torch.structures.pose import Pose
 
     nuscenes = cfg.MODEL.META_ARCHITECTURE == "NuscenesDD3D"
     tta = (NuscenesDD3DWithTTA if nuscenes else DD3DWithTTA)(cfg, model)
-    evaluators = get_evaluator(cfg, dataset_name, output_dir=output_dir)
     for ev in evaluators:
         ev.reset()
     dicts = DatasetCatalog.get(dataset_name)
@@ -195,15 +222,7 @@ def _do_test_tta(cfg, model, dataset_name, output_dir, step=None):
                 tta.stats["seconds"]["aggregate"] += time.perf_counter() - t0
             for ev in evaluators:
                 ev.process(group)
-    results = {}
-    for ev in evaluators:
-        r = ev.evaluate()
-        if r:
-            results.update({f"tta/{k}": v for k, v in r.items()})
-    LOG.info("TTA canvas buckets (instances): %s; host seconds %s", dict(tta.stats["buckets"]),
-             {k: round(v, 3) for k, v in tta.stats["seconds"].items()})
-    _log_results(results, output_dir, step)
-    return results
+    return tta
 
 
 def flatten_results(results, prefix="") -> dict:

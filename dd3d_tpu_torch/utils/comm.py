@@ -17,7 +17,7 @@ import functools
 import logging
 import os
 from datetime import timedelta
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -119,6 +119,23 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     t = t.detach().clone()
     dist.all_reduce(t)
     return t
+
+
+def raise_if_any_rank_failed(error: Optional[BaseException]) -> None:
+    """The agreement every rank joins after its local part of a test
+    (inference, the evaluators' `process`) and before the evaluators'
+    gather: each rank's error or None goes to every rank. Where one failed,
+    every rank raises the same RuntimeError (naming the first failed rank),
+    so that all skip the gather together and none waits in it. Without a
+    process group, `error` itself is raised."""
+    if not is_distributed():
+        if error is not None:
+            raise error
+        return
+    failed = [(r, e) for r, e in enumerate(all_gather_objects(None if error is None else repr(error))) if e]
+    if failed:
+        rank, what = failed[0]
+        raise RuntimeError(f"the test failed on rank {rank} of {get_world_size()}: {what}") from error
 
 
 def cleanup() -> None:

@@ -214,6 +214,88 @@ def test_quantize_kernel_matches_plain(card, shape, dtype, amax):
     assert torch.equal(q, quantize_int8_plain(xt, xs))
 
 
+# scales of the quantize checks: static scales of amaxes like the path's
+# calibrated ones, powers of two, and log-uniform random ones
+QUANT_AMAXES = (0.37, 1.9, 4.0, 7.3, 15.875, 31.2, 96.5, 250.0)
+QUANT_SCALES = ([float(np.float32(a) / np.float32(127)) for a in QUANT_AMAXES]
+                + [2.0 ** e for e in (-20, -7, -1, 0, 3, 10)]
+                + [float(np.float32(v)) for v in np.exp(np.random.RandomState(5).uniform(-12, 6, 6))])
+
+
+def _all_bf16(card):
+    """The 65,536 bf16 bit patterns but the NaNs, on the card."""
+    bits = torch.arange(2 ** 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return bits[~torch.isnan(bits)].to(card)
+
+
+def test_quantize_kernel_equals_plain_on_every_bf16_value(card):
+    """Every non-NaN bf16 value at 20 scales: the kernel's division-free
+    codes (csrc/quantize.cuh) equal the plain version's division."""
+    from dd3d_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
+
+    x = _all_bf16(card)
+    assert x.numel() == 65536 - 254
+    wide = x.repeat(80)  # 5.2M elements: the 16-a-thread kernel (65,282 take the 8-a-thread one)
+    for xs_value in QUANT_SCALES:
+        xs = torch.tensor([xs_value], dtype=torch.float32, device=card)
+        for t in (x, x.float(), wide):
+            q = quantize_int8(t, xs)
+            assert torch.equal(q, quantize_int8_plain(t, xs)), f"xs={xs_value!r} {t.dtype} {t.numel()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_ragged_and_unaligned(card, dtype):
+    """Sizes around the 8- and 16-element packets, the 8-a-thread kernel
+    and the 16-a-thread one (from ~4.3M elements) with ragged tails, and
+    bases 1..15 elements past an aligned one (the element-by-element
+    path)."""
+    from dd3d_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
+
+    gen = torch.Generator().manual_seed(8)
+    flat = (torch.randn(2 ** 23 + 77, generator=gen) * 4).to(dtype).to(card)
+    xs = torch.tensor([QUANT_SCALES[2]], dtype=torch.float32, device=card)
+    for n in (1, 7, 8, 9, 15, 16, 17, 31, 255, 4097, 2 ** 20 + 3, 2 ** 22 + 5, 2 ** 23 + 9, flat.numel()):
+        assert torch.equal(quantize_int8(flat[:n], xs), quantize_int8_plain(flat[:n], xs)), n
+    for offset in range(1, 16):
+        for n in (100003, 5000003):
+            x = flat[offset:offset + n]
+            assert torch.equal(quantize_int8(x, xs), quantize_int8_plain(x, xs)), (offset, n)
+    x = flat[: 3 * 7 * 13 * 5].view(3, 7, 13, 5)
+    assert torch.equal(quantize_int8(x, xs), quantize_int8_plain(x, xs))
+
+
+# the head towers' int8 conv shapes at batch 8, 384x1280: (H, W) of each
+# level and the tower width of DLA-34 (P3-P7, 256), V2-99 (P3-P6, 256) and
+# RegNetY + BiFPN (P3-P7, 160); V2-99's are DLA-34's first four
+TOWER_LEVELS = ((48, 160), (24, 80), (12, 40), (6, 20), (3, 10))
+TOWER_SHAPES = [(8, h, w, c) for c in (256, 160) for h, w in TOWER_LEVELS] + [(3, 7, 11, 256)]  # + a ragged M
+
+
+@pytest.mark.parametrize("b,h,w,c", TOWER_SHAPES)
+def test_int8_conv_s8_epilogue_matches_plain(card, b, h, w, c):
+    """The s8 epilogue (ReLU and the next quantize in the int8 conv) against
+    `int8_conv_requant_plain`, bit for bit, after a bf16 and an f32
+    epilogue, at a scale that clips some codes; counted as s8 launches."""
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, int8_conv_requant_plain
+
+    rng = np.random.RandomState(9)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)).to(card)
+    wq = torch.from_numpy(rng.randint(-127, 128, (c, 3, 3, c)).astype(np.int8)).to(card)
+    scale = torch.from_numpy((rng.rand(c) * 1e-4 + 1e-5).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32)).to(card)
+    for dt in (torch.bfloat16, torch.float32):
+        y = int8_conv_plain(xq, wq, scale, bias, 1, 1, dt)
+        xs_next = (y.float().amax() * 0.8 / 127).reshape(1)
+        before = (int8_conv.launches, dict(int8_conv.launches_by_out))
+        got = int8_conv(xq, wq, scale, bias, 1, 1, dt, requant=xs_next)
+        want = int8_conv_requant_plain(xq, wq, scale, bias, 1, 1, dt, xs_next)
+        assert got.dtype == torch.int8 and got.shape == (b, h, w, c)
+        assert torch.equal(got, want), dt
+        assert (want == 127).any() and (want == 0).any()
+        assert int8_conv.launches == before[0] + 1
+        assert int8_conv.launches_by_out == dict(before[1], s8=before[1]["s8"] + 1)
+
+
 @pytest.mark.parametrize("b,h,w,c,o,k,stride", [
     (2, 24, 40, 256, 256, 3, 1),  # a head-tower conv
     (2, 33, 47, 3, 16, 7, 1),     # the stem, ragged: C padded to 16

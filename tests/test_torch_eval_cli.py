@@ -168,10 +168,16 @@ def test_failed_periodic_eval_is_logged_on_one_rank(fixture_root, tmp_path, monk
     assert calls == [1, 1] and "Periodic eval failed" in caplog.text  # the periodic test, then the final
 
 
-def test_failed_periodic_eval_raises_on_every_rank(fixture_root, tmp_path):
-    got = run_gloo(failing_eval_cli_rank, 2, train_args(fixture_root, str(tmp_path / "out"), 1, 1),
+def test_failed_periodic_eval_is_logged_on_every_rank(fixture_root, tmp_path):
+    """The periodic test at step 1 fails on rank 1 only, in its inference:
+    both ranks log it and train on (as scripts/train.py:128-131 does); the
+    test at step 2 and the final test then run and log results."""
+    got = run_gloo(failing_eval_cli_rank, 2, train_args(fixture_root, str(tmp_path / "out"), 2, 1),
                    out_dir=tmp_path / "ranks", join_group=False, timeout_s=400)
-    assert got == ["eval failed at step 1"] * 2
+    for rank in got:
+        assert "Periodic eval failed" in rank["logged"]
+    assert got[0]["run_dir"] == got[1]["run_dir"]
+    assert [r["step"] for r in result_rows(got[0]["run_dir"])] == [2, 2]  # step 1's test failed
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -251,20 +251,36 @@ def eval_rank(root: str, rank0_only: bool, out_dir: str):
 
 
 def failing_eval_cli_rank(argv):
-    """dd3d_tpu_torch.train.main(argv) with its periodic test failing on
-    this rank: what main raised, as a string (every rank must raise rather
-    than skip the evaluators' gather, so that none waits in it)."""
+    """dd3d_tpu_torch.train.main(argv) with the first test's local part
+    (inference) failing on rank 1 only: {"logged": the messages logged by
+    the training CLI, "run_dir": main's result}. Every rank must log the
+    failure and train on, none waiting in the evaluators' gather."""
+    import logging
+
+    import dd3d_tpu_torch.models.postprocess as postprocess
     import dd3d_tpu_torch.train as train_cli
 
-    def do_test(cfg, model, output_dir, step=None):
-        raise RuntimeError(f"eval failed at step {step}")
+    real, calls = postprocess.get_inference_fn, []
 
-    train_cli.do_test = do_test
-    try:
-        train_cli.main(argv)
-    except RuntimeError as e:
-        return str(e)
-    return None
+    def get_inference_fn(*args, **kwargs):
+        calls.append(1)
+        if dist.get_rank() == 1 and len(calls) == 1:
+            raise RuntimeError("eval failed on rank 1")
+        return real(*args, **kwargs)
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger("dd3d_tpu_torch.train").addHandler(keep)
+    postprocess.get_inference_fn = get_inference_fn
+    run_dir = train_cli.main(argv)
+    return {"logged": keep.messages, "run_dir": run_dir}
 
 
 def seeded_nusc_detections(dataset_dicts, seed: int = 0):
