@@ -20,7 +20,12 @@ dd3d_nusc_dla34 (NuscenesDD3D: serving with the rotated BEV NMS and the
 6-camera sample aggregation, EVAL_ONLY with the nuScenes evaluator and the
 TTA test, training), then NMS past N = 2048, dd3d_kitti_regnety_006_bifpn
 (RegNetY-006 + BiFPN: serving in bf16 and static int8 with the grouped int8
-conv, the train step, the CLIs) and DD3DDenseDepth's train step, then the
+conv, the train step, the CLIs) and DD3DDenseDepth's train step, then both
+nuScenes experiments in static int8 (serving with the aggregation, and
+EVAL_ONLY with the TTA test at the experiment's five sizes), the nine other
+DLA variants, DLA-X-60 in static int8 (its grouped convs on the `direct`
+and `mma` routes) and training, and DLA-34 with the FCOS2D v1 towers and
+the per-level, class-agnostic 3D predictors, then the
 quantize kernel on every bf16 value and the int8 conv's s8 epilogue at
 every head-tower shape, and fails loudly (non-zero exit) if any phase fails.
 In static int8 the head towers' links run fused (the next conv's quantize
@@ -113,9 +118,9 @@ process each, all at once.
     minimum AP is gated: two runs (45.05 each) are too few to set a floor,
     and the AP is still climbing here (0.00 after 200 steps);
 18. evaluation at the size of a test set: phase 17's trained checkpoint
-    over a 200-frame fixture (its first 8 frames are the training set), 50
-    batches of 4 at 384x1280: the loader alone, then `inference_on_dataset`
-    through the NMS kernel and with the plain suppression, which must give
+    over a 120-frame fixture (its first 8 frames are the training set), 30
+    batches of 4 at 384x1280: the loader alone, then
+    `inference_on_dataset` through the NMS kernel and with the plain suppression, which must give
     identical per-image detections and results dicts; eval images/s
     (loader, forward, decode, evaluators), each evaluator's host seconds and
     the R40 engine's;
@@ -127,9 +132,9 @@ process each, all at once.
     overfit checkpoint and `python -m dd3d_tpu_torch.visualize_dataloader`
     write theirs, each read back with the port's PNG reader and checked
     for its shape and its drawn boxes;
-20. test-time augmentation at full width on the overfit checkpoint over an
-    80-frame fixture, one chunk at TEST.IMS_PER_BATCH 80, five scales with
-    flip in five canvas buckets of 160 instances, 384x1152 to 640x1920:
+20. test-time augmentation at full width on the overfit checkpoint over a
+    48-frame fixture, one chunk at TEST.IMS_PER_BATCH 80, five scales with
+    flip in five canvas buckets of 96 instances, 384x1152 to 640x1920:
     (a) EVAL_ONLY through the CLI's main, bf16: the plain test, then the
     TTA test (images/s, buckets, host seconds by part, peak memory,
     launches, tta/ AP beside the plain AP; its prediction drawings drawn
@@ -232,12 +237,49 @@ process each, all at once.
     a ragged M (the same file's check); at the P3 tower conv the device time
     of the s8 epilogue (at a calibrated and at a round scale), the bf16 one
     and the unfused link, in turns, beside the plain version, cuDNN and the
-    bound.
+    bound;
+36. dd3d_nusc_dla34 in bench.py's static int8 (QUANT_MIN_CH 32,
+    QUANT_UNFOLDED) at full width, batch 12 (two samples of 6 cameras),
+    896x1664, randomize_state weights: phase 7 at every int8 conv shape of
+    the path, the convs QUANT_MIN_CH 32 keeps in bf16, calibration on 2
+    batches, 3 batches served with the sample aggregation counting the
+    quantize, the int8 conv by output kind (55 fused tower links a forward:
+    the cls tower's last link stays unfused, read by the cls predictor and
+    the attribute/speed group), the NMS and the BEV scan, no scale miss;
+    kernel and plain detections identical; int8 against bf16 within the
+    drift bounds, the attribute logits' and speeds' drift beside them; ms
+    and device time a batch of int8 and bf16 in turns; the int8 conv at
+    its P3 tower conv (12, 112, 208, 256) with the s8 and the bf16
+    epilogue, equal to the plain version, beside cuDNN and the bound; then
+    dd3d_nusc_v99 in scripts/bench_v99.py's settings (QUANT_MIN_CH 32, the
+    predictors bf16) the same way on one batch, untimed;
+37. EVAL_ONLY of dd3d_nusc_dla34 in static int8 through `train.main` on a
+    2-sample fixture (12 PNGs at 900x1600) with the experiment's own
+    TEST.AUG (640-1152 with flip): the plain test (dynamic scales) and the
+    TTA test, each canvas bucket calibrated on its first batch, no scale
+    miss, finite NDS and mAP, launches; `batch_chunks`' runs at the
+    1152x2048 bucket; the int8 conv at that bucket's P3 tower conv (24,
+    144, 256, 256) as in phase 36;
+38. the nine other DLA variants (Bottleneck, BottleneckX with cardinality
+    32 and 64, residual roots) under dd3d_kitti_dla34's heads: one bf16
+    batch of 8 at 384x1280 each, finite, the NMS kernel once;
+39. DLA-X-60 in bench.py's static int8: phase 7 at every ungrouped site, the
+    grouped kernel at each of its 8 grouped shapes (C/g = 4 and 8 on
+    `direct`, 16 and 32 on `mma`) on every route the shape admits, bit for
+    bit, timed on both beside cuDNN's bf16 grouped conv (not gated) and the
+    bound; phase 8's path checks (direct and mma launches both non-zero);
+40. DLA-X-60's bf16 train step at batch 8, 384x1280, TPU.PALLAS_STEM_DW:
+    finite losses, the dW kernel twice a step, ms a step;
+41. DLA-34 with FCOS2D _VERSION v1, PER_LEVEL_PREDICTORS and
+    CLASS_AGNOSTIC_BOX3D together: bf16 serving (phases 2 and 3's
+    checks), bench.py's static int8 (phase 8's checks), and the tower links
+    fused and unfused in turns (identical detections).
 
 Before the last line, the card's name and power limit and one JSON line of
 the seven kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
 int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv, dW): launches on the main paths (DLA-34's,
-V2-99's, nuScenes', RegNetY's and DenseDepth's), error against the plain
+V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's and the head
+options'), error against the plain
 version, ms, the plain version's ms, the bound (bytes or operations at the
 published H100 peaks) and, where one PyTorch call computes the same thing,
 that call's ms.
@@ -281,8 +323,12 @@ def bound_ms(nbytes, ops, kind):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+_START = time.time()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script started."""
+    print(f"[{time.time() - _START:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1475,10 +1521,10 @@ def phase13_train_timing(device, stem_cases):
 
 
 CLI_STEPS = 8
-TIMING_STEPS = 12
+TIMING_STEPS = 8
 CAR_AP3D = "kitti_3d/kitti_box3d_r40/Car_Moderate_0.5"
 OVERFIT_ITERS = 400  # the overfit run's steps of batch 4 (phase 17; ~120 s on the card)
-EVAL_IMAGES = 200  # frames of phase 18's test set (50 batches of 4)
+EVAL_IMAGES = 120  # frames of phase 18's test set (30 batches of 4)
 TIMING_BUCKET = 384  # KITTI frames at short side 384: a 384x1280 canvas, phase 13's shape
 
 
@@ -1983,7 +2029,8 @@ def phase17_overfit(tmp, root, card):
 
 
 VIS_STEPS = 4  # phase 19's CLI run: steps of batch 8, the dataloader drawn at steps 2 and 4
-TTA_IMAGES = 80  # phase 20's frames: one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
+TTA_IMAGES = 48  # phase 20's frames: one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
+LARGEST_BUCKET = 160  # instances of the largest TTA bucket at that chunk of 80 frames, with flip
 TTA_CHECK_IMAGES = 8  # phase 20(c): int8 TTA through the kernels and through their plain versions
 KITTI_INTRINSICS = "721.5377,721.5377,609.5593,172.854"
 # the canvas buckets of a 375x1242 frame at TEST.AUG.MIN_SIZES [320, 384, 448, 512, 576], one scale and its flip each
@@ -2142,20 +2189,22 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
 def zero_launches():
     """Set the launch count of every kernel wrapper to 0."""
     from dd3d_tpu_torch.ops.conv_dw import conv_dw_s1_same
-    from dd3d_tpu_torch.ops.int8_conv import int8_conv
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_grouped
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
     from dd3d_tpu_torch.ops.quantize import quantize_int8
 
-    for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, conv_dw_s1_same):
+    for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, int8_conv_grouped, conv_dw_s1_same):
         k.launches = 0
     int8_conv.launches_by_out.update(dict.fromkeys(int8_conv.launches_by_out, 0))
+    int8_conv_grouped.launches_by_route.update(dict.fromkeys(int8_conv_grouped.launches_by_route, 0))
 
 
 def phase20_tta(tmp, overfit_dir, device, card):
     """Test-time augmentation at full width on the overfit checkpoint, over
-    TTA_IMAGES frames of the fixture (one chunk, five canvas buckets of 160
-    instances up to 640x1920): (a) EVAL_ONLY through the CLI's main with the
-    experiment's own TEST.AUG, bf16: the plain test, then the TTA test;
+    TTA_IMAGES frames of the fixture (one chunk, five canvas buckets of
+    2 x TTA_IMAGES instances up to 640x1920): (a) EVAL_ONLY through the
+    CLI's main with the experiment's own TEST.AUG, bf16: the plain test,
+    then the TTA test;
     (b) the TTA test in static int8 (bench.py's overrides, calibrated per
     bucket); (c) on TTA_CHECK_IMAGES frames, int8 TTA through the kernels and
     through their plain versions: identical detections and results; (d) a
@@ -2335,7 +2384,8 @@ def phase20_tta_witness(root, ckpt, ap3d, device, card):
 
 
 def phase20_int8_conv_largest_bucket(device, card):
-    """The int8 conv kernel at the largest TTA bucket (160 x 640 x 1920):
+    """The int8 conv kernel at the largest TTA bucket of a full chunk of 80
+    frames (160 x 640 x 1920):
     the P3 tower conv (160, 80, 240, 256) -> 256 3x3 against its plain
     version (accumulators exactly, the bf16 epilogue bit for bit), timed
     beside cuDNN's bf16 conv and its bound; and level0's 3x3 16 -> 16 at full
@@ -2346,7 +2396,7 @@ def phase20_int8_conv_largest_bucket(device, card):
     from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
 
     gen = torch.Generator().manual_seed(SEED + 20)
-    b = 2 * TTA_IMAGES
+    b = LARGEST_BUCKET
     xq = torch.randint(-127, 128, (b, 80, 240, 256), generator=gen, dtype=torch.int8).to(device)
     wq = torch.randint(-127, 128, (256, 3, 3, 256), generator=gen, dtype=torch.int8).to(device)
     scale = (torch.rand(256, generator=gen) * 1e-3 + 1e-5).to(device)
@@ -3093,7 +3143,7 @@ def cudnn_bf16_grouped(xq, wq, stride, pad, groups):
     return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad, groups=groups)
 
 
-def phase31_grouped_sites(grouped, device, card):
+def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=True):
     """The grouped int8 conv at every distinct grouped shape of the regnety
     forward at batch 8, 384x1280: on every route the shape admits (its own,
     and `direct`), accumulators, bf16 and f32 epilogues bit for bit against
@@ -3103,7 +3153,8 @@ def phase31_grouped_sites(grouped, device, card):
     than `direct`, and the forward's sum on the own routes below cuDNN's.
     Sums are count x ms over a forward. Returns (max error, (own route,
     plain, bound, bound_by, cudnn) ms at the largest shape, sums {"own",
-    "direct", "cudnn", "bound", "n"})."""
+    "direct", "cudnn", "bound", "n"}). With `below_cudnn` False the sum
+    against cuDNN's is logged, not gated (a route that loses stays, timed)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dd3d_tpu_torch.ops.int8_conv import (dequant_plain, grouped_routes, int8_conv_grouped,
@@ -3134,17 +3185,18 @@ def phase31_grouped_sites(grouped, device, card):
             for name, value in got.items():
                 max_err = max(max_err, float((value.float() - want[name].float()).abs().max()))
                 if not torch.equal(value, want[name]):
-                    raise AssertionError(f"phase31 grouped {key} {route} {name}: kernel and plain differ")
+                    raise AssertionError(f"{phase} grouped {key} {route} {name}: kernel and plain differ")
         own = routes[0]
         turns = {"direct": [], own: []}
         for route in ("direct", own, own, "direct") * 2:
             turns[route].append(device_ms(lambda: int8_conv_grouped(xq, wq, scale, bias, stride, pad,
                                                                     torch.bfloat16, g, route=route), 10, prof))
-        # medians: a profiler window now and then reads a few times long
+        # medians: a profiler window now and then reads short (part of its
+        # kernels missing) or a few times long
         own_ms, direct_ms = float(np.median(turns[own])), float(np.median(turns["direct"]))
         c_ms = device_ms(cudnn_bf16_grouped(xq, wq, stride, pad, g), 10, prof)
         bnd, by = grouped_conv_bound(xq, wq, stride, pad, g)
-        log(f"phase31 grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/forward: "
+        log(f"{phase} grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/forward: "
             f"routes {routes} each equal to the plain version (accumulators, bf16 and f32; tolerance 0); device "
             f"time in turns (direct, {own}, {own}, direct, twice): {own} "
             + " / ".join(f"{t:.4f}" for t in turns[own]) + " ms, direct "
@@ -3152,7 +3204,7 @@ def phase31_grouped_sites(grouped, device, card):
             f"{direct_ms:.4f} ms; cuDNN bf16 grouped {c_ms:.4f} ms; bound {bnd:.5f} ms by {by} ({bnd / own_ms:.2f} "
             f"of it on {own}, {bnd / direct_ms:.2f} on direct)")
         if own_ms > direct_ms:
-            raise AssertionError(f"phase31 grouped {key}: the {own} route ({own_ms:.4f} ms) is slower than direct "
+            raise AssertionError(f"{phase} grouped {key}: the {own} route ({own_ms:.4f} ms) is slower than direct "
                                  f"({direct_ms:.4f} ms)")
         for name, ms in (("own", own_ms), ("direct", direct_ms), ("cudnn", c_ms), ("bound", bnd)):
             sums[name] += count * ms
@@ -3161,12 +3213,12 @@ def phase31_grouped_sites(grouped, device, card):
             p_ms = cuda_ms(lambda: dequant_plain(int8_conv_grouped_acc_plain(xq, wq, stride, pad, g), scale, bias,
                                                  torch.bfloat16), 3)
             largest = (own_ms, p_ms, bnd, by, c_ms)
-            log(f"phase31 grouped int8 conv at its largest shape {key}: plain version {p_ms:.3f} ms (CUDA events)")
-    log(f"phase31 timing on {card}: grouped int8 convs a forward ({sums['n']} convs), device time: own routes "
+            log(f"{phase} grouped int8 conv at its largest shape {key}: plain version {p_ms:.3f} ms (CUDA events)")
+    log(f"{phase} timing on {card}: grouped int8 convs a forward ({sums['n']} convs), device time: own routes "
         f"{sums['own']:.4f} ms, direct {sums['direct']:.4f} ms, cuDNN bf16 grouped {sums['cudnn']:.4f} ms, bound "
         f"{sums['bound']:.4f} ms ({sums['bound'] / sums['own']:.2f} of it; count x ms summed)")
-    if sums["own"] >= sums["cudnn"]:
-        raise AssertionError(f"phase31: the grouped convs of a forward take {sums['own']:.4f} ms on their routes, "
+    if below_cudnn and sums["own"] >= sums["cudnn"]:
+        raise AssertionError(f"{phase}: the grouped convs of a forward take {sums['own']:.4f} ms on their routes, "
                              f"not below cuDNN bf16 grouped's {sums['cudnn']:.4f} ms")
     return max_err, largest, sums
 
@@ -3458,8 +3510,26 @@ def phase35_s8_epilogue(device, card):
     torch.cuda.synchronize()
     log(f"phase35 s8 epilogue equal to int8_conv_requant_plain at {len(tests.TOWER_SHAPES)} tower shapes, bf16 and "
         f"f32 epilogues (tolerance 0) ({time.time() - t0:.2f} s)")
+    ms, plain_ms, bnd, by, library_ms, _ = s8_epilogue_timing(QUANT_SHAPE, device, card, "phase35")
+    log(f"phase35 ok ({time.time() - t0:.2f} s)")
+    return 0, (ms, plain_ms, bnd, by, library_ms)
+
+
+def s8_epilogue_timing(shape, device, card, phase):
+    """At the tower conv `shape` (B, H, W, C) -> C, 3x3: the device time
+    (profiler, medians of three turns) of the int8 conv with the s8 epilogue
+    (at a calibrated and at the round 0.05 scale), with the bf16 one, and of
+    the unfused link (bf16 conv, ReLU, quantize kernel), beside the plain
+    version (CUDA events), cuDNN's bf16 conv and the bound; the s8 and bf16
+    outputs equal to the plain version's. Returns (s8 ms, plain ms, bound
+    ms, bound_by, cuDNN ms, bf16 ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, int8_conv_requant_plain
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
     gen = torch.Generator().manual_seed(SEED + 35)
-    b, h, w, c = QUANT_SHAPE
+    b, h, w, c = shape
     xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, dtype=torch.int8).to(device)
     wq = torch.randint(-127, 128, (c, 3, 3, c), generator=gen, dtype=torch.int8).to(device)
     scale = (torch.rand(c, generator=gen) * 1e-4 + 1e-5).to(device)
@@ -3467,6 +3537,12 @@ def phase35_s8_epilogue(device, card):
     amax = int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16).amax()  # a bf16 value, as calibration records
     xs_next = (amax.float() / 127).reshape(1)
     xs_round = torch.tensor([0.05], device=device)
+    for got, want in ((int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16, requant=xs_next),
+                       int8_conv_requant_plain(xq, wq, scale, bias, 1, 1, torch.bfloat16, xs_next)),
+                      (int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16),
+                       int8_conv_plain(xq, wq, scale, bias, 1, 1, torch.bfloat16))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{phase}: the int8 conv at {shape} differs from its plain version")
     prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
     arms = {
         "s8": lambda: int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16, requant=xs_next),
@@ -3475,24 +3551,401 @@ def phase35_s8_epilogue(device, card):
         "unfused": lambda: quantize_int8(torch.relu(int8_conv(xq, wq, scale, bias, 1, 1, torch.bfloat16)), xs_next),
     }
     t = {k: [] for k in arms}
-    for name in (*arms, *reversed(arms)):
+    for name in (*arms, *reversed(arms), *arms):
         t[name].append(device_ms(arms[name], 10, prof))
-    plain = lambda: int8_conv_requant_plain(xq, wq, scale, bias, 1, 1, torch.bfloat16, xs_next)  # noqa: E731
-    plain()
-    plain_ms = cuda_ms(plain, 3)
+    run_plain = lambda: int8_conv_requant_plain(xq, wq, scale, bias, 1, 1, torch.bfloat16, xs_next)  # noqa: E731
+    run_plain()
+    plain_ms = cuda_ms(run_plain, 1 if b * h * w > 10 ** 6 else 3)
     library_ms = device_ms(cudnn_bf16_conv(xq, wq, 1, 1), 10, prof)
     bnd, by = int8_conv_bound(xq, wq, 1, 1, out_bytes=1)
-    ms = {k: float(np.mean(v)) for k, v in t.items()}
-    log(f"phase35 timing on {card}: P3 tower conv {QUANT_SHAPE} -> {c}, 3x3, device time in turns: s8 epilogue "
-        f"{t['s8'][0]:.4f} / {t['s8'][1]:.4f} ms at the calibrated scale {float(xs_next):.6g} "
-        f"({100 * (ms['s8'] / ms['bf16'] - 1):+.1f} % against the bf16 epilogue), "
-        f"{t['s8 at 0.05'][0]:.4f} / {t['s8 at 0.05'][1]:.4f} ms at 0.05 "
-        f"({100 * (ms['s8 at 0.05'] / ms['bf16'] - 1):+.1f} %), bf16 epilogue {t['bf16'][0]:.4f} / "
-        f"{t['bf16'][1]:.4f} ms, the unfused link (bf16 conv, ReLU, quantize) {t['unfused'][0]:.4f} / "
-        f"{t['unfused'][1]:.4f} ms; plain {plain_ms:.3f} ms, cuDNN bf16 conv {library_ms:.4f} ms, bound {bnd:.4f} ms "
+    # medians of three turns: a profiler window now and then reads short or
+    # long
+    ms = {k: float(np.median(v)) for k, v in t.items()}
+    turns = {k: " / ".join(f"{x:.4f}" for x in v) for k, v in t.items()}
+    log(f"{phase} timing on {card}: tower conv {tuple(shape)} -> {c}, 3x3, device time in turns (medians): s8 "
+        f"epilogue {turns['s8']} ms ({ms['s8']:.4f}) at the calibrated scale {float(xs_next):.6g} "
+        f"({100 * (ms['s8'] / ms['bf16'] - 1):+.1f} % against the bf16 epilogue), {turns['s8 at 0.05']} ms "
+        f"({ms['s8 at 0.05']:.4f}) at 0.05 ({100 * (ms['s8 at 0.05'] / ms['bf16'] - 1):+.1f} %), bf16 epilogue "
+        f"{turns['bf16']} ms ({ms['bf16']:.4f}), the unfused link (bf16 conv, ReLU, quantize) {turns['unfused']} ms "
+        f"({ms['unfused']:.4f}); plain {plain_ms:.3f} ms, cuDNN bf16 conv {library_ms:.4f} ms, bound {bnd:.4f} ms "
         f"by {by} ({bnd / ms['s8']:.2f} of the s8 conv)")
-    log(f"phase35 ok ({time.time() - t0:.2f} s)")
-    return 0, (ms["s8"], plain_ms, bnd, by, library_ms)
+    del xq, wq
+    torch.cuda.empty_cache()
+    return ms["s8"], plain_ms, bnd, by, library_ms, ms["bf16"]
+
+
+# --- int8 nuScenes, the DLA family and the head options (phases 36-41) -----------
+
+NUSC_INT8 = {"TPU.QUANT_INT8": True, "TPU.QUANT_MIN_CH": 32, "TPU.QUANT_UNFOLDED": True}  # bench.py's
+NUSC_V99_INT8 = {"TPU.QUANT_INT8": True, "TPU.QUANT_MIN_CH": 32}  # scripts/bench_v99.py's: predictors stay bf16
+NUSC_TTA_INT8_SAMPLES = 2  # phase 38's fixture: 12 frames, every TEST.AUG size of the experiment
+DLA_NEW_VARIANTS = ("DLA-46-C", "DLA-X-46-C", "DLA-X-60-C", "DLA-60", "DLA-X-60", "DLA-102", "DLA-X-102",
+                    "DLA-X-102-64", "DLA-169")
+DLA_X = "DLA-X-60"
+DLA_X_TRAIN_STEPS = 4
+HEAD_OPTIONS = {"DD3D.FCOS2D._VERSION": "v1", "DD3D.FCOS3D.PER_LEVEL_PREDICTORS": True,
+                "DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D": True}
+
+
+def min_ch_report(sites, min_ch, phase):
+    """The int8 sites of a calibration-regime forward (QUANT_MIN_CH 0) that
+    the serving gate `min_ch` keeps in bf16, logged: {(C, O, k, stride):
+    count a forward}."""
+    kept = {}
+    for key, n in sites.items():
+        if key[3] < min_ch:
+            kept[key[3:7]] = kept.get(key[3:7], 0) + n
+    total = sum(sites.values())
+    log(f"{phase} QUANT_MIN_CH {min_ch}: {total - sum(kept.values())} of {total} eligible convs a forward quantize; "
+        f"kept in bf16 (C, O, k, stride): count {kept}")
+    return kept
+
+
+def head_drift(out_b, out_8):
+    """Mean |int8 - bf16| of the attribute logits and the speeds over every
+    level, against the bf16 outputs' mean magnitude."""
+    out = {}
+    for key in ("attr_logits", "speed"):
+        diff = torch.cat([(a.float() - b.float()).abs().reshape(-1) for a, b in zip(out_8[key], out_b[key])])
+        mag = torch.cat([b.float().abs().reshape(-1) for b in out_b[key]])
+        out[key] = (float(diff.mean()), float(mag.mean()))
+    return out
+
+
+def nusc_int8(name, overrides, device, card, phase, n_batches, time_it=True):
+    """Static int8 serving of a nuScenes experiment at full width and depth,
+    batch 12 (two samples of 6 cameras), 896x1664, randomize_state weights,
+    with the sample aggregation: every int8 conv shape of the path against
+    its plain version (phase 7), the convs QUANT_MIN_CH keeps in bf16,
+    calibration on 2 batches, `n_batches` batches served with the launches
+    of the quantize, the int8 conv by output kind, the NMS and the BEV scan
+    counted (the cls tower's last link stays unfused: its output is read by
+    the cls predictor and the attribute/speed group), no scale miss; the
+    kernels' and the plain versions' detections identical; int8 against bf16
+    within tests/test_int8_infer.py's drift bounds, with the attribute
+    logits' and speeds' drift beside them; with `time_it`, ms a batch and
+    device time a batch of int8 and bf16 in turns. Returns a dict."""
+    from dd3d_tpu_torch.models.calibrate import prepare_static_scales
+    from dd3d_tpu_torch.models.layers import quant_scope
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_grouped
+    from dd3d_tpu_torch.ops.nms import greedy_suppress
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain, greedy_nms_scan
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+
+    t0 = time.time()
+    cfg_b = experiment_cfg(name)
+    model = build(cfg_b, device)
+    images, ks, pq, pt = nusc_batches(cfg_b, device)
+    images = images[:max(2, n_batches)]
+    conv_err, sites, cases, _ = phase7_int8_conv(model, images[0], unfolded=bool(overrides.get("TPU.QUANT_UNFOLDED")),
+                                                 phase=phase)
+    p3 = [case for (b, h, w, c, o, k, stride), _, case in cases
+          if (c, o, k, stride, h) == (256, 256, 3, 1, images[0].shape[1] // 8)]
+    del cases
+    min_ch = overrides["TPU.QUANT_MIN_CH"]
+    kept = min_ch_report(sites, min_ch, phase)  # neither backbone has a grouped conv
+    cfg8 = prepare_static_scales(experiment_cfg(name, **overrides), model, images[:2], tag=phase)
+    torch.cuda.synchronize()
+    log(f"{phase} {name}: calibrated on 2 batches of {NUSC_BATCH} {tuple(images[0].shape[1:3])} "
+        f"({time.time() - t0:.1f} s so far)")
+    infer = get_inference_fn(model, cfg8, group_size=6)
+    per_forward = sum(n for key, n in sites.items() if key[3] >= min_ch)
+    levels = len(model.strides)
+    fused = fused_links_per_forward(model.base, cfg8) - (levels if overrides.get("TPU.QUANT_UNFOLDED") else 0)
+    zero_launches()
+    dets = [infer(im, ks, pq, pt) for im in images[:n_batches]]  # the main path
+    torch.cuda.synchronize()
+    launches = {"greedy_nms": greedy_nms.launches, "greedy_nms_scan": greedy_nms_scan.launches,
+                "quantize_int8": quantize_int8.launches, "int8_conv": int8_conv.launches,
+                "int8_conv_by_out": dict(int8_conv.launches_by_out), "int8_conv_grouped": int8_conv_grouped.launches}
+    want = {"greedy_nms": n_batches, "greedy_nms_scan": 2 * n_batches,
+            "quantize_int8": (per_forward - fused) * n_batches, "int8_conv": per_forward * n_batches,
+            "int8_conv_by_out": {"f32": 0, "bf16": (per_forward - fused) * n_batches, "s8": fused * n_batches},
+            "int8_conv_grouped": 0}
+    log(f"{phase} served {n_batches} batch(es) in static int8 with the aggregation: launches {launches}; "
+        f"{per_forward} int8 convs and {fused} fused tower links a forward")
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    if infer.quant.misses:
+        raise AssertionError(f"{phase}: static scales missed {infer.quant.misses[:5]}")
+    d = cfg8.DD3D.FCOS2D.INFERENCE.POST_NMS_TOPK
+    for i, det in enumerate(dets):
+        for k, v in det.items():
+            if tuple(v.shape[:2]) != (NUSC_BATCH, d) or (v.is_floating_point() and not torch.isfinite(v).all()):
+                raise AssertionError(f"{phase} batch {i}: {k} has shape {tuple(v.shape)} or is not finite")
+        if not bool(det["valid"].view(2, -1).any(dim=1).all()):
+            raise AssertionError(f"{phase} batch {i}: a sample has no detection")
+    plain = get_inference_fn(model, cfg8, group_size=6, suppress=greedy_nms_plain, scan=greedy_suppress,
+                             int8_plain=True)(images[0], ks, pq, pt)
+    torch.cuda.synchronize()
+    for k in dets[0]:
+        if not torch.equal(dets[0][k], plain[k]):
+            raise AssertionError(f"{phase}: {k} differs between the int8 kernel path and the plain path")
+    log(f"{phase} int8 kernel-path and plain-path detections identical ({int(plain['valid'].sum())} kept, "
+        f"attributes and speeds included)")
+    det_b = get_inference_fn(model, cfg_b, group_size=6)(images[0], ks, pq, pt)
+    sa, sb = top_scores(det_b), top_scores(dets[0])
+    drift = float((sa - sb).abs().mean())
+    mass = abs(float(sa.sum()) - float(sb.sum())) / max(float(sa.sum()), 1e-6)
+    with torch.inference_mode():
+        out_b = model(images[0])
+        with quant_scope(infer.quant):
+            out_8 = model(images[0])
+    heads = head_drift(out_b, out_8)
+    log(f"{phase} int8 vs bf16, top-50 scores of batch 0: mean |diff| {drift:.4f} (limit 0.05), relative score "
+        f"mass {mass:.4f} (limit 0.25); head outputs mean |int8 - bf16| (mean |bf16|): attr_logits "
+        f"{heads['attr_logits'][0]:.4f} ({heads['attr_logits'][1]:.4f}), speed {heads['speed'][0]:.4f} "
+        f"({heads['speed'][1]:.4f})")
+    if drift >= 0.05 or mass >= 0.25:
+        raise AssertionError(f"{phase}: int8 detections drift too far from bf16")
+    out = {"launches": launches, "conv_err": conv_err, "kept_bf16": kept, "drift": (drift, mass), "heads": heads,
+           "p3": p3[0] if p3 else None}
+    if time_it:
+        paths = {"int8": infer, "bf16": get_inference_fn(model, cfg_b, group_size=6)}
+        ms, dev = {"int8": [], "bf16": []}, {"int8": [], "bf16": []}
+        for arm in ("int8", "bf16", "bf16", "int8"):
+            run = lambda im, _k, f=paths[arm]: f(im, ks, pq, pt)  # noqa: E731
+            ms[arm].append(serving_ms(run, images, None)[0])
+            dev[arm].append(serving_profile(run, images, None)[0])
+        for arm in ms:
+            log(f"{phase} timing on {card}: {name} {arm} serving with the aggregation, batch {NUSC_BATCH} "
+                f"{tuple(images[0].shape[1:3])}: median {ms[arm][0]:.3f} / {ms[arm][1]:.3f} ms a batch = "
+                f"{NUSC_BATCH / np.mean(ms[arm]) * 1e3:.2f} images/s; device time a batch (profiler) "
+                f"{dev[arm][0]:.3f} / {dev[arm][1]:.3f} ms (in turns int8, bf16, bf16, int8)")
+        out.update(ms=ms, device_ms=dev)
+    del model
+    torch.cuda.empty_cache()
+    log(f"{phase} ok ({time.time() - t0:.2f} s)")
+    return out
+
+
+def phase36_nusc_int8(device, card):
+    """dd3d_nusc_dla34 in bench.py's int8 settings (`nusc_int8`, 3 batches,
+    timed), the int8 conv with the s8 and the bf16 epilogue at its P3
+    tower conv (12, 112, 208, 256); then dd3d_nusc_v99 in
+    scripts/bench_v99.py's settings once (1 batch, untimed)."""
+    dla = nusc_int8(NUSC, NUSC_INT8, device, card, "phase36", NUSC_N_BATCHES)
+    p3 = dla.pop("p3")
+    dla["p3_s8"] = s8_epilogue_timing(tuple(p3[0].shape), device, card, "phase36")
+    del p3
+    v99 = nusc_int8(NUSC_V99, NUSC_V99_INT8, device, card, "phase36 v99", 1, time_it=False)
+    v99.pop("p3")
+    return dla, v99
+
+
+def phase37_nusc_int8_eval(tmp, device, card):
+    """EVAL_ONLY of dd3d_nusc_dla34 in static int8 (bench.py's overrides, no
+    scales file: the plain test quantizes with dynamic scales, the TTA test
+    calibrates each canvas bucket on its first batch) through `train.main`
+    on a 2-sample fixture (12 PNGs at 900x1600) with the experiment's own
+    TEST.AUG (five sizes 640-1152 with flip: the 1152 bucket's canvas is
+    1152x2048): finite NDS and mAP in both rows, the five buckets calibrated
+    and no static scale missed, launches of the quantize and the int8 conv
+    in both passes; the int8 conv at the 1152 bucket's P3 tower conv against
+    its plain version and timed, and `batch_chunks`' runs there for this
+    chunk and for the experiment's 96-frame chunk. Returns launches."""
+    import dd3d_tpu_torch.train as train_mod
+    from dd3d_tpu_torch.models import tta as tta_mod
+    from dd3d_tpu_torch.ops.int8_conv import batch_chunks, int8_conv
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
+    from dd3d_tpu_torch.ops.quantize import quantize_int8
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, make_nusc_fixture
+
+    t0 = time.time()
+    root = make_nusc_fixture(os.path.join(tmp, "nusc_int8_fixture"), n_samples=NUSC_TTA_INT8_SAMPLES,
+                             height=NUSC_HW[0], width=NUSC_HW[1])
+    passes, ttas = [], []
+    real_test, real_tta = train_mod.do_test, tta_mod.NuscenesDD3DWithTTA
+
+    def measured_test(cfg, model, output_dir, step=None, use_tta=False):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        out = real_test(cfg, model, output_dir, step=step, use_tta=use_tta)
+        torch.cuda.synchronize()
+        passes.append({"tta": use_tta, "seconds": time.perf_counter() - t, "greedy_nms": greedy_nms.launches,
+                       "greedy_nms_scan": greedy_nms_scan.launches, "quantize_int8": quantize_int8.launches,
+                       "int8_conv": int8_conv.launches, "int8_conv_s8": int8_conv.launches_by_out["s8"]})
+        return out
+
+    class RecordedTTA(real_tta):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            ttas.append(self)
+
+    train_mod.do_test, tta_mod.NuscenesDD3DWithTTA = measured_test, RecordedTTA
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out_dir = train_mod.main([f"+experiments={NUSC}", "EVAL_ONLY=True", f"DATASET_ROOT={root}",
+                                  f"DATASETS.TEST.NAME={NUSC_FIXTURE}", "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0",
+                                  *(f"{k}={v}" for k, v in NUSC_INT8.items()),
+                                  f"OUTPUT_ROOT={os.path.join(tmp, 'nusc_int8_eval')}"])
+    finally:
+        train_mod.do_test, tta_mod.NuscenesDD3DWithTTA = real_test, real_tta
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for label, row, key in (("plain", rows[0], NUSC_NDS), ("tta", rows[1], "tta/" + NUSC_NDS)):
+        mAP = row.get(key.replace("NDS", "mAP"), np.nan)
+        log(f"phase37 int8 {label} test: NDS {row.get(key, np.nan):.4f}, mAP {mAP:.4f}")
+        if not (np.isfinite(row.get(key, np.nan)) and np.isfinite(mAP)):
+            raise AssertionError(f"phase37: the int8 {label} test's NDS or mAP is not finite")
+    plain, tta_pass = passes
+    tta = ttas[-1]
+    n = 6 * NUSC_TTA_INT8_SAMPLES
+    buckets = {f"{h}x{w}": c for (h, w), c in tta.stats["buckets"].items()}
+    sizes = list(experiment_cfg(NUSC).TEST.AUG.MIN_SIZES)
+    log(f"phase37 int8 plain test on {card}: {plain['seconds']:.2f} s for {n} frames; launches {plain}")
+    log(f"phase37 int8 TTA test ({type(tta).__name__}, MIN_SIZES {sizes} with flip) on {card}: "
+        f"{tta_pass['seconds']:.2f} s, {n / tta_pass['seconds']:.2f} images/s; buckets (instances) {buckets}; "
+        f"calibrated {tta.stats['calibrated']}; host seconds by part "
+        f"{ {k: round(v, 3) for k, v in tta.stats['seconds'].items()} }; peak memory {peak:.2f} GiB; launches "
+        f"{tta_pass}")
+    if not (plain["int8_conv"] and plain["quantize_int8"] and plain["greedy_nms"] and plain["greedy_nms_scan"]):
+        raise AssertionError(f"phase37: the int8 plain test's launches {plain}")
+    if len(tta.stats["calibrated"]) != len(sizes) or tta.quant.misses or not tta_pass["int8_conv"]:
+        raise AssertionError(f"phase37: calibrated {tta.stats['calibrated']}, misses {tta.quant.misses[:3]}, "
+                             f"launches {tta_pass}")
+    largest = max(tta.stats["buckets"], key=lambda hw: hw[0] * hw[1])
+    count = tta.stats["buckets"][largest]
+    if largest != (1152, 2048):
+        raise AssertionError(f"phase37: the largest bucket is {largest}, not 1152x2048")
+    per_image = largest[0] * largest[1] * 16  # level0's 16-channel activation, the largest int8 conv input
+    log(f"phase37 batch_chunks at the {largest[0]}x{largest[1]} bucket's level0 conv: {count} instances -> runs "
+        f"{batch_chunks(count, per_image)}; the experiment's chunk of {experiment_cfg(NUSC).TEST.IMS_PER_BATCH} "
+        f"frames (x2 with flip) -> {len(batch_chunks(2 * experiment_cfg(NUSC).TEST.IMS_PER_BATCH, per_image))} runs")
+    shape = (count, largest[0] // 8, largest[1] // 8, 256)
+    p3 = s8_epilogue_timing(shape, device, card, "phase37")
+    log(f"phase37 ok ({time.time() - t0:.2f} s)")
+    return {"plain": plain, "tta": tta_pass, "p3_1152": p3, "p3_shape": shape}
+
+
+def phase38_dla_family(device, images, intrinsics, card):
+    """Each DLA variant beyond DLA-34 (Bottleneck, BottleneckX with
+    cardinality 32 and 64, residual roots) under dd3d_kitti_dla34's heads
+    (FPN 256, P6P7), randomize_state weights: one bf16 batch of 8 at
+    384x1280 through get_inference_fn, shapes and finite values, the NMS
+    kernel launched once; ms of the batch after one warm-up, parameters."""
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms
+
+    t0 = time.time()
+    nms = 0
+    for name in DLA_NEW_VARIANTS:
+        t = time.time()
+        cfg = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": name})
+        model = build(cfg, device)
+        infer = get_inference_fn(model, cfg)
+        infer(images[1], intrinsics)
+        torch.cuda.synchronize()
+        greedy_nms.launches = 0
+        t1 = time.perf_counter()
+        det = infer(images[0], intrinsics)  # the main path
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        nms += greedy_nms.launches
+        for k, v in det.items():
+            if v.shape[:2] != (BATCH, 100) or (v.is_floating_point() and not torch.isfinite(v).all()):
+                raise AssertionError(f"phase38 {name}: {k} has shape {tuple(v.shape)} or is not finite")
+        if greedy_nms.launches != 1 or not bool(det["valid"].any()):
+            raise AssertionError(f"phase38 {name}: NMS launches {greedy_nms.launches}, kept {int(det['valid'].sum())}")
+        log(f"phase38 {name} bf16 on {card}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, "
+            f"batch {BATCH} {HEIGHT}x{WIDTH} in {ms:.2f} ms (one batch after a warm-up), "
+            f"{int(det['valid'].sum())} detections kept, all finite ({time.time() - t:.1f} s)")
+        del model, infer
+        torch.cuda.empty_cache()
+    log(f"phase38 ok ({time.time() - t0:.2f} s): {len(DLA_NEW_VARIANTS)} variants")
+    return nms
+
+
+def phase39_dla_x_int8(device, images, intrinsics, card):
+    """DLA-X-60 (BottleneckX, cardinality 32: C/g = 4, 8, 16 and 32 at levels
+    2-5) under dd3d_kitti_dla34's heads in bench.py's static int8: phase 7
+    at every ungrouped int8 site; the grouped kernel at every grouped site
+    on every route the shape admits, bit for bit, timed on its own route and
+    on `direct` in turns beside cuDNN's bf16 grouped conv and the bound
+    (`phase31_grouped_sites`, cuDNN not gated: a route that loses stays);
+    phase 8's path checks (launches by route: `direct` and `mma` both
+    non-zero). Returns (launches, max error of the ungrouped sites, of the
+    grouped ones, the grouped sums)."""
+    t0 = time.time()
+    cfg = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": DLA_X})
+    model = build(cfg, device)
+    grouped = {}
+    int8_conv_sites(model, images[0], unfolded=True, grouped=grouped)
+    conv_err, sites, _, _ = phase7_int8_conv(model, images[0], unfolded=True, phase="phase39")
+    log(f"phase39 {DLA_X}: {len(grouped)} grouped int8 conv shapes, {sum(grouped.values())} grouped convs a forward")
+    g_err, _, g_sums = phase31_grouped_sites(grouped, device, card, phase="phase39", below_cudnn=False)
+    base = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": DLA_X, **NUSC_INT8})
+    _, launches = phase8_int8_path(cfg, model, images, intrinsics, sites, base_cfg=base, phase="phase39",
+                                   grouped=grouped)
+    by_route = launches["int8_conv_grouped_by_route"]
+    if not (by_route["direct"] and by_route["mma"]):
+        raise AssertionError(f"phase39: grouped launches by route {by_route}: direct and mma must both run")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase39 ok ({time.time() - t0:.2f} s)")
+    return launches, conv_err, g_err, g_sums
+
+
+def phase40_dla_x_train(device, card):
+    """DLA-X-60's bf16 train step at batch 8, 384x1280, TPU.PALLAS_STEM_DW,
+    on seeded synthetic batches (He-initialized convs, seeded norm
+    statistics): finite losses, the dW kernel twice a step, ms a step, peak
+    memory, busy share. Returns (ms a step, dW launches)."""
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.training.train_loop import to_device
+
+    t0 = time.time()
+    cfg = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": DLA_X, "TPU.PALLAS_STEM_DW": True})
+    batches = [to_device(b, device) for b in train_batches(cfg, 2, BATCH, HEIGHT, WIDTH, SEED + 40)]
+    conv_dw.conv_dw_s1_same.launches = 0
+    metrics, (med, p25, p75), peak, dev_ms, busy, n_kernels = timed_train_steps(
+        cfg, build_train_model(cfg, "cpu"), batches, DLA_X_TRAIN_STEPS, device, "phase40")
+    torch.cuda.synchronize()
+    dw = conv_dw.conv_dw_s1_same.launches
+    steps = 1 + DLA_X_TRAIN_STEPS + len(batches)
+    log("phase40 total loss by step: " + ", ".join(f"{m['total_loss']:.3f}" for m in metrics))
+    log(f"phase40 timing on {card}: {DLA_X} bf16 train step, batch {BATCH} {HEIGHT}x{WIDTH}: median {med:.2f} ms "
+        f"(p25 {p25:.2f}, p75 {p75:.2f}) over {DLA_X_TRAIN_STEPS} steps; peak memory {peak:.2f} GiB; profiler: "
+        f"{dev_ms:.2f} ms of device time a step, busy share {busy:.3f}, {n_kernels:.0f} kernel launches a step; dW "
+        f"kernel launches {dw} in {steps} steps")
+    if dw != 2 * steps:
+        raise AssertionError(f"phase40: {dw} dW kernel launches in {steps} steps, not 2 a step")
+    del batches
+    torch.cuda.empty_cache()
+    log(f"phase40 ok ({time.time() - t0:.2f} s)")
+    return med, dw
+
+
+def phase41_head_options(device, images, intrinsics, card):
+    """DLA-34 with FCOS2D _VERSION v1 (tower biases), PER_LEVEL_PREDICTORS
+    and CLASS_AGNOSTIC_BOX3D together: bf16 serving (phase 2's checks, then
+    the plain suppression's detections identical), then bench.py's static
+    int8 (phase 8's path checks: each level's predictor group keyed by its
+    own first sibling, the v1 bias in the s8 links), then the tower links
+    fused and unfused in turns (identical detections). Returns launches."""
+    t0 = time.time()
+    cfg = experiment_cfg("dd3d_kitti_dla34", **HEAD_OPTIONS)
+    model = build(cfg, device)
+    if not (model.fcos2d_head.cls_tower[0].bias is not None and len(model.fcos3d_head.box3d_quat) == 5
+            and model.fcos3d_head.box3d_conf[0].out_channels == 1):
+        raise AssertionError("phase41: the head options did not build")
+    bf16_nms, _ = phase2_serve(cfg, model, images, intrinsics, phase="phase41")
+    phase3_plain_path(cfg, model, images, intrinsics, phase="phase41")
+    sites = int8_conv_sites(model, images[0], unfolded=True)
+    cfg8, launches = phase8_int8_path(cfg, model, images, intrinsics, sites,
+                                      base_cfg=experiment_cfg("dd3d_kitti_dla34", **HEAD_OPTIONS, **NUSC_INT8),
+                                      phase="phase41")
+    launches["fusion"] = fusion_ab(model, cfg8, images, intrinsics, "phase41", card)
+    launches["greedy_nms"] += bf16_nms
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase41 ok ({time.time() - t0:.2f} s)")
+    return launches
+
+
 
 
 def main():
@@ -3608,10 +4061,29 @@ def main():
         dd_train_ms, dd_peak, dd_dw_launches = phase33_dense_depth_train(device, card)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+        nusc8, nusc8_v99 = phase36_nusc_int8(device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        nusc8_eval = phase37_nusc_int8_eval(tmp, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dla_nms = phase38_dla_family(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        dx_launches, dx_conv_err, dx_grouped_err, dx_sums = phase39_dla_x_int8(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dx_train_ms, dx_dw_launches = phase40_dla_x_train(device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ho_launches = phase41_head_options(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     quant_err = max(quant_err, phase34_quantize_exhaustive(device))
     s8_err, s8_t = phase35_s8_epilogue(device, card)
     torch.cuda.synchronize()
-    fusion.update({"V2-99": v99_launches["fusion"], "RegNetY": rg_launches["fusion"]})
+    fusion.update({"V2-99": v99_launches["fusion"], "RegNetY": rg_launches["fusion"],
+                   "DLA-34 v1 + per-level + class-agnostic": ho_launches["fusion"]})
 
     int8_ips = BATCH / (np.mean([r[0] for r in serving["int8"]]) / 1e3)
     bf16_ips = BATCH / (np.mean([r[0] for r in serving["bf16"]]) / 1e3)
@@ -3674,6 +4146,21 @@ def main():
         f"{g_ms:.4f} ms (cuDNN {g_cudnn:.4f}, bound {g_bound:.5f} by {g_by}); train step {rg_train_ms:.2f} ms at "
         f"batch {BATCH}, peak {rg_train_peak:.2f} GiB (phase 32); DD3DDenseDepth train step {dd_train_ms:.2f} ms, "
         f"peak {dd_peak:.2f} GiB, dW launches {dd_dw_launches} (phase 33)")
+    for arm in ("int8", "bf16"):
+        log(f"timing on {card}: {NUSC} {arm} serving with the aggregation (phase 36): "
+            f"{NUSC_BATCH / np.mean(nusc8['ms'][arm]) * 1e3:.2f} images/s, {np.mean(nusc8['ms'][arm]):.3f} ms a batch, "
+            f"{np.mean(nusc8['device_ms'][arm]):.3f} ms of device time a batch (in turns)")
+    log(f"timing on {card}: {NUSC} int8 drift against bf16 (top-50 mean |diff|, score mass) {nusc8['drift']}, "
+        f"{NUSC_V99} {nusc8_v99['drift']}; QUANT_MIN_CH 32 keeps in bf16: {NUSC} {nusc8['kept_bf16']}, {NUSC_V99} "
+        f"{nusc8_v99['kept_bf16']}; the P3 tower conv (12, 112, 208, 256) with the s8 epilogue "
+        f"{nusc8['p3_s8'][0]:.4f} ms, bf16 epilogue {nusc8['p3_s8'][5]:.4f} ms, cuDNN {nusc8['p3_s8'][4]:.4f} ms, "
+        f"bound {nusc8['p3_s8'][2]:.4f} ms; at the TTA 1152 bucket {nusc8_eval['p3_shape']}: s8 "
+        f"{nusc8_eval['p3_1152'][0]:.4f} ms, bf16 {nusc8_eval['p3_1152'][5]:.4f} ms, cuDNN "
+        f"{nusc8_eval['p3_1152'][4]:.4f} ms, bound {nusc8_eval['p3_1152'][2]:.4f} ms")
+    log(f"timing on {card}: {DLA_X} static int8 (phase 39): its {dx_sums['n']} grouped int8 convs a forward "
+        f"{dx_sums['own']:.4f} ms of device time on their own routes (direct {dx_sums['direct']:.4f} ms) against "
+        f"cuDNN bf16 grouped {dx_sums['cudnn']:.4f} ms and the bound {dx_sums['bound']:.4f} ms; launches by route "
+        f"{dx_launches['int8_conv_grouped_by_route']}; train step {dx_train_ms:.2f} ms (phase 40)")
     for name, ab in fusion.items():
         f, u = ab["fused"], ab["unfused"]
         log(f"timing on {card}: {name} static int8, tower links fused against unfused (in turns): quantize launches a "
@@ -3685,16 +4172,26 @@ def main():
         f"{standalone['kernel']:.4f} ms of device time, the same-bytes cast {standalone['cast']:.4f} ms, bound "
         f"{standalone['bound']:.4f} ms; at {QUANT_SHAPE} bf16 {kernel_ms['quantize_int8'][0]:.4f} ms against "
         f"{kernel_ms['quantize_int8'][2]:.4f} by bytes; the P3 tower conv with the s8 epilogue {s8_t[0]:.4f} ms")
+    int8_paths = (launches, v99_launches, rg_launches, nusc8["launches"], nusc8_v99["launches"], dx_launches,
+                  ho_launches)
     launches = {"greedy_nms": launches["greedy_nms"] + v99_nms + v99_launches["greedy_nms"] + v99_eval_nms
                 + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"] + large_nms + rg_nms
-                + rg_launches["greedy_nms"] + rg_eval_nms,
-                "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"],
-                "quantize_int8": launches["quantize_int8"] + v99_launches["quantize_int8"]
-                + rg_launches["quantize_int8"],
-                "int8_conv": launches["int8_conv"] + v99_launches["int8_conv"] + rg_launches["int8_conv"],
-                "int8_conv_requant": sum(x["int8_conv_by_out"]["s8"] for x in (launches, v99_launches, rg_launches)),
-                "int8_conv_grouped": rg_launches["int8_conv_grouped"]}
-    quant_err, conv_err = max(quant_err, v99_quant_err), max(conv_err, v99_conv_err, rg_conv_err)
+                + rg_launches["greedy_nms"] + rg_eval_nms + nusc8["launches"]["greedy_nms"]
+                + nusc8_v99["launches"]["greedy_nms"] + nusc8_eval["plain"]["greedy_nms"] + dla_nms
+                + dx_launches["greedy_nms"] + ho_launches["greedy_nms"],
+                "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"]
+                + nusc8["launches"]["greedy_nms_scan"] + nusc8_v99["launches"]["greedy_nms_scan"]
+                + nusc8_eval["plain"]["greedy_nms_scan"],
+                "quantize_int8": sum(x["quantize_int8"] for x in int8_paths)
+                + nusc8_eval["plain"]["quantize_int8"] + nusc8_eval["tta"]["quantize_int8"],
+                "int8_conv": sum(x["int8_conv"] for x in int8_paths)
+                + nusc8_eval["plain"]["int8_conv"] + nusc8_eval["tta"]["int8_conv"],
+                "int8_conv_requant": sum(x["int8_conv_by_out"]["s8"] for x in int8_paths)
+                + nusc8_eval["plain"]["int8_conv_s8"] + nusc8_eval["tta"]["int8_conv_s8"],
+                "int8_conv_grouped": rg_launches["int8_conv_grouped"] + dx_launches["int8_conv_grouped"]}
+    quant_err = max(quant_err, v99_quant_err)
+    conv_err = max(conv_err, v99_conv_err, rg_conv_err, nusc8["conv_err"], nusc8_v99["conv_err"], dx_conv_err)
+    grouped_err = max(grouped_err, dx_grouped_err)
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
              "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"], "int8_conv_requant": s8_t,
              "int8_conv_grouped": grouped_t, "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
@@ -3711,7 +4208,7 @@ def main():
             ("int8_conv_grouped", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
              launches["int8_conv_grouped"], grouped_err),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
-             cli_dw_launches + nusc_dw_launches + dd_dw_launches, dw_err)]
+             cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches, dw_err)]
     kernels = []
     for name, source, replaces, n, err in rows:
         ms, plain_ms, bnd, by, library_ms = timed[name]

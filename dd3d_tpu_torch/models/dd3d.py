@@ -71,21 +71,8 @@ class DD3D(nn.Module):
         return (out, head2d[3]) if return_cls_tower else out
 
 
-def _check_ported(cfg):
-    """Config keys whose behaviour the port does not have yet."""
-    unported = {
-        "DD3D.FCOS2D._VERSION": cfg.DD3D.FCOS2D.get("_VERSION", "v2") != "v2",
-        "DD3D.FCOS3D.PER_LEVEL_PREDICTORS": bool(cfg.DD3D.FCOS3D.PER_LEVEL_PREDICTORS),
-        "DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D": bool(cfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D),
-    }
-    for key, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"{key} is not ported")
-
-
 @register_meta_arch("DD3D")
 def build_dd3d(cfg) -> DD3D:
-    _check_ported(cfg)
     backbone = build_feature_extractor(cfg)
     strides = [backbone.out_feature_strides[f] for f in backbone.out_features]
     channels = backbone.out_channels
@@ -96,6 +83,7 @@ def build_dd3d(cfg) -> DD3D:
         norm=cfg.DD3D.FCOS2D.NORM,
         use_scale=cfg.DD3D.FCOS2D.USE_SCALE,
         box2d_scale_init_factor=cfg.DD3D.FCOS2D.BOX2D_SCALE_INIT_FACTOR,
+        version=cfg.DD3D.FCOS2D.get("_VERSION", "v2"),
     )
     fcos3d = None
     if cfg.MODEL.BOX3D_ON:
@@ -105,6 +93,7 @@ def build_dd3d(cfg) -> DD3D:
             num_convs=c3.NUM_CONVS, norm=c3.NORM, use_scale=c3.USE_SCALE,
             depth_scale_init_factor=c3.DEPTH_SCALE_INIT_FACTOR,
             proj_ctr_scale_init_factor=c3.PROJ_CTR_SCALE_INIT_FACTOR,
+            per_level_predictors=c3.PER_LEVEL_PREDICTORS, class_agnostic=c3.CLASS_AGNOSTIC_BOX3D,
         )
     model = DD3D(backbone, strides, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, fcos2d, fcos3d,
                  getattr(torch, cfg.TPU.COMPUTE_DTYPE))
@@ -217,7 +206,7 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
         if box3d_on:
             cand.update(decode_fcos3d_candidates(
                 *(outputs[k][l] for k in HEAD_KEYS_3D), cand, inv_k, canon, cfg.DD3D.FCOS3D,
-                num_classes=cfg.DD3D.NUM_CLASSES,
+                num_classes=cfg.DD3D.NUM_CLASSES, class_agnostic=cfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D,
             ))
         if "attr_logits" in outputs:
             # NuscenesDD3D's attribute and speed at each candidate (dd3d_tpu/models/dd3d.py:342-349)

@@ -1,6 +1,9 @@
-"""Deep Layer Aggregation backbone (DLA-34), counterpart of
-dd3d_tpu/models/dla.py: recursive Tree aggregation of BasicBlocks with Root
-nodes, six levels with strides 1..32, and the plain stem.
+"""Deep Layer Aggregation backbone (DLA), counterpart of
+dd3d_tpu/models/dla.py: recursive Tree aggregation with Root nodes, six
+levels with strides 1..32, the plain stem, and the ten variants of
+`DLA_VARIANTS` built from three blocks (BasicBlock; Bottleneck, expansion 2;
+BottleneckX, whose 3x3 is grouped with cardinality 32 or 64) with plain or
+residual roots.
 
 TPU.S2D_STEM, S2D_STEM_FOLD and S2D_BASE4 select exact rewrites of the plain
 stem for TPU layouts (tests/test_s2d_stem.py); the port reads none of them
@@ -9,9 +12,15 @@ and always runs the plain stem.
 TPU.PALLAS_STEM_DW routes the same two stem convs as the JAX package's s2d
 stem does (dd3d_tpu/models/s2d.py:310-314, dla.py:304-311) through the
 weight-gradient CUDA kernel in train mode: `base_layer` (7x7, 3->16) and
-every `level0` conv (3x3, 16->16), all stride 1. The stride-2 `level1`
-conv stays on the library conv in both packages.
+every `level0` conv (3x3, 16->16), all stride 1, in every variant. The
+stride-2 `level1` conv stays on the library conv in both packages.
+
+BottleneckX's grouped 3x3 is a grouped ConvNorm: under TPU.QUANT_INT8 it
+runs through ops/int8_conv.int8_conv_grouped, on the route its shape takes
+(C/g = planes / 32: 4 and 8 on `direct`, 16 and 32 on `mma`).
 """
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,25 +46,57 @@ class BasicBlock(nn.Module):
         return F.relu(out + residual)
 
 
-class Root(nn.Module):
-    """Aggregation node: 1x1 conv over the concatenated children (DLA-34 has
-    no residual root)."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (the stride) -> 1x1 + residual, `width` wide inside:
+    `planes // 2` (expansion 2; JAX dla.py:49-72), its 3x3 in `groups`."""
 
-    def __init__(self, in_channels: int, out_channels: int, norm: str):
+    def __init__(self, inplanes: int, planes: int, stride: int, norm: str, width: int = 0, groups: int = 1):
+        super().__init__()
+        width = width or planes // 2
+        self.conv1 = ConvNorm(inplanes, width, 1, 1, norm=norm)
+        self.conv2 = ConvNorm(width, width, 3, stride, norm=norm, groups=groups)
+        self.conv3 = ConvNorm(width, planes, 1, 1, norm=norm)
+
+    def forward(self, x, residual=None):
+        if residual is None:
+            residual = x
+        out = F.relu(self.conv1(x))
+        out = F.relu(self.conv2(out))
+        out = self.conv3(out)
+        return F.relu(out + residual)
+
+
+class BottleneckX(Bottleneck):
+    """The grouped (ResNeXt) bottleneck: `planes * cardinality // 32` wide
+    inside, its 3x3 in `cardinality` groups (JAX dla.py:73-98)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int, norm: str, cardinality: int = 32):
+        super().__init__(inplanes, planes, stride, norm, planes * cardinality // 32, cardinality)
+
+
+class Root(nn.Module):
+    """Aggregation node: 1x1 conv over the concatenated children, plus the
+    first child where the root is residual."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm: str, residual: bool = False):
         super().__init__()
         self.conv = ConvNorm(in_channels, out_channels, 1, 1, norm=norm)
+        self.residual = residual
 
     def forward(self, *children):
-        return F.relu(self.conv(torch.cat(children, dim=1)))
+        x = self.conv(torch.cat(children, dim=1))
+        if self.residual:
+            x = x + children[0]
+        return F.relu(x)
 
 
 class Tree(nn.Module):
-    """Recursive DLA tree of BasicBlocks. `project` exists only on a leaf tree
+    """Recursive DLA tree of `block`s. `project` exists only on a leaf tree
     whose channel count changes; the stride-2 downsample is a 2x2 VALID
     max-pool."""
 
-    def __init__(self, levels: int, in_channels: int, out_channels: int, stride: int = 1,
-                 level_root: bool = False, root_dim: int = 0, norm: str = "BN"):
+    def __init__(self, levels: int, block, in_channels: int, out_channels: int, stride: int = 1,
+                 level_root: bool = False, root_dim: int = 0, root_residual: bool = False, norm: str = "BN"):
         super().__init__()
         if root_dim == 0:
             root_dim = 2 * out_channels
@@ -63,14 +104,16 @@ class Tree(nn.Module):
             root_dim += in_channels
         self.levels, self.level_root, self.stride = levels, level_root, stride
         if levels == 1:
-            self.tree1 = BasicBlock(in_channels, out_channels, stride, norm)
-            self.tree2 = BasicBlock(out_channels, out_channels, 1, norm)
-            self.root = Root(root_dim, out_channels, norm)
+            self.tree1 = block(in_channels, out_channels, stride, norm)
+            self.tree2 = block(out_channels, out_channels, 1, norm)
+            self.root = Root(root_dim, out_channels, norm, root_residual)
             self.project = (ConvNorm(in_channels, out_channels, 1, 1, norm=norm)
                             if in_channels != out_channels else None)
         else:
-            self.tree1 = Tree(levels - 1, in_channels, out_channels, stride, norm=norm)
-            self.tree2 = Tree(levels - 1, out_channels, out_channels, root_dim=root_dim + out_channels, norm=norm)
+            self.tree1 = Tree(levels - 1, block, in_channels, out_channels, stride, root_residual=root_residual,
+                              norm=norm)
+            self.tree2 = Tree(levels - 1, block, out_channels, out_channels, root_dim=root_dim + out_channels,
+                              root_residual=root_residual, norm=norm)
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
@@ -90,8 +133,8 @@ class Tree(nn.Module):
 class DLA(nn.Module):
     """DLA trunk; returns a dict of `level{i}` features (stride 2**i)."""
 
-    def __init__(self, levels, channels, out_features=("level3", "level4", "level5"), norm: str = "BN",
-                 kernel_stem_weight_grad: bool = False):
+    def __init__(self, levels, channels, block=BasicBlock, residual_root: bool = False,
+                 out_features=("level3", "level4", "level5"), norm: str = "BN", kernel_stem_weight_grad: bool = False):
         super().__init__()
         self.out_features = tuple(out_features)
         self.base_layer = ConvNorm(3, channels[0], 7, 1, norm=norm, relu=True)
@@ -106,10 +149,11 @@ class DLA(nn.Module):
         if kernel_stem_weight_grad:
             for conv in (self.base_layer, *self.level0):
                 conv.route_weight_grad()
-        self.level2 = Tree(levels[2], channels[1], channels[2], 2, level_root=False, norm=norm)
+        self.level2 = Tree(levels[2], block, channels[1], channels[2], 2, level_root=False,
+                           root_residual=residual_root, norm=norm)
         for lvl in (3, 4, 5):
-            self.add_module(f"level{lvl}", Tree(levels[lvl], channels[lvl - 1], channels[lvl], 2,
-                                                level_root=True, norm=norm))
+            self.add_module(f"level{lvl}", Tree(levels[lvl], block, channels[lvl - 1], channels[lvl], 2,
+                                                level_root=True, root_residual=residual_root, norm=norm))
 
     def forward(self, x):
         outputs = {}
@@ -121,11 +165,18 @@ class DLA(nn.Module):
         return outputs
 
 
-# name -> (levels, channels); the DLA-34 row of dd3d_tpu/models/dla.py:349
-# (BasicBlock, no residual root). The other variants are not ported yet; all
-# three FPN tops are (builders below).
+# name -> (levels, channels, block, residual_root): dd3d_tpu/models/dla.py:348-359
 DLA_VARIANTS = {
-    "DLA-34": ([1, 1, 1, 2, 2, 1], [16, 32, 64, 128, 256, 512]),
+    "DLA-34": ([1, 1, 1, 2, 2, 1], [16, 32, 64, 128, 256, 512], BasicBlock, False),
+    "DLA-46-C": ([1, 1, 1, 2, 2, 1], [16, 32, 64, 64, 128, 256], Bottleneck, False),
+    "DLA-X-46-C": ([1, 1, 1, 2, 2, 1], [16, 32, 64, 64, 128, 256], BottleneckX, False),
+    "DLA-X-60-C": ([1, 1, 1, 2, 3, 1], [16, 32, 64, 64, 128, 256], BottleneckX, False),
+    "DLA-60": ([1, 1, 1, 2, 3, 1], [16, 32, 128, 256, 512, 1024], Bottleneck, False),
+    "DLA-X-60": ([1, 1, 1, 2, 3, 1], [16, 32, 128, 256, 512, 1024], BottleneckX, False),
+    "DLA-102": ([1, 1, 1, 3, 4, 1], [16, 32, 128, 256, 512, 1024], Bottleneck, True),
+    "DLA-X-102": ([1, 1, 1, 3, 4, 1], [16, 32, 128, 256, 512, 1024], BottleneckX, True),
+    "DLA-X-102-64": ([1, 1, 1, 3, 4, 1], [16, 32, 128, 256, 512, 1024], partial(BottleneckX, cardinality=64), True),
+    "DLA-169": ([1, 1, 2, 3, 5, 1], [16, 32, 128, 256, 512, 1024], Bottleneck, True),
 }
 
 DLA_STRIDES = {f"level{i}": 2 ** i for i in range(6)}
@@ -133,11 +184,9 @@ DLA_STRIDES = {f"level{i}": 2 ** i for i in range(6)}
 
 def _dla_trunk(cfg):
     name = cfg.FE.BACKBONE.NAME
-    if name not in DLA_VARIANTS:
-        raise NotImplementedError(f"FE.BACKBONE.NAME={name!r} is not ported; ported: {sorted(DLA_VARIANTS)}")
-    levels, channels = DLA_VARIANTS[name]
-    trunk = DLA(levels, channels, out_features=tuple(cfg.FE.BACKBONE.OUT_FEATURES), norm=cfg.FE.BACKBONE.NORM,
-                kernel_stem_weight_grad=bool(cfg.TPU.get("PALLAS_STEM_DW", False)))
+    levels, channels, block, residual_root = DLA_VARIANTS[name]
+    trunk = DLA(levels, channels, block, residual_root, out_features=tuple(cfg.FE.BACKBONE.OUT_FEATURES),
+                norm=cfg.FE.BACKBONE.NORM, kernel_stem_weight_grad=bool(cfg.TPU.get("PALLAS_STEM_DW", False)))
     return trunk, {f"level{i}": channels[i] for i in range(6)}, DLA_STRIDES
 
 

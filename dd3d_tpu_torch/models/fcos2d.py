@@ -1,11 +1,13 @@
 """FCOS2D head, loss and shape-static inference decode, counterpart of
 dd3d_tpu/models/fcos2d.py.
 
-- `FCOS2DHead` (v2): shared cls/box2d conv towers with per-level batch norms
+- `FCOS2DHead`: shared cls/box2d conv towers with per-level batch norms
   folded into each level's application of the shared kernel (static int8:
   each link fused into an s8 epilogue, `layers.run_tower`), predictors for
   class logits / ltrb box regression (relu'd) / centerness, learnable
-  per-level `Scale` on the box regression.
+  per-level `Scale` on the box regression. With `version` "v1"
+  (DD3D.FCOS2D._VERSION) the tower convs add a bias before the per-level
+  norm; any other version has none (dd3d_tpu/models/fcos2d.py:78-96).
 - `fcos2d_loss`: sigmoid focal (cls) + centerness-weighted gIoU (box) + BCE
   (centerness), normalized by GLOBAL batch sums (positive count, centerness
   sum), never per image; with a process group the sums run over every
@@ -30,11 +32,13 @@ class FCOS2DHead(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int, in_strides: Sequence[int],
                  num_cls_convs: int = 4, num_box_convs: int = 4, norm: str = "BN",
-                 use_scale: bool = True, box2d_scale_init_factor: float = 1.0):
+                 use_scale: bool = True, box2d_scale_init_factor: float = 1.0, version: str = "v2"):
         super().__init__()
         num_levels = len(in_strides)
-        self.cls_tower = nn.ModuleList([TowerConv(in_channels, num_levels, norm) for _ in range(num_cls_convs)])
-        self.box2d_tower = nn.ModuleList([TowerConv(in_channels, num_levels, norm) for _ in range(num_box_convs)])
+        bias = version == "v1"
+        self.cls_tower = nn.ModuleList([TowerConv(in_channels, num_levels, norm, bias) for _ in range(num_cls_convs)])
+        self.box2d_tower = nn.ModuleList([TowerConv(in_channels, num_levels, norm, bias)
+                                          for _ in range(num_box_convs)])
         self.cls_logits = PredictorConv(in_channels, num_classes)
         self.box2d_reg = PredictorConv(in_channels, 4)
         self.centerness = PredictorConv(in_channels, 1)

@@ -3,7 +3,10 @@ dd3d_tpu/models/fcos3d.py.
 
 - shared box3d conv tower with per-level FrozenBN folded per level + five
   predictors (quat 4C / proj_ctr 2C / depth 1C / size 3C / conf 1C) run as
-  one conv, learnable per-level Scale/Offset;
+  one conv, learnable per-level Scale/Offset. With `per_level_predictors`
+  each level has its own five (`box3d_quat{l}`, ...), run as that level's
+  group; with `class_agnostic` C is 1: one box a location, whatever its
+  class (DD3D.FCOS3D.PER_LEVEL_PREDICTORS, CLASS_AGNOSTIC_BOX3D);
 - `predictions_to_boxes3d`: camera-aware decode — depth scaled by focal
   length, allocentric->egocentric rotation, tanh size around canonical sizes;
 - `fcos3d_loss`: the disentangled 8-corner loss and the 3D confidence BCE
@@ -30,17 +33,24 @@ class FCOS3DHead(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, in_strides: Sequence[int],
                  mean_depth_per_level: Sequence[float], std_depth_per_level: Sequence[float],
                  num_convs: int = 4, norm: str = "FrozenBN", use_scale: bool = True,
-                 depth_scale_init_factor: float = 0.3, proj_ctr_scale_init_factor: float = 1.0):
+                 depth_scale_init_factor: float = 0.3, proj_ctr_scale_init_factor: float = 1.0,
+                 per_level_predictors: bool = False, class_agnostic: bool = False):
         super().__init__()
         num_levels = len(in_strides)
         self.box3d_tower = nn.ModuleList([TowerConv(in_channels, num_levels, norm) for _ in range(num_convs)])
-        nc = num_classes
-        self.box3d_quat = nn.ModuleList([PredictorConv(in_channels, 4 * nc)])
-        self.box3d_ctr = nn.ModuleList([PredictorConv(in_channels, 2 * nc)])
+        nc = 1 if class_agnostic else num_classes
+        self.per_level_predictors = per_level_predictors
+        n_pred = num_levels if per_level_predictors else 1
+
+        def predictors(out_channels, bias=True):
+            return nn.ModuleList([PredictorConv(in_channels, out_channels, bias=bias) for _ in range(n_pred)])
+
+        self.box3d_quat = predictors(4 * nc)
+        self.box3d_ctr = predictors(2 * nc)
         # the depth predictor has no bias when scales are used
-        self.box3d_depth = nn.ModuleList([PredictorConv(in_channels, 1 * nc, bias=not use_scale)])
-        self.box3d_size = nn.ModuleList([PredictorConv(in_channels, 3 * nc)])
-        self.box3d_conf = nn.ModuleList([PredictorConv(in_channels, 1 * nc)])
+        self.box3d_depth = predictors(1 * nc, bias=not use_scale)
+        self.box3d_size = predictors(3 * nc)
+        self.box3d_conf = predictors(1 * nc)
         self.use_scale = use_scale
         if use_scale:
             self.scales_proj_ctr = nn.ModuleList(
@@ -59,8 +69,11 @@ class FCOS3DHead(nn.Module):
 
     def forward(self, features: List[torch.Tensor]):
         quat_out, ctr_out, depth_out, size_out, conf_out = [], [], [], [], []
-        preds = [self.box3d_quat[0], self.box3d_ctr[0], self.box3d_depth[0], self.box3d_size[0], self.box3d_conf[0]]
         for l, x in enumerate(features):
+            # this level's group, keyed (int8) by its own first sibling
+            p = l if self.per_level_predictors else 0
+            preds = [self.box3d_quat[p], self.box3d_ctr[p], self.box3d_depth[p], self.box3d_size[p],
+                     self.box3d_conf[p]]
             x = run_tower(self.box3d_tower, x, l, preds)
             quat, ctr, depth, size3d, conf3d = fused_predictor_apply(x, preds)
             if self.use_scale:
@@ -130,10 +143,9 @@ def fcos3d_loss(quat_flat: torch.Tensor, ctr_flat: torch.Tensor, depth_flat: tor
     """Dense masked FCOS3D loss (dd3d_tpu/models/fcos3d.py:248-358): maps
     (B, comp * C, P) f32, inv_intrinsics (B, 3, 3), locations (P, 2),
     canon_box_sizes (>= C, 3). Normalized by the 2D loss's centerness sum,
-    the global batch's (summed over the ranks in `fcos2d_loss`)."""
-    if cfg3d.CLASS_AGNOSTIC_BOX3D:
-        raise NotImplementedError("DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D is not ported")
-    num_classes = conf_flat.shape[1]
+    the global batch's (summed over the ranks in `fcos2d_loss`). With
+    CLASS_AGNOSTIC_BOX3D the maps hold one box a location (C = 1), read as
+    they are; the canonical size is still the true class's (JAX :276-285)."""
     pos_mask = targets["pos_mask"]
     pos = pos_mask.float()
     labels_safe = torch.where(pos_mask, targets["labels"], 0)
@@ -141,12 +153,16 @@ def fcos3d_loss(quat_flat: torch.Tensor, ctr_flat: torch.Tensor, depth_flat: tor
 
     canon_tbl = canon_box_sizes.float()
     onehot_canon = (labels_safe[:, None, :] == torch.arange(canon_tbl.shape[0], device=device)[None, :, None]).float()
-    onehot_c = (labels_safe[:, None, :] == torch.arange(num_classes, device=device)[None, :, None]).float()
-    quat_p = gather_per_class_t(quat_flat, onehot_c, 4, num_classes)
-    ctr_p = gather_per_class_t(ctr_flat, onehot_c, 2, num_classes)
-    depth_p = gather_per_class_t(depth_flat, onehot_c, 1, num_classes)[:, 0]
-    size_p = gather_per_class_t(size_flat, onehot_c, 3, num_classes)
-    conf_p = gather_per_class_t(conf_flat, onehot_c, 1, num_classes)[:, 0]
+    if cfg3d.CLASS_AGNOSTIC_BOX3D:
+        quat_p, ctr_p, depth_p, size_p, conf_p = quat_flat, ctr_flat, depth_flat[:, 0], size_flat, conf_flat[:, 0]
+    else:
+        num_classes = conf_flat.shape[1]
+        onehot_c = (labels_safe[:, None, :] == torch.arange(num_classes, device=device)[None, :, None]).float()
+        quat_p = gather_per_class_t(quat_flat, onehot_c, 4, num_classes)
+        ctr_p = gather_per_class_t(ctr_flat, onehot_c, 2, num_classes)
+        depth_p = gather_per_class_t(depth_flat, onehot_c, 1, num_classes)[:, 0]
+        size_p = gather_per_class_t(size_flat, onehot_c, 3, num_classes)
+        conf_p = gather_per_class_t(conf_flat, onehot_c, 1, num_classes)[:, 0]
     canon = torch.stack([torch.sum(onehot_canon * canon_tbl[None, :, j, None], dim=1) for j in range(3)], dim=1)
 
     # predictions_to_boxes3d, component-major
@@ -202,11 +218,14 @@ def decode_fcos3d_candidates(
     canon_box_sizes: torch.Tensor,  # (>= num_classes, 3)
     cfg3d,
     num_classes: int,
+    class_agnostic: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Gather the 3D outputs at the 2D candidates (one row gather over the
-    concatenated channels) and decode them to Boxes3D fields."""
+    concatenated channels) and decode them to Boxes3D fields; with
+    `class_agnostic` the maps hold one box a location, which every class
+    reads (JAX :384-406)."""
     b, h, w, _ = conf.shape
-    nc = num_classes
+    nc = 1 if class_agnostic else num_classes
     k = cand["loc_idx"].shape[1]
 
     comps = [(quat, 4), (ctr, 2), (depth, 1), (size, 3), (conf, 1)]
@@ -215,7 +234,8 @@ def decode_fcos3d_candidates(
 
     # Class selection: a gather returns exactly the value the JAX package's
     # one-hot multiply-sum does.
-    cls_index = cand["cls"][:, :, None, None]
+    cls_index = torch.zeros_like(cand["cls"]) if class_agnostic else cand["cls"]
+    cls_index = cls_index[:, :, None, None]
     parts, off = [], 0
     for _, c in comps:
         part = rows[..., off: off + c * nc].reshape(b, k, c, nc)

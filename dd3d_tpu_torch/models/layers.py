@@ -440,10 +440,14 @@ class TowerConv(FoldableConv):
     the list of predictors fused after the last one. Where `link_amax`
     gives the consumer's static amax, the conv, its ReLU and the consumer's
     quantize run as one int8 conv with an s8 epilogue, and the result is a
-    QuantizedActivation that the consumer reads in place of the tensor."""
+    QuantizedActivation that the consumer reads in place of the tensor.
 
-    def __init__(self, channels: int, num_levels: int, norm: str):
-        super().__init__(channels, channels, 3, init=INIT_NORMAL_FAN_OUT)
+    With `bias` (FCOS2D `_VERSION=v1`) the conv adds a bias before the norm:
+    folded, it enters the norm's add (bias * mul + add), on the fused link
+    too; in train mode it is added before the live BN."""
+
+    def __init__(self, channels: int, num_levels: int, norm: str, bias: bool = False):
+        super().__init__(channels, channels, 3, bias=bias, init=INIT_NORMAL_FAN_OUT)
         self.norm = PerLevelNorms(num_levels, channels, norm)
 
     def link_amax(self, spec: QuantSpec, level: int, in_channels: int, out_shape, consumer) -> Optional[float]:

@@ -4,7 +4,12 @@ their losses; counterpart of dd3d_tpu/models/nuscenes_dd3d.py (a rebuild of
 
 The attribute logits (DD3D.NUSC.MAX_NUM_ATTRIBUTES) and the ReLU'd speed are
 3x3 predictors on the cls tower's outputs of each level, run as one conv
-over their concatenated kernels (`layers.fused_predictor_apply`). The base
+over their concatenated kernels (`layers.fused_predictor_apply`); under
+TPU.QUANT_INT8 with QUANT_UNFOLDED that group is one int8 conv keyed by
+JAX's root path `attr_logits`, and the ReLU on the speed stays after the
+split. The cls tower's last link then stays unfused, since the cls
+predictor and this group both read its output, each quantizing it at its
+own static scale as JAX does. The base
 DD3D sits under `base`, as in the JAX module tree, so parameter names map to
 flax paths by the same rules. TPU.PACKED_HEADS runs the plain path
 (level_pack.py is a TPU layout, not ported).
@@ -59,9 +64,6 @@ class NuscenesDD3D(nn.Module):
 
 @register_meta_arch("NuscenesDD3D")
 def build_nuscenes_dd3d(cfg) -> NuscenesDD3D:
-    if cfg.TPU.get("QUANT_INT8", False):
-        raise NotImplementedError("TPU.QUANT_INT8 with NuscenesDD3D: int8 serving of the nuScenes experiments is "
-                                  "not ported (ROADMAP §1: int8 serving of the nuScenes experiments)")
     model = NuscenesDD3D(build_dd3d(cfg), cfg.DD3D.NUSC.MAX_NUM_ATTRIBUTES)
     assign_quant_paths(model)  # the flax scope paths under `base`
     return model

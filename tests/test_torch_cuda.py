@@ -417,6 +417,34 @@ def test_int8_conv_grouped_kernel_matches_plain(card, b, h, w, c, g, stride):
         _check_grouped_route(*case, stride, g, route)
 
 
+# every distinct grouped int8 conv of a DLA-X-60 forward at 384x1280 (batch
+# 1 here): BottleneckX's 3x3, cardinality 32, so C/g = O/g = 4, 8, 16 and 32
+# at levels 2-5, stride 2 in each level's first block
+DLAX_GROUPED_SHAPES = [
+    (1, 192, 640, 128, 2, "direct"),  # level2, C/g = 4
+    (1, 96, 320, 128, 1, "direct"),
+    (1, 96, 320, 256, 2, "direct"),   # level3, C/g = 8
+    (1, 48, 160, 256, 1, "direct"),
+    (1, 48, 160, 512, 2, "mma"),      # level4, C/g = 16
+    (1, 24, 80, 512, 1, "mma"),
+    (1, 24, 80, 1024, 2, "mma"),      # level5, C/g = 32
+    (1, 12, 40, 1024, 1, "mma"),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,stride,route", DLAX_GROUPED_SHAPES)
+def test_int8_conv_grouped_kernel_matches_plain_at_dlax_shapes(card, b, h, w, c, stride, route):
+    """DLA-X's grouped shapes on the route they take, and on `direct`, bit
+    for bit: C/g = 32 is the mma route's widest group, which no RegNetY conv
+    reaches; C/g = 4 and 8 run the direct kernel on a model's path."""
+    from dd3d_tpu_torch.ops.int8_conv import grouped_routes
+
+    assert grouped_routes(c, c, 3, 3, stride, 32)[0] == route
+    case = _grouped_case(card, b, h, w, c, c, 32, stride, c + stride)
+    for r in grouped_routes(c, c, 3, 3, stride, 32):
+        _check_grouped_route(*case, stride, 32, r)
+
+
 @pytest.mark.parametrize("b,h,w,c,o,g,stride,route", [
     (2, 13, 37, 32, 32, 32, 1, "depthwise"),    # H and W that no 8 x 32 tile divides
     (2, 21, 70, 48, 48, 48, 2, "depthwise"),    # stride 2; C = 48: a half-filled run of 32 channels

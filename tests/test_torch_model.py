@@ -63,16 +63,31 @@ def test_activations_run_channels_last():
                                        ("FE.BACKBONE.NAME", "DLA-46-C"),
                                        ("DD3D.FCOS3D.PER_LEVEL_PREDICTORS", True)])
 def test_unported_config_keys_raise(key, value):
-    from dd3d_tpu_torch.models import build_model
+    """Keys the port once refused, each now ported: the model builds with
+    the key set, and its forward (FPN 64, 128x128, batch 2, seeded weights
+    through `convert_flax_variables`) matches JAX's at every head output
+    and level within atol = rtol = 1e-4, as `test_head_output_matches_jax`."""
+    from dd3d_tpu_torch.configs import get_experiment_cfg
 
-    cfg = fp32_cfg()
-    node = cfg
-    *parents, leaf = key.split(".")
-    for p in parents:
-        node = node[p]
-    node[leaf] = value
-    with pytest.raises(NotImplementedError, match=leaf):
-        build_model(cfg)
+    from tests.test_torch_head_options import assert_heads_match, forward_both
+
+    cfgs = []
+    for cfg in (fp32_cfg(), get_experiment_cfg("dd3d_kitti_dla34")):
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        cfg.FE.FPN.OUT_CHANNELS = 64
+        node = cfg
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node[p]
+        node[leaf] = value
+        cfgs.append(cfg)
+    out_j, out_p, pm = forward_both(*cfgs)
+    assert_heads_match(out_j, out_p)
+    if leaf == "NAME":
+        assert type(pm.backbone.bottom_up.level2.tree1).__name__ == "Bottleneck"
+    else:
+        assert len(pm.fcos3d_head.box3d_quat) == (5 if leaf == "PER_LEVEL_PREDICTORS" else 1)
+        assert pm.fcos3d_head.box3d_conf[0].out_channels == (1 if leaf == "CLASS_AGNOSTIC_BOX3D" else 5)
 
 
 @pytest.mark.parametrize("key", ["S2D_STEM", "PACKED_HEADS", "PACKED_HEADS_TRAIN"])

@@ -22,8 +22,8 @@ CPU in fp32, with the same reference-named weights (`nusc_state_dict`):
   plain f64 step and each other in flat L2 (see the bounds' comment);
 - the build: `dd3d_nusc_v99` builds and serves, a reference-named `.pth`
   of NuscenesDD3D loads (`reference_to_port_names` nests DD3D under
-  `base`), the int8 scale keys are JAX's scope paths, and TPU.QUANT_INT8
-  raises.
+  `base`), the int8 scale keys are JAX's scope paths, and the convs an
+  int8 forward observes (TPU.QUANT_INT8, once refused) are JAX's.
 """
 import contextlib
 from typing import List, Optional
@@ -404,10 +404,40 @@ def test_nusc_v99_builds_and_serves():
 
 
 def test_int8_nuscenes_serving_raises():
-    cfg, _ = nusc_cfgs()
-    cfg.TPU.QUANT_INT8 = True
-    with pytest.raises(NotImplementedError, match="QUANT_INT8"):
-        build_model(cfg)
+    """TPU.QUANT_INT8 with NuscenesDD3D, once refused, is ported: the model
+    builds in bench.py's settings (QUANT_MIN_CH 32, QUANT_UNFOLDED), and the
+    (scope path, shape tag) of every conv its int8 forward observes equal
+    those JAX's int8 model observes on the same 6 cameras (traced, not run):
+    the attribute/speed group keyed by its first sibling's root path
+    `attr_logits` at each level's tag, the base model's under `base/`.
+    tests/test_torch_nuscenes_int8.py holds its values to JAX's."""
+    import dd3d_tpu.models.layers as jl
+    from dd3d_tpu_torch.models import layers as pl
+
+    from tests.torch_port_util import jax_quant_globals_restored
+
+    cfg, jcfg = nusc_cfgs()
+    for c in (cfg, jcfg):
+        c.TPU.QUANT_INT8, c.TPU.QUANT_MIN_CH, c.TPU.QUANT_UNFOLDED = True, 32, True
+    model = build_model(cfg)
+    images = np.zeros((6, 128, 128, 3), np.uint8)
+    spec = pl.QuantSpec(enabled=True, min_ch=32, unfolded=True, capture=[])
+    with torch.no_grad(), pl.quant_scope(spec):
+        model(torch.from_numpy(images))
+    observed_p = {}
+    for path, tag, _ in spec.capture:
+        observed_p.setdefault(path, []).append(tag)
+    jm = build_jax_model(jcfg)
+    with jax_quant_globals_restored():
+        jl.set_quant_from_cfg(jcfg)
+        variables = jax.eval_shape(lambda r, x: jm.init(r, x, train=False), jax.random.PRNGKey(0),
+                                   jnp.zeros((1, 128, 128, 3)))
+        jl.QUANT_OBSERVED_TAGS = {}
+        jax.eval_shape(lambda v, x: jm.apply(v, x, train=False), variables, jnp.asarray(images))
+        observed_j = {p: list(t) for p, t in jl.QUANT_OBSERVED_TAGS.items()}
+    assert observed_p == observed_j
+    assert observed_p["attr_logits"] == [f"{-(-128 // s)}x{-(-128 // s)}x256" for s in STRIDES]
+    assert "speed" not in observed_p and "base/fcos2d_head/cls_logits" in observed_p
 
 
 def _report(case: dict) -> None:

@@ -124,7 +124,9 @@ def test_port_runs_without_jax(tmp_path):
     fixture, then run test-time augmentation and draw with every
     visualizer, then run dd3d_nusc_dla34's plain test (the sample
     aggregation, the nuScenes evaluator) and its TTA test on a one-sample
-    6-camera fixture, then serve dd3d_kitti_regnety_006_bifpn in static
+    6-camera fixture, in bf16 and in static int8, then serve DLA-X-46-C
+    with the FCOS2D v1 towers, per-level and class-agnostic 3D predictors
+    in static int8, then serve dd3d_kitti_regnety_006_bifpn in static
     int8 (its grouped convs quantized) and take a DD3DDenseDepth train
     step, in a fresh interpreter: no jax or flax module, and nothing of
     the JAX package `dd3d_tpu`, may be imported on the way, the JAX
@@ -231,6 +233,18 @@ def test_port_runs_without_jax(tmp_path):
         f"plain = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r})\n"
         f"tta = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_out')!r}, use_tta=True)\n"
         "assert 'NDS' in plain['nuscenes'] and 'tta/nuscenes' in tta, (plain, tta)\n"
+        "ncfg.TPU.QUANT_INT8, ncfg.TPU.QUANT_MIN_CH, ncfg.TPU.QUANT_UNFOLDED = True, 32, True\n"
+        f"ncfg = prepare_static_scales(ncfg, nmodel, [np.zeros((6, 64, 128, 3), np.uint8)])\n"
+        f"plain = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_int8')!r})\n"
+        f"tta = do_test(ncfg, nmodel, {str(tmp_path / 'nusc_int8')!r}, use_tta=True)\n"
+        "assert 'NDS' in plain['nuscenes'] and 'tta/nuscenes' in tta, (plain, tta)\n"
+        "xcfg = get_experiment_cfg('dd3d_kitti_dla34')\n"
+        "xcfg.FE.BACKBONE.NAME, xcfg.DD3D.FCOS2D._VERSION = 'DLA-X-46-C', 'v1'\n"
+        "xcfg.DD3D.FCOS3D.PER_LEVEL_PREDICTORS = xcfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D = True\n"
+        "xmodel = build_model(xcfg, generator=torch.Generator().manual_seed(0))\n"
+        "xcfg.TPU.QUANT_INT8, xcfg.TPU.QUANT_MIN_CH, xcfg.TPU.QUANT_UNFOLDED = True, 32, True\n"
+        "infer = get_inference_fn(xmodel, prepare_static_scales(xcfg, xmodel, [images]))\n"
+        "assert infer(images, torch.eye(3)[None])['boxes2d'].shape == (1, 100, 4) and not infer.quant.misses\n"
         "from dd3d_tpu_torch.utils import coco, profiling\n"
         "rcfg = get_experiment_cfg('dd3d_kitti_regnety_006_bifpn')\n"
         "rcfg.FE.BIFPN.OUT_CHANNELS, rcfg.FE.BIFPN.NUM_REPEATS = 32, 1\n"

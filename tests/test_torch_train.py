@@ -240,8 +240,10 @@ def train_step_case():
     return make_train_step_case()
 
 
-def make_train_step_case():
-    cfg = small_cfg()
+def make_train_step_case(cfg=None):
+    """The train step of `cfg` (default `small_cfg()`) in JAX, in the port
+    and in the port's f64 oracle, from the same seeded weights and batch."""
+    cfg = small_cfg() if cfg is None else cfg
     # lr 1.0 from step 0: updates far above the rounding of f32 parameters
     cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS = 1.0, 0
     pm = seeded_model(cfg)
