@@ -25,7 +25,9 @@ nuScenes experiments in static int8 (serving with the aggregation, and
 EVAL_ONLY with the TTA test at the experiment's five sizes), the nine other
 DLA variants, DLA-X-60 in static int8 (its grouped convs on the `direct`
 and `mma` routes) and training, and DLA-34 with the FCOS2D v1 towers and
-the per-level, class-agnostic 3D predictors, then the
+the per-level, class-agnostic 3D predictors, then JPEG frames (the port's
+own decoder) through the nuScenes loader and serving, and the train step
+and CLI under TPU.REMAT, then the
 quantize kernel on every bf16 value and the int8 conv's s8 epilogue at
 every head-tower shape, and fails loudly (non-zero exit) if any phase fails.
 In static int8 the head towers' links run fused (the next conv's quantize
@@ -118,23 +120,24 @@ process each, all at once.
     minimum AP is gated: two runs (45.05 each) are too few to set a floor,
     and the AP is still climbing here (0.00 after 200 steps);
 18. evaluation at the size of a test set: phase 17's trained checkpoint
-    over a 120-frame fixture (its first 8 frames are the training set), 30
+    over an 80-frame fixture (its first 8 frames are the training set), 20
     batches of 4 at 384x1280: the loader alone, then
     `inference_on_dataset` through the NMS kernel and with the plain suppression, which must give
     identical per-image detections and results dicts; eval images/s
     (loader, forward, decode, evaluators), each evaluator's host seconds and
     the R40 engine's;
 19. the visualizers, on a machine without cv2: the training CLI with the
-    experiment's own TEST.AUG and VIS (4 steps, the dataloader period at 2)
-    draws the dataloader (each drawing differs from its undrawn batch
-    image at every ground-truth box) and, in its final test (plain, then
-    TTA, both in metrics.jsonl), the predictions; `predict --vis` with the
+    experiment's own TEST.AUG and VIS (4 steps under TPU.REMAT=full, read
+    by phase 43; the dataloader period at 2) draws the dataloader (each
+    drawing differs from its undrawn batch image at every ground-truth
+    box) and, in its final test (plain, then TTA, both in metrics.jsonl),
+    the predictions; `predict --vis` with the
     overfit checkpoint and `python -m dd3d_tpu_torch.visualize_dataloader`
     write theirs, each read back with the port's PNG reader and checked
     for its shape and its drawn boxes;
 20. test-time augmentation at full width on the overfit checkpoint over a
-    48-frame fixture, one chunk at TEST.IMS_PER_BATCH 80, five scales with
-    flip in five canvas buckets of 96 instances, 384x1152 to 640x1920:
+    32-frame fixture, one chunk at TEST.IMS_PER_BATCH 80, five scales with
+    flip in five canvas buckets of 64 instances, 384x1152 to 640x1920:
     (a) EVAL_ONLY through the CLI's main, bf16: the plain test, then the
     TTA test (images/s, buckets, host seconds by part, peak memory,
     launches, tta/ AP beside the plain AP; its prediction drawings drawn
@@ -273,13 +276,35 @@ process each, all at once.
 41. DLA-34 with FCOS2D _VERSION v1, PER_LEVEL_PREDICTORS and
     CLASS_AGNOSTIC_BOX3D together: bf16 serving (phases 2 and 3's
     checks), bench.py's static int8 (phase 8's checks), and the tower links
-    fused and unfused in turns (identical detections).
+    fused and unfused in turns (identical detections);
+42. JPEG frames, decoded on the host by the port's own decoder
+    (csrc/imageio.cpp): every committed fixture of tests/data/jpeg decodes
+    to the SHA-256 of the JAX package's libjpeg decode; ms a frame of the
+    900x1600 fixture on one thread; dd3d_nusc_dla34's test loader in
+    images/s over 12 JPEG frames against the same pixels as PNGs, in turns;
+    one bf16 batch of 12 (two samples of 6 cameras, 896x1664) served from a
+    JSON manifest of the JPEGs and from one of the PNGs: identical
+    canvases and detections, the NMS kernel once and the BEV scan twice;
+43. TPU.REMAT: dd3d_kitti_dla34's bf16 train step at batch 8, 384x1280,
+    TPU.PALLAS_STEM_DW, under "none", "full", "dots_saveable" and "none"
+    again, each from the same seeded weights: under
+    torch.use_deterministic_algorithms(True) the first step's losses,
+    gradients, updated parameters and BN running stats equal "none"'s bit
+    for bit; the dW kernel twice a step; ms a step and peak memory over 6
+    more steps, one profiled step's device time; the training steps of
+    phase 19's CLI, which trains under TPU.REMAT=full under
+    torch.distributed.run (NCCL, world size 1): finite losses, the dW
+    kernel twice a step.
+
+The training runs of phases 17, 19, 24, 28 and 32 run the train loader
+on its thread path (phase 15 times the process pool against it), so that
+none spawns a pool of its own.
 
 Before the last line, the card's name and power limit and one JSON line of
 the seven kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
 int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv, dW): launches on the main paths (DLA-34's,
-V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's and the head
-options'), error against the plain
+V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's, the head
+options', the JPEG-served batch's and the REMAT steps'), error against the plain
 version, ms, the plain version's ms, the bound (bytes or operations at the
 published H100 peaks) and, where one PyTorch call computes the same thing,
 that call's ms.
@@ -1521,10 +1546,13 @@ def phase13_train_timing(device, stem_cases):
 
 
 CLI_STEPS = 8
+# The train loader on its thread path: for the training runs after phase
+# 15, which times the process pool, so that none spawns a pool (~10 s each).
+THREAD_LOADER = "DATALOADER.TRAIN.USE_PROCESS_POOL=False"
 TIMING_STEPS = 8
 CAR_AP3D = "kitti_3d/kitti_box3d_r40/Car_Moderate_0.5"
 OVERFIT_ITERS = 400  # the overfit run's steps of batch 4 (phase 17; ~120 s on the card)
-EVAL_IMAGES = 120  # frames of phase 18's test set (30 batches of 4)
+EVAL_IMAGES = 80  # frames of phase 18's test set (20 batches of 4; 120 until PR 15, 200 until PR 13)
 TIMING_BUCKET = 384  # KITTI frames at short side 384: a 384x1280 canvas, phase 13's shape
 
 
@@ -1984,7 +2012,7 @@ def phase17_overfit(tmp, root, card):
     arm's kernel launches."""
     out_dir = os.path.join(tmp, "out_overfit")
     cmd = [sys.executable, "-m", "dd3d_tpu_torch.overfit_smoke", "--iters", str(OVERFIT_ITERS), "--n-images", "8",
-           "--int8-ab", "--root", root, "--output-dir", out_dir, "TPU.PALLAS_STEM_DW=True"]
+           "--int8-ab", "--root", root, "--output-dir", out_dir, "TPU.PALLAS_STEM_DW=True", THREAD_LOADER]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -2029,7 +2057,7 @@ def phase17_overfit(tmp, root, card):
 
 
 VIS_STEPS = 4  # phase 19's CLI run: steps of batch 8, the dataloader drawn at steps 2 and 4
-TTA_IMAGES = 48  # phase 20's frames: one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
+TTA_IMAGES = 32  # phase 20's frames (48 until PR 15): one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
 LARGEST_BUCKET = 160  # instances of the largest TTA bucket at that chunk of 80 frames, with flip
 TTA_CHECK_IMAGES = 8  # phase 20(c): int8 TTA through the kernels and through their plain versions
 KITTI_INTRINSICS = "721.5377,721.5377,609.5593,172.854"
@@ -2040,9 +2068,13 @@ TTA_BUCKETS = ("384x1152", "384x1280", "512x1536", "512x1792", "640x1920")
 def vis_rank(argv):
     """Phase 19's CLI inside torch.distributed.run: the CLI's main, with each
     dataloader drawing's undrawn batch image and valid ground-truth boxes
-    saved under `<output_dir>/undrawn/` (the drawing itself is the loop's),
-    printed as one CLI_RESULT line."""
+    saved under `<output_dir>/undrawn/` (the drawing itself is the loop's);
+    the output directory, each step's loss and the counts of dW kernel
+    launches and SyncBN all-reduces (set to 0 just before) printed as one
+    CLI_RESULT line."""
     import dd3d_tpu_torch.training.train_loop as train_loop
+    from dd3d_tpu_torch.models.layers import sync_batch_moments
+    from dd3d_tpu_torch.ops import conv_dw
     from dd3d_tpu_torch.train import main as train_main
 
     real = train_loop._visualize_train_batch
@@ -2057,9 +2089,15 @@ def vis_rank(argv):
                      boxes=boxes[i][valid[i].astype(bool)])
 
     train_loop._visualize_train_batch = record
+    steps = []
+    recording_train_steps(steps)
+    conv_dw.conv_dw_s1_same.launches = 0
+    sync_batch_moments.calls = 0
     out_dir = train_main(argv)
     torch.cuda.synchronize()
-    print("CLI_RESULT " + json.dumps({"output_dir": out_dir}), flush=True)
+    print("CLI_RESULT " + json.dumps({"output_dir": out_dir, "dw_launches": conv_dw.conv_dw_s1_same.launches,
+                                      "syncbn_forward_allreduces": sync_batch_moments.calls,
+                                      "losses": [s[2] for s in steps]}), flush=True)
 
 
 def drawn_inside(drawn, undrawn, box, margin=3) -> bool:
@@ -2078,7 +2116,8 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
     `predict --vis` and `python -m dd3d_tpu_torch.visualize_dataloader` write
     theirs. Each file is read back with the port's PNG reader: its shape, and
     that it differs from the undrawn frame where boxes are. (Phase 20's
-    EVAL_ONLY checks its prediction drawings the same way.)"""
+    EVAL_ONLY checks its prediction drawings the same way.) The CLI trains
+    under TPU.REMAT=full: phase 43 reads its steps. Returns its CLI_RESULT."""
     from dd3d_tpu_torch.data.augmentations import resize_shortest_edge_dims
     from dd3d_tpu_torch.data.build import build_train_dataloader
     from dd3d_tpu_torch.data.catalog import DatasetCatalog, register_datasets
@@ -2089,7 +2128,8 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
     res = run_cli("--vis-rank", ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}",
                                  f"OUTPUT_ROOT={os.path.join(tmp, 'out_vis')}", "TPU.PALLAS_STEM_DW=True",
                                  f"SOLVER.MAX_ITER={VIS_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={VIS_STEPS}",
-                                 "TEST.EVAL_PERIOD=0", f"VIS.DATALOADER_PERIOD={VIS_STEPS // 2}"])
+                                 "TEST.EVAL_PERIOD=0", f"VIS.DATALOADER_PERIOD={VIS_STEPS // 2}", THREAD_LOADER,
+                                 "TPU.REMAT=full"])
     run_dir = res["output_dir"]
     vis = os.path.join(run_dir, "visualization")
     files = sorted(os.listdir(vis))
@@ -2184,6 +2224,7 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
     log(f"phase19 visualize_dataloader: {n_vis} samples x 2 visualizers, drawn at their {n_boxes} boxes "
         f"({time.time() - t0:.1f} s for the phase) on {card}")
     log("phase19 ok")
+    return res
 
 
 def zero_launches():
@@ -2622,7 +2663,8 @@ def phase24_v99_clis(tmp, device, card):
     data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
     res = run_cli("--cli-rank", [f"+experiments={V99}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'v99_out')}",
                                  f"SOLVER.MAX_ITER={V99_CLI_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={V99_CLI_STEPS}",
-                                 "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", "TPU.PALLAS_STEM_DW=True"])
+                                 "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", "TPU.PALLAS_STEM_DW=True",
+                                 THREAD_LOADER])
     ckpt = os.path.join(res["output_dir"], "ckpt")
     buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
     log(f"phase24 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s (process start and "
@@ -2973,8 +3015,8 @@ def phase28_nusc_train(tmp, root, card):
                                  f"SOLVER.MAX_ITER={NUSC_TRAIN_STEPS}", f"SOLVER.IMS_PER_BATCH={NUSC_TRAIN_BATCH}",
                                  f"SOLVER.CHECKPOINT_PERIOD={NUSC_TRAIN_STEPS}",
                                  f"INPUT.RESIZE.MIN_SIZE_TRAIN=[{NUSC_TRAIN_SIZE}]", "TPU.PALLAS_STEM_DW=True",
-                                 "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False"],
-                  timeout_s=900)
+                                 "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False",
+                                 THREAD_LOADER], timeout_s=900)
     with open(os.path.join(res["output_dir"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     train_row = [r for r in rows if "total_loss" in r][-1]
@@ -3398,7 +3440,7 @@ def phase32_regnety_train(tmp, device, card):
     data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
     res = run_cli("--cli-rank", [f"+experiments={REGNETY}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'rg_out')}",
                                  "SOLVER.MAX_ITER=2", "SOLVER.CHECKPOINT_PERIOD=2", "TEST.EVAL_PERIOD=0",
-                                 "VIS.DATALOADER_ENABLED=False", "TEST.AUG.ENABLED=False"])
+                                 "VIS.DATALOADER_ENABLED=False", "TEST.AUG.ENABLED=False", THREAD_LOADER])
     ckpt = os.path.join(res["output_dir"], "ckpt")
     log(f"phase32 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s, losses "
         + ", ".join(f"{v:.3f}" for v in res["losses"]))
@@ -3948,6 +3990,264 @@ def phase41_head_options(device, images, intrinsics, card):
 
 
 
+# --- JPEG frames and TPU.REMAT (phases 42-43) --------------------------------
+
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+JPEG_FRAME = "frame_900x1600.jpg"  # a nuScenes camera's size, 4:2:0 at quality 90
+JPEG_DECODE_REPS = 20
+JPEG_LOADER_PASSES = 3  # of each format, in turns
+REMAT_POLICIES = ("none", "full", "dots_saveable")
+REMAT_TIMED_STEPS = 6
+
+
+def jpeg_manifests(tmp):
+    """Two JSON manifests of one nuScenes-style fixture (make_nusc_fixture's
+    dicts: 2 samples of 6 cameras at 900x1600, poses, intrinsics):
+    `nusc_jpg`, every frame a copy of the committed JPEG_FRAME (the card's
+    machine cannot encode JPEGs), and `nusc_png`, the same pixels as the
+    port decodes them, written as PNGs with write_png. Returns the root."""
+    from dd3d_tpu_torch.data.imageio import decode_bgr, write_png
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, make_nusc_fixture
+
+    root = make_nusc_fixture(os.path.join(tmp, "jpeg_fixture"), n_samples=NUSC_BATCH // 6, height=NUSC_HW[0],
+                             width=NUSC_HW[1])
+    ds_dir = os.path.join(root, "json_datasets")
+    with open(os.path.join(ds_dir, f"{NUSC_FIXTURE}.json")) as f:
+        manifest = json.load(f)
+    os.remove(os.path.join(ds_dir, f"{NUSC_FIXTURE}.json"))
+    with open(os.path.join(JPEG_DIR, JPEG_FRAME), "rb") as f:
+        jpeg = f.read()
+    pixels = decode_bgr(jpeg, JPEG_FRAME)
+    for kind in ("jpg", "png"):
+        dicts = []
+        for d in manifest["dicts"]:
+            name = d["file_name"].replace(".png", f"_frame.{kind}")
+            if kind == "jpg":
+                with open(os.path.join(ds_dir, name), "wb") as f:
+                    f.write(jpeg)
+            else:
+                write_png(os.path.join(ds_dir, name), pixels)
+            dicts.append({**d, "file_name": name})
+        with open(os.path.join(ds_dir, f"nusc_{kind}.json"), "w") as f:
+            json.dump({**manifest, "name": f"nusc_{kind}", "dicts": dicts}, f)
+    return root
+
+
+def phase42_jpeg(tmp, device, card):
+    """JPEG frames (the port's own decoder, csrc/imageio.cpp, on the host):
+    every committed fixture of tests/data/jpeg decodes to the SHA-256 of
+    the JAX package's libjpeg decode (digests.json); ms a frame of the
+    900x1600 fixture on one thread; dd3d_nusc_dla34's test loader in
+    images/s over 12 JPEG frames against the same pixels as PNGs, in turns;
+    one bf16 batch of 12 (two samples of 6 cameras, 896x1664) served with
+    the sample aggregation from the JPEG manifest and from the PNG one: the
+    same canvases and identical detections. Returns the timings and the
+    serving's launches."""
+    import hashlib
+
+    from dd3d_tpu_torch.data.augmentations import resize_shortest_edge_dims
+    from dd3d_tpu_torch.data.build import TestDataLoader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.data.imageio import decode_bgr, read_image_bgr
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
+
+    t0 = time.time()
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        img = read_image_bgr(os.path.join(JPEG_DIR, name))
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != want["shape"] or got != want["sha256"]:
+            raise AssertionError(f"phase42: {name} decodes to {img.shape} {got}, not {want}")
+    log(f"phase42 the {len(digests)} committed JPEG fixtures ({', '.join(sorted(digests))}) decode to the SHA-256 "
+        "of the JAX package's libjpeg decode")
+    with open(os.path.join(JPEG_DIR, JPEG_FRAME), "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(JPEG_DECODE_REPS):
+        t = time.perf_counter()
+        decode_bgr(data)
+        times.append((time.perf_counter() - t) * 1e3)
+    frame_ms = float(np.median(times))
+    log(f"phase42 timing on {card} (host): {JPEG_FRAME} ({len(data)} bytes) decodes in {frame_ms:.3f} ms a frame "
+        f"on one thread (median of {JPEG_DECODE_REPS}; p25 {np.percentile(times, 25):.3f}, p75 "
+        f"{np.percentile(times, 75):.3f}), {os.cpu_count()} host cores")
+
+    root = jpeg_manifests(tmp)
+    cfgs, ips, batches = {}, {"jpg": [], "png": []}, {}
+    for kind in ("jpg", "png"):
+        cfgs[kind] = experiment_cfg(NUSC, DATASET_ROOT=root, **{"DATASETS.TEST.NAME": f"nusc_{kind}",
+                                                                 "TEST.IMS_PER_BATCH": NUSC_BATCH})
+        register_datasets(cfgs[kind])
+    for _ in range(JPEG_LOADER_PASSES):
+        for kind in ("jpg", "png"):
+            loader = TestDataLoader(cfgs[kind], group_size=6)
+            t = time.perf_counter()
+            got = list(loader)
+            ips[kind].append(NUSC_BATCH / (time.perf_counter() - t))
+            batches[kind] = got
+    loader_ips = {k: float(np.median(v)) for k, v in ips.items()}
+    log(f"phase42 timing on {card} (host): {NUSC}'s test loader, {NUSC_BATCH} frames of {NUSC_HW[0]}x{NUSC_HW[1]} "
+        f"resized to MIN_SIZE_TEST {cfgs['jpg'].INPUT.RESIZE.MIN_SIZE_TEST} on "
+        f"{cfgs['jpg'].DATALOADER.TEST.NUM_WORKERS} threads: JPEG {loader_ips['jpg']:.2f} images/s, PNG "
+        f"{loader_ips['png']:.2f} images/s (medians of {JPEG_LOADER_PASSES} passes each, in turns: "
+        f"{[round(v, 2) for v in ips['jpg']]} / {[round(v, 2) for v in ips['png']]})")
+    (bj, _), = batches["jpg"]
+    (bp, _), = batches["png"]
+    r = cfgs["jpg"].INPUT.RESIZE
+    canvas = tuple(-(-v // 128) * 128 for v in resize_shortest_edge_dims(*NUSC_HW, r.MIN_SIZE_TEST, r.MAX_SIZE_TEST))
+    if bj["image"].shape[1:3] != canvas or bj["image"].tobytes() != bp["image"].tobytes():
+        raise AssertionError(f"phase42: the JPEG batch {bj['image'].shape} is not the PNG batch's {canvas} canvases")
+
+    cfg = cfgs["jpg"]
+    model = build(cfg, device)
+    infer = get_inference_fn(model, cfg, group_size=6)
+    dets = {}
+    for kind, b in (("png", bp), ("jpg", bj)):
+        args = [torch.from_numpy(np.asarray(b[k])).to(device) for k in ("image", "intrinsics", "pose_quat",
+                                                                          "pose_tvec")]
+        if kind == "jpg":
+            zero_launches()
+        dets[kind] = infer(*args)
+        torch.cuda.synchronize()
+    launches = {"greedy_nms": greedy_nms.launches, "greedy_nms_scan": greedy_nms_scan.launches}
+    for k, v in dets["jpg"].items():
+        if not torch.equal(v, dets["png"][k]):
+            raise AssertionError(f"phase42: {k} of the JPEG-served batch differs from the PNG-served one")
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"phase42: {k} is not finite")
+    kept = int(dets["jpg"]["valid"].sum())
+    log(f"phase42 {NUSC} bf16 batch of {NUSC_BATCH} served from the JPEG manifest and from the PNG one: identical "
+        f"detections ({kept} kept), launches on the JPEG path {launches}")
+    if kept == 0 or launches != {"greedy_nms": 1, "greedy_nms_scan": 2}:
+        raise AssertionError(f"phase42: {kept} detections, launches {launches} (want 1 NMS and 2 scans)")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase42 ok ({time.time() - t0:.2f} s)")
+    return {"frame_ms": frame_ms, "loader_ips": loader_ips, "launches": launches}
+
+
+def remat_run(cfg, policy, batches, device):
+    """A fresh seeded dd3d_kitti_dla34 (TPU.PALLAS_STEM_DW) under TPU.REMAT =
+    `policy`: its first step under torch.use_deterministic_algorithms(True),
+    whose metrics, gradients, updated parameters and BN running stats are
+    copied to the host, then REMAT_TIMED_STEPS steps timed with the peak
+    memory over them, also less what was allocated before them (the model,
+    its optimizer state, the batches and what earlier phases hold), then
+    one profiled step (its device time, and its share of the median step);
+    the dW kernel's launches over all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.training.train_loop import create_train_state
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    cfg = cfg.clone()
+    cfg.TPU.REMAT = policy
+    state = create_train_state(cfg, build_train_model(cfg, "cpu"), device)
+    step = make_train_step(cfg, state.model, state.optimizer)
+    model = state.model
+    torch.cuda.synchronize()
+    conv_dw.conv_dw_s1_same.launches = 0
+    torch.use_deterministic_algorithms(True)
+    try:
+        metrics = step(batches[0])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    first = {"metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+             "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+             "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for b in batches[1:]:
+        t = time.perf_counter()
+        m = step(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if float(m["loss_finite"]) != 1.0:
+            raise AssertionError(f"phase43 {policy}: a loss is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # device records only: recording every host op too takes ~40 s a window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # one step: a window costs ~2 s a step here
+        step(batches[1])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                    for e in kernels) / 1e3
+    dw = conv_dw.conv_dw_s1_same.launches
+    del state, step, model
+    torch.cuda.empty_cache()
+    ms = float(np.median(times))
+    return {"first": first, "ms": ms, "times": times, "peak_gib": peak, "step_gib": peak - base / 2 ** 30,
+            "dw": dw, "device_ms": device_ms, "busy": device_ms / ms}
+
+
+def differing(a, b):
+    """The names of the tensors of `a` that differ from `b`'s in a bit or are
+    missing there."""
+    return [f"{kind} {name}" for kind in a for name, t in a[kind].items()
+            if name not in b[kind] or not torch.equal(t, b[kind][name])]
+
+
+def phase43_remat(vis_cli, device, card):
+    """TPU.REMAT: dd3d_kitti_dla34's bf16 train step at batch 8, 384x1280,
+    TPU.PALLAS_STEM_DW, under "none", "full" and "dots_saveable" and "none"
+    again (the step itself deterministic), each from the same seeded
+    weights: under deterministic algorithms the first step's losses,
+    gradients, updated parameters and BN running stats equal "none"'s bit
+    for bit; the dW kernel twice a step; ms a step and peak memory over
+    REMAT_TIMED_STEPS more steps, and one profiled step's device time. Then
+    the training CLI's steps under TPU.REMAT=full (phase 19's run, under
+    torch.distributed.run: NCCL, world size 1): finite losses, the dW
+    kernel twice a step. Returns the timings and the dW launches."""
+    from dd3d_tpu_torch.training.train_loop import to_device
+
+    t0 = time.time()
+    cfg = train_cfg()
+    batches = [to_device(b, device) for b in train_batches(cfg, 1 + REMAT_TIMED_STEPS, BATCH, HEIGHT, WIDTH,
+                                                           SEED + 43)]
+    runs = {}
+    for policy in (*REMAT_POLICIES, "none"):
+        runs["none again" if policy in runs else policy] = remat_run(cfg, policy, batches, device)
+    again = differing(runs["none again"]["first"], runs["none"]["first"])
+    if again:
+        raise AssertionError(f"phase43: the step without REMAT is not deterministic: {again[:5]}")
+    steps = 2 + REMAT_TIMED_STEPS  # the first, the timed ones, the profiled one
+    for key, run in runs.items():
+        diff = differing(run["first"], runs["none"]["first"])
+        log(f"phase43 timing on {card}: TPU.REMAT={key}: {run['ms']:.2f} ms a step (median of "
+            f"{REMAT_TIMED_STEPS}: {[round(v, 2) for v in run['times']]}), peak memory {run['peak_gib']:.3f} GiB "
+            f"({run['step_gib']:.3f} GiB above what was allocated before the steps), profiler: "
+            f"{run['device_ms']:.2f} ms of device time a step, {run['busy']:.3f} of the median step; "
+            f"dW kernel launches {run['dw']} in {steps} steps; first step against 'none' bit for bit: "
+            f"{'equal' if not diff else diff[:3]} (losses {float(run['first']['metrics']['total_loss']):.6f})")
+        if diff:
+            raise AssertionError(f"phase43: REMAT={key} differs from the step without it: {diff[:5]}")
+        if run["dw"] != 2 * steps:
+            raise AssertionError(f"phase43: REMAT={key}: {run['dw']} dW kernel launches in {steps} steps")
+    del batches
+    torch.cuda.empty_cache()
+
+    res = vis_cli
+    log(f"phase43 training CLI with TPU.REMAT=full (phase 19's run): {len(res['losses'])} steps of batch {BATCH}, "
+        f"losses {[round(v, 3) for v in res['losses']]}, dW kernel launches {res['dw_launches']}, SyncBN "
+        f"all-reduces in forward passes {res['syncbn_forward_allreduces']} (the recompute's included)")
+    if len(res["losses"]) != VIS_STEPS or not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"phase43: the CLI took {len(res['losses'])} steps, or a loss is not finite")
+    if res["dw_launches"] != 2 * VIS_STEPS:
+        raise AssertionError(f"phase43: {res['dw_launches']} dW kernel launches in the CLI's {VIS_STEPS} steps")
+    log(f"phase43 ok ({time.time() - t0:.2f} s)")
+    return {"runs": {k: {key: r[key] for key in ("ms", "peak_gib", "step_gib", "device_ms")}
+                     for k, r in runs.items()},
+            "dw": sum(r["dw"] for r in runs.values()) + res["dw_launches"]}
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -3959,6 +4259,8 @@ def main():
     from dd3d_tpu_torch.configs import get_experiment_cfg
     from dd3d_tpu_torch.kernels import build_libraries
 
+    # cuBLAS reads it at its first handle: phase 43's deterministic steps need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4014,7 +4316,7 @@ def main():
         overfit = phase17_overfit(tmp, root, card)
         evaluation = phase18_eval_scale(tmp, overfit["output_dir"], device, card)
         torch.cuda.synchronize()
-        phase19_visualizers(tmp, root, overfit["output_dir"], card)
+        vis_cli = phase19_visualizers(tmp, root, overfit["output_dir"], card)
         tta = phase20_tta(tmp, overfit["output_dir"], device, card)
         torch.cuda.synchronize()
 
@@ -4077,6 +4379,12 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         ho_launches = phase41_head_options(device, images, intrinsics, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        jpeg = phase42_jpeg(tmp, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        remat = phase43_remat(vis_cli, device, card)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     quant_err = max(quant_err, phase34_quantize_exhaustive(device))
@@ -4168,6 +4476,11 @@ def main():
             f"s8 {f['launches']['int8_conv_s8']:.0f}, ReLU {u['launches']['relu']:.0f} -> {f['launches']['relu']:.0f}; "
             f"device time a batch {np.mean(u['device_ms']):.3f} -> {np.mean(f['device_ms']):.3f} ms; "
             f"{u['images_per_s']:.2f} -> {f['images_per_s']:.2f} images/s")
+    log(f"timing on {card}: JPEG {JPEG_FRAME} {jpeg['frame_ms']:.3f} ms a frame on one host thread; {NUSC}'s test "
+        f"loader {jpeg['loader_ips']['jpg']:.2f} images/s from JPEGs, {jpeg['loader_ips']['png']:.2f} from PNGs "
+        f"(phase 42); TPU.REMAT train step (phase 43) " + ", ".join(
+            f"{k} {v['ms']:.2f} ms ({v['device_ms']:.2f} of device time) / peak {v['peak_gib']:.3f} GiB "
+            f"({v['step_gib']:.3f} above the steps' start)" for k, v in remat["runs"].items()))
     log(f"timing on {card}: the {standalone['n']} standalone quantizes of a fused DLA-34 int8 forward "
         f"{standalone['kernel']:.4f} ms of device time, the same-bytes cast {standalone['cast']:.4f} ms, bound "
         f"{standalone['bound']:.4f} ms; at {QUANT_SHAPE} bf16 {kernel_ms['quantize_int8'][0]:.4f} ms against "
@@ -4178,10 +4491,10 @@ def main():
                 + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"] + large_nms + rg_nms
                 + rg_launches["greedy_nms"] + rg_eval_nms + nusc8["launches"]["greedy_nms"]
                 + nusc8_v99["launches"]["greedy_nms"] + nusc8_eval["plain"]["greedy_nms"] + dla_nms
-                + dx_launches["greedy_nms"] + ho_launches["greedy_nms"],
+                + dx_launches["greedy_nms"] + ho_launches["greedy_nms"] + jpeg["launches"]["greedy_nms"],
                 "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"]
                 + nusc8["launches"]["greedy_nms_scan"] + nusc8_v99["launches"]["greedy_nms_scan"]
-                + nusc8_eval["plain"]["greedy_nms_scan"],
+                + nusc8_eval["plain"]["greedy_nms_scan"] + jpeg["launches"]["greedy_nms_scan"],
                 "quantize_int8": sum(x["quantize_int8"] for x in int8_paths)
                 + nusc8_eval["plain"]["quantize_int8"] + nusc8_eval["tta"]["quantize_int8"],
                 "int8_conv": sum(x["int8_conv"] for x in int8_paths)
@@ -4208,7 +4521,7 @@ def main():
             ("int8_conv_grouped", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
              launches["int8_conv_grouped"], grouped_err),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
-             cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches, dw_err)]
+             cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches + remat["dw"], dw_err)]
     kernels = []
     for name, source, replaces, n, err in rows:
         ms, plain_ms, bnd, by, library_ms = timed[name]

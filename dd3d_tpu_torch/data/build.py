@@ -30,7 +30,7 @@ import numpy as np
 
 from dd3d_tpu_torch.data.augmentations import ResizeShortestEdge, build_augmentation, resize_shortest_edge_dims
 from dd3d_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
-from dd3d_tpu_torch.data.imageio import decode_resize_batch, png_size
+from dd3d_tpu_torch.data.imageio import decode_resize_batch, image_size
 from dd3d_tpu_torch.data.mapper import DatasetMapper, collate_batch
 from dd3d_tpu_torch.data.samplers import (
     InferenceGroupSampler,
@@ -143,9 +143,10 @@ def _native_preresize(dataset_dicts, indices, augmentations, cache_dir: str = ""
     (path, mtime, resize-target).
 
     Returns a list aligned with `indices` of (resized_image, (src_h, src_w))
-    — the mapper's `preresized` argument — with None entries for images that
-    are not PNG files (per-image path), or None when the fast path doesn't
-    apply at all."""
+    — the mapper's `preresized` argument — with None entries for files that
+    cannot be opened (the mapper's own read raises for them), or None when
+    the fast path doesn't apply at all. A file that is neither a PNG nor a
+    JPEG raises."""
     if not augmentations or not isinstance(augmentations[0], ResizeShortestEdge):
         return None
     r = augmentations[0]
@@ -173,12 +174,7 @@ def _native_preresize(dataset_dicts, indices, augmentations, cache_dir: str = ""
                     blobs.append(f.read())
             except OSError:
                 blobs.append(b"")
-        dims = []
-        for b in blobs:
-            try:
-                dims.append(png_size(b))
-            except ValueError:  # not a PNG: the mapper reads it on its own
-                dims.append(None)
+        dims = [image_size(b) if b else None for b in blobs]  # an unreadable file: the mapper raises
         targets = [resize_shortest_edge_dims(d[0], d[1], size, max_size) if d else None for d in dims]
         imgs = decode_resize_batch(blobs, targets, executor)
         for k, j in enumerate(miss):

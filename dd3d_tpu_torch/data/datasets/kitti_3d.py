@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from dd3d_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
-from dd3d_tpu_torch.data.imageio import png_size
+from dd3d_tpu_torch.data.imageio import read_image_size
 from dd3d_tpu_torch.structures.pose import Pose, _quat_to_matrix_np
 
 LOG = logging.getLogger(__name__)
@@ -248,12 +248,11 @@ def build_monocular_kitti3d_dataset(
 
 
 def _image_size(path: str):
-    """(width, height), read from the PNG header (the JAX package opens the
-    file with PIL)."""
+    """(width, height), read from the PNG or JPEG header (the JAX package
+    opens the file with PIL)."""
     if not os.path.exists(path):
         return 1242, 375  # canonical KITTI size for fixture-less metadata
-    with open(path, "rb") as f:
-        height, width = png_size(f.read(24))
+    height, width = read_image_size(path)
     return width, height
 
 

@@ -1,20 +1,29 @@
-"""The port's image reader and resize: PNG to BGR uint8 as
-cv2.imread(path, IMREAD_COLOR) returns it, and the uint8 bilinear resize of
+"""The port's image reader and resize: PNG and JPEG to BGR uint8 as the JAX
+package's native reader returns them (cv2.imread(path, IMREAD_COLOR) for a
+PNG, libjpeg-turbo's decode for a JPEG), and the uint8 bilinear resize of
 PIL's Image.resize(..., BILINEAR), byte for byte, with neither cv2 nor PIL.
 
 Counterpart of dd3d_tpu/data/native/, which decodes with libpng and libjpeg.
-The port builds without libpng's and libjpeg's headers, so the PNG decode
-is split in two: the chunks are parsed and the IDAT stream inflated here with
+The port builds without libpng's and libjpeg's headers. The PNG decode is
+split in two: the chunks are parsed and the IDAT stream inflated here with
 Python's zlib (CRCs checked, as libpng does), and the five row filters are
 undone in C++ (`csrc/imageio.cpp::png_unfilter_bgr`, built with g++ on first
 use like the CUDA kernels, `kernels.load_library`), which also holds the
-JAX package's Pillow-exact resize. zlib and the ctypes call both release the
-GIL, so a thread pool decodes in parallel.
+JAX package's Pillow-exact resize. A JPEG is decoded whole in that C++
+(`jpeg_decode_resize_bgr`, its own decoder with libjpeg-turbo's arithmetic).
+zlib and the ctypes calls release the GIL, so a thread pool decodes in
+parallel. Formats are told apart by their magic bytes.
 
 Supported: 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA PNGs (what
 cv2 and the KITTI benchmark write); alpha is dropped, as IMREAD_COLOR drops
-it. Other PNGs raise NotImplementedError. JPEG raises NotImplementedError:
-real nuScenes frames are JPEGs (ROADMAP §1 item 12, a baseline decoder).
+it. Other PNGs raise NotImplementedError. Sequential and progressive
+Huffman JPEGs, 8-bit, gray or 3 components, any integral sampling factors
+(4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), restart intervals; an EXIF orientation
+is ignored, as the JAX package's reader ignores it, and a truncated file
+decodes with its missing blocks mid-gray, as libjpeg decodes it. Other
+JPEGs (arithmetic coding, lossless, 12-bit, CMYK/YCCK, a progressive file
+whose scans leave coefficient bits unsent) raise NotImplementedError naming
+the kind.
 
 `write_png` writes BGR uint8 as an RGB PNG with zlib (the fixture of
 `dd3d_tpu_torch/overfit_smoke.py`).
@@ -29,6 +38,9 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+# JPEG frame headers: SOF0-SOF15 but DHT (C4), JPG (C8) and DAC (CC).
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+_JPEG_PARAMETERLESS = frozenset(range(0xD0, 0xD8)) | {0x01}  # RSTn, TEM
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG color type -> samples a pixel
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -52,6 +64,10 @@ def _library() -> ctypes.CDLL:
             lib.unfilter_resize_bgr.restype = ctypes.c_int32
             lib.unfilter_resize_bgr.argtypes = [_u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                                                 ctypes.c_int32, _u8p, ctypes.c_int32, ctypes.c_int32]
+            lib.jpeg_decode_resize_bgr.restype = ctypes.c_int32
+            lib.jpeg_decode_resize_bgr.argtypes = [_u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, _u8p,
+                                                   ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+                                                   ctypes.c_int32]
             _lib = lib
         return _lib
 
@@ -68,18 +84,74 @@ def png_size(data: bytes) -> Tuple[int, int]:
     return height, width
 
 
-def _check_format(data: bytes, what: str) -> None:
+class TruncatedHeader(ValueError):
+    """The bytes end before the header that holds the image's size."""
+
+
+def jpeg_size(data: bytes) -> Tuple[int, int]:
+    """(height, width) from a JPEG's frame header (SOFn), walking the marker
+    segments before it (APPn segments, EXIF's among them, may come first).
+    Raises TruncatedHeader when `data` ends before the frame header."""
+    if data[:3] != JPEG_SIGNATURE:
+        raise ValueError("not a JPEG file")
+    pos, n = 2, len(data)
+    while True:
+        while pos < n and data[pos] != 0xFF:  # bytes between segments, skipped as libjpeg skips them
+            pos += 1
+        while pos < n and data[pos] == 0xFF:  # fill bytes
+            pos += 1
+        if pos >= n:
+            raise TruncatedHeader("JPEG data ends before its frame header")
+        marker = data[pos]
+        pos += 1
+        if marker in _JPEG_PARAMETERLESS or marker == 0:
+            continue
+        if marker in (0xD9, 0xDA):
+            raise ValueError("JPEG without a frame header (SOF) before its scan")
+        if pos + 7 > n:
+            raise TruncatedHeader("JPEG data ends before its frame header")
+        if marker in _JPEG_SOF:
+            height, width = struct.unpack(">HH", data[pos + 3: pos + 7])
+            if height == 0 or width == 0:
+                raise ValueError(f"JPEG of size {height}x{width}")
+            return height, width
+        pos += struct.unpack(">H", data[pos: pos + 2])[0]
+
+
+def image_size(data: bytes) -> Tuple[int, int]:
+    """(height, width) of PNG or JPEG bytes, from the header; counterpart of
+    dd3d_tpu.data.native.image_dims. Raises ValueError for other bytes."""
+    if data[:8] == PNG_SIGNATURE:
+        return png_size(data)
     if data[:3] == JPEG_SIGNATURE:
-        raise NotImplementedError(f"{what}: JPEG decode is not ported; real nuScenes frames need it "
-                                  "(ROADMAP §1 item 12)")
+        return jpeg_size(data)
+    raise ValueError("not a PNG or JPEG file")
+
+
+def read_image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of a PNG or JPEG file, reading only as far as its
+    header (a PNG's first 24 bytes; a JPEG's segments up to its SOFn)."""
+    with open(path, "rb") as f:
+        data = f.read(4096)
+        while True:
+            try:
+                return image_size(data)
+            except TruncatedHeader:
+                more = f.read(max(len(data), 4096))
+                if not more:
+                    raise
+                data += more
+
+
+def _check_png(data: bytes, what: str) -> None:
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{what}: not a PNG file")
+        raise ValueError(f"{what}: not a PNG or JPEG file")
 
 
 def inflate_png(data: bytes, what: str = "image") -> Tuple[np.ndarray, int, int, int]:
     """(filtered scanlines as uint8, height, width, channels) of PNG bytes:
     the chunks walked with their CRCs checked, IDAT inflated."""
-    _check_format(data, what)
+    _check_png(data, what)
     pos, idat, header = 8, [], None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos: pos + 8])
@@ -107,13 +179,33 @@ def inflate_png(data: bytes, what: str = "image") -> Tuple[np.ndarray, int, int,
 
 
 def decode_bgr(data: bytes, what: str = "image") -> np.ndarray:
-    """(H, W, 3) uint8 BGR of PNG bytes, as cv2.imdecode(..., IMREAD_COLOR)."""
+    """(H, W, 3) uint8 BGR of PNG or JPEG bytes, as the JAX package's
+    native.decode_bgr returns them."""
     return decode_resize_bgr(data, None, what)
 
 
+def _decode_resize_jpeg(data: bytes, size: Optional[Tuple[int, int]], what: str) -> np.ndarray:
+    try:
+        h, w = jpeg_size(data)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+    dh, dw = size if size is not None else (h, w)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((dh, dw, 3), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    rc = _library().jpeg_decode_resize_bgr(_ptr(buf), buf.size, h, w, _ptr(out), dh, dw, msg, len(msg))
+    if rc == -2:
+        raise NotImplementedError(f"{what}: {msg.value.decode()}")
+    if rc != 0:
+        raise ValueError(f"{what}: JPEG decode failed (code {rc}): {msg.value.decode()}")
+    return out
+
+
 def decode_resize_bgr(data: bytes, size: Optional[Tuple[int, int]], what: str = "image") -> np.ndarray:
-    """PNG bytes decoded to BGR and resized to `size` = (new_h, new_w) as
-    PIL's BILINEAR does (None: not resized), in one C call."""
+    """PNG or JPEG bytes decoded to BGR and resized to `size` = (new_h,
+    new_w) as PIL's BILINEAR does (None: not resized), in one C call."""
+    if data[:3] == JPEG_SIGNATURE:
+        return _decode_resize_jpeg(data, size, what)
     raw, h, w, c = inflate_png(data, what)
     dh, dw = size if size is not None else (h, w)
     out = np.empty((dh, dw, 3), np.uint8)
@@ -149,9 +241,9 @@ def resize_bilinear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
 
 def decode_resize_batch(blobs: Sequence[bytes], targets: Sequence[Optional[Tuple[int, int]]],
                         executor=None) -> List[Optional[np.ndarray]]:
-    """Decode and resize encoded images, each to its own (new_h, new_w)
-    target (None skips it), through `executor` (a thread pool: zlib and the
-    C call release the GIL) or in turn. Counterpart of the JAX package's
+    """Decode and resize encoded PNGs and JPEGs, each to its own (new_h,
+    new_w) target (None skips it), through `executor` (a thread pool: zlib
+    and the C calls release the GIL) or in turn. Counterpart of the JAX package's
     OpenMP batch call (dd3d_tpu/data/native/__init__.py:204-231)."""
     def one(args):
         blob, target = args

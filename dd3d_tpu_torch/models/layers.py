@@ -77,6 +77,10 @@ class QuantSpec:
 
 
 _QUANT = contextvars.ContextVar("dd3d_tpu_torch_quant", default=QuantSpec())
+# True while TPU.REMAT recomputes a forward in backward (training/remat.py):
+# the recompute leaves the state a forward updates, live BN's running
+# averages, as the first forward left it.
+RECOMPUTING = contextvars.ContextVar("dd3d_tpu_torch_recomputing", default=False)
 
 
 @contextlib.contextmanager
@@ -197,11 +201,13 @@ class FoldableBatchNorm(_NormStats):
     :64-112). At eval: the running-stat affine, with rsqrt, foldable. In
     train mode: the statistics of the batch in f32 over (N, H, W), the
     biased variance, and the running averages updated as
-    ra = 0.9 * ra + 0.1 * stat (biased variance too). JAX forms the variance
-    as E[x^2] - E[x]^2 (:96), which cancels in f32 where a level has few
-    values a channel (P7 at a small canvas); the port takes the same biased
-    variance from one var_mean reduction, which does not cancel and stays
-    nearer the f64 result (tests/test_torch_train.py holds both against it)."""
+    ra = 0.9 * ra + 0.1 * stat (biased variance too), once a step: a REMAT
+    recompute (RECOMPUTING) normalizes alike and updates nothing. JAX forms
+    the variance as E[x^2] - E[x]^2 (:96), which cancels in f32 where a
+    level has few values a channel (P7 at a small canvas); the port takes
+    the same biased variance from one var_mean reduction, which does not
+    cancel and stays nearer the f64 result (tests/test_torch_train.py holds
+    both against it)."""
 
     momentum = 0.9
 
@@ -223,10 +229,11 @@ class FoldableBatchNorm(_NormStats):
             var, mean = sync_batch_moments(xf)
         else:
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        if not RECOMPUTING.get():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         mul = self.weight * torch.rsqrt(var + self.eps)
         return mul, self.bias - mean * mul
 
@@ -267,7 +274,7 @@ def sync_batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return combine_moments(AllReduceSum.apply(rows))
 
 
-sync_batch_moments.calls = 0  # all-reduces issued in forward passes
+sync_batch_moments.calls = 0  # all-reduces issued in forward passes (a REMAT recompute's too)
 
 
 class AllReduceSum(torch.autograd.Function):

@@ -74,13 +74,12 @@ def parse_overrides(pairs, cfg):
 
 
 def read_image_dicts(files, intrinsics):
-    """One dataset dict per image file, its size from the PNG header."""
-    from dd3d_tpu_torch.data.imageio import png_size
+    """One dataset dict per image file, its size from the PNG or JPEG header."""
+    from dd3d_tpu_torch.data.imageio import read_image_size
 
     dicts = []
     for f in files:
-        with open(f, "rb") as fh:
-            height, width = png_size(fh.read(24))
+        height, width = read_image_size(f)
         dicts.append({"file_name": f, "image_id": os.path.splitext(os.path.basename(f))[0], "intrinsics": intrinsics,
                       "height": height, "width": width})
     return dicts

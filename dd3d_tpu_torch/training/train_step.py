@@ -24,8 +24,12 @@ reports each micro-batch's own).
 
 int8 quantization is forced off, as in JAX (train_step.py:75-80): the step
 runs under a disabled QuantSpec, whatever the model's inference functions
-use. TPU.REMAT (activation recomputation) is not ported: anything but
-"none" raises.
+use.
+
+TPU.REMAT recomputes activations in backward (training/remat.py): one
+checkpoint around the model's forward, of the policy the key names, as
+JAX's step wraps its apply_model in jax.checkpoint (:65-112); the losses are
+not recomputed.
 """
 import contextlib
 from typing import Callable, Dict
@@ -36,6 +40,7 @@ from dd3d_tpu_torch.models.dd3d import dd3d_losses, model_strides
 from dd3d_tpu_torch.models.layers import QuantSpec, quant_scope
 from dd3d_tpu_torch.ops.color_jitter import apply_color_jitter
 from dd3d_tpu_torch.training.optim import Optimizer, global_norm
+from dd3d_tpu_torch.training.remat import checkpointed_forward, remat_policy
 from dd3d_tpu_torch.utils.comm import all_reduce_sum, get_world_size
 
 
@@ -66,10 +71,9 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callab
     gt_speeds; DD3DDenseDepth's `depth` (B, H, W)."""
     losses_fn = losses_for(cfg)
     dense_depth = cfg.MODEL.META_ARCHITECTURE == "DD3DDenseDepth"
-    remat = str(cfg.TPU.get("REMAT", "none"))
-    if remat not in ("none", ""):
-        raise NotImplementedError(f"TPU.REMAT={remat!r} is not ported; the port stores all activations")
-    strides = model_strides(getattr(model, "module", model))
+    policy = remat_policy(str(cfg.TPU.get("REMAT", "none")))
+    net = getattr(model, "module", model)
+    strides = model_strides(net)
     k = optimizer.accumulate
     scale = get_world_size() / k
 
@@ -83,7 +87,7 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: Optimizer) -> Callab
             images = apply_color_jitter(images, batch["color_jitter"])
         no_sync = model.no_sync() if hasattr(model, "no_sync") and not apply_update else contextlib.nullcontext()
         with no_sync:
-            with quant_scope(QuantSpec()):
+            with quant_scope(QuantSpec()), checkpointed_forward(net, policy):
                 if dense_depth:  # dd3d_tpu/training/train_step.py:87-95
                     outputs = model(images, torch.linalg.inv(batch["intrinsics"].float()))
                 else:

@@ -606,3 +606,60 @@ def test_conv_dw_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="shared memory"):
         big, dbig = _dw_case(card, 1, 4, 4, 2048, 4, torch.float32, seed=0)
         conv_dw_s1_same(big, dbig, 9)
+
+
+def test_jpeg_fixtures_and_remat_steps_on_card(card, monkeypatch):
+    """The machine with the card cannot encode JPEGs: the committed fixtures
+    (tests/data/jpeg) decode to the digests of the JAX package's libjpeg
+    decode. Then the small model's train step (FPN 64, 1-conv towers,
+    TPU.PALLAS_STEM_DW, bf16, batch 2 at 128x256) under TPU.REMAT "full" and
+    "dots_saveable" gives the "none" step's losses, gradients, updated
+    parameters and BN running stats bit for bit under deterministic
+    algorithms, the dW kernel twice a step."""
+    import hashlib
+    import json
+    import os
+
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.data.imageio import read_image_bgr
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.ops import conv_dw
+    from dd3d_tpu_torch.training.synthetic import seed_norm_statistics, synthetic_batch
+    from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
+    from dd3d_tpu_torch.training.train_step import make_train_step
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
+    with open(os.path.join(fixtures, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        img = read_image_bgr(os.path.join(fixtures, name))
+        assert list(img.shape) == want["shape"] and hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], name
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    batch = to_device(synthetic_batch(np.random.RandomState(1), 2, 128, 256, max_gt=8), card)
+    steps = {}
+    for policy in ("none", "full", "dots_saveable"):
+        cfg = get_experiment_cfg("dd3d_kitti_dla34")
+        cfg.TPU.PALLAS_STEM_DW = True
+        cfg.TPU.REMAT = policy
+        cfg.FE.FPN.OUT_CHANNELS = 64
+        cfg.DD3D.FCOS2D.NUM_CLS_CONVS = cfg.DD3D.FCOS2D.NUM_BOX_CONVS = cfg.DD3D.FCOS3D.NUM_CONVS = 1
+        model = seed_norm_statistics(build_model(cfg, generator=torch.Generator().manual_seed(0)),
+                                     torch.Generator().manual_seed(1))
+        state = create_train_state(cfg, model, card)
+        step = make_train_step(cfg, state.model, state.optimizer)
+        conv_dw.conv_dw_s1_same.launches = 0
+        torch.use_deterministic_algorithms(True)
+        try:
+            metrics = step(batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert conv_dw.conv_dw_s1_same.launches == 2, policy
+        steps[policy] = (metrics, {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None},
+                         {n: p.detach() for n, p in state.model.named_parameters()}, dict(state.model.named_buffers()))
+    for policy in ("full", "dots_saveable"):
+        for got, want in zip(steps[policy], steps["none"]):
+            assert list(got) == list(want), policy
+            for name in want:
+                assert torch.equal(got[name], want[name]), f"{policy}: {name}"

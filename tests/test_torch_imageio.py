@@ -8,8 +8,10 @@ in csrc/imageio.cpp) against what the JAX package reads and resizes with:
 - the resize byte-identical to PIL's Image.resize(..., BILINEAR) on up- and
   downscales, 1 and 3 channels (the JAX package's uint8 path,
   dd3d_tpu/data/augmentations.py:61-78);
-- `png_size` from the header equals the decoded shape; JPEG and 16-bit
-  PNGs raise NotImplementedError, a broken CRC ValueError;
+- `png_size` from the header equals the decoded shape; a JPEG decodes as
+  cv2 decodes it (the decoder's own tests: tests/test_torch_jpeg.py), an
+  arithmetic-coded JPEG and a 16-bit PNG raise NotImplementedError, a
+  broken CRC ValueError;
 - `write_png` read back by cv2; the port's make_fixture (pixels, calib,
   labels, split) equal to scripts/overfit_smoke.py::make_fixture's.
 """
@@ -134,9 +136,14 @@ def test_decode_resize_and_batch(tmp_path):
 
 
 def test_refuses_what_it_does_not_read(tmp_path):
+    """A JPEG is read (tests/test_torch_jpeg.py holds the decoder) as
+    cv2.imdecode reads it; an arithmetic-coded one raises. 16-bit PNGs, a
+    corrupt CRC, other bytes and a missing file raise."""
     _, jpeg = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="JPEG.*ROADMAP"):
-        imageio.decode_bgr(jpeg.tobytes())
+    assert imageio.decode_bgr(jpeg.tobytes()).tobytes() == cv2.imdecode(jpeg, cv2.IMREAD_COLOR).tobytes()
+    arithmetic = jpeg.tobytes().replace(b"\xff\xc0", b"\xff\xc9", 1)
+    with pytest.raises(NotImplementedError, match="arithmetic-coded JPEG"):
+        imageio.decode_bgr(arithmetic)
     _, png16 = cv2.imencode(".png", np.zeros((8, 8, 3), np.uint16))
     with pytest.raises(NotImplementedError, match="bit depth 16"):
         imageio.decode_bgr(png16.tobytes())

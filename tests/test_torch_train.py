@@ -408,16 +408,31 @@ def test_checkpoint_manager_keeps_the_last_n(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """TPU.REMAT and W&B raise; SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is
-    ported (tests/test_torch_accumulate.py), and so is the dataloader
-    visualization (tests/test_torch_eval_cli.py)."""
+    """W&B raises, and so does a TPU.REMAT that names a factory of
+    jax.checkpoint_policies; TPU.REMAT="full" is ported and gives the
+    "none" step bit for bit (every policy: tests/test_torch_remat.py),
+    SOLVER.ACCUMULATE_GRAD_BATCHES > 1 is ported
+    (tests/test_torch_accumulate.py), and so is the dataloader visualization
+    (tests/test_torch_eval_cli.py)."""
     from dd3d_tpu_torch.utils.events import EventStorage
 
     cfg = small_cfg()
     model = build_model(cfg)
-    cfg.TPU.REMAT = "full"
+    cfg.TPU.REMAT = "save_only_these_names"
     with pytest.raises(NotImplementedError, match="REMAT"):
         make_train_step(cfg, model, popt.Optimizer(cfg, model))
+    batch = to_device(synthetic_batch(np.random.RandomState(2), 1, 64, 64, max_gt=4), "cpu")
+    steps = {}
+    for remat in ("none", "full"):
+        cfg.TPU.REMAT = remat
+        m = seeded_model(cfg)
+        metrics = make_train_step(cfg, m, popt.Optimizer(cfg, m))(batch)
+        steps[remat] = (metrics, {n: p.grad for n, p in m.named_parameters() if p.grad is not None},
+                        dict(m.named_buffers()))
+    for got, want in zip(steps["full"], steps["none"]):
+        assert list(got) == list(want)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
     cfg.TPU.REMAT = "none"
     cfg.SOLVER.ACCUMULATE_GRAD_BATCHES = 2
     assert popt.Optimizer(cfg, model).accumulate == 2

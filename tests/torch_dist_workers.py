@@ -95,17 +95,18 @@ def float_means_double():
         torch.set_default_dtype(default)
 
 
-def ddp_steps(batches, accumulate: int = 1, f64: bool = False):
+def ddp_steps(batches, accumulate: int = 1, f64: bool = False, remat: str = "none"):
     """The small model's train steps on `batches` (one per step, this rank's
     part of each global batch when a group is joined), through
-    DistributedDataParallel when it is, in f32 or f64: the losses of each
-    step, the gradients and parameters after the last, and the BN running
-    stats."""
+    DistributedDataParallel when it is, in f32 or f64, under TPU.REMAT =
+    `remat`: the losses of each step, the gradients and parameters after the
+    last, and the BN running stats."""
     from dd3d_tpu_torch.parallel.mesh import wrap_model
     from dd3d_tpu_torch.training.train_loop import create_train_state, to_device
     from dd3d_tpu_torch.training.train_step import make_train_step
 
     cfg = small_train_cfg(accumulate)
+    cfg.TPU.REMAT = remat
     model = seeded_small_model(cfg)
     if f64:
         cfg.TPU.COMPUTE_DTYPE = "float64"
@@ -130,14 +131,28 @@ def ddp_steps(batches, accumulate: int = 1, f64: bool = False):
             "optimizer_count": state.optimizer.count}
 
 
-def ddp_rank(global_batches, accumulate: int = 1, f64: bool = False):
+def ddp_rank(global_batches, accumulate: int = 1, f64: bool = False, remat: str = "none"):
     """This rank's half of every global batch through `ddp_steps`."""
     rank, world = dist.get_rank(), dist.get_world_size()
     local = []
     for b in global_batches:
         n = len(b["image"]) // world
         local.append({k: v[rank * n:(rank + 1) * n] for k, v in b.items()})
-    return ddp_steps(local, accumulate, f64)
+    return ddp_steps(local, accumulate, f64, remat)
+
+
+def remat_ddp_rank(global_batches, policies):
+    """`ddp_rank` in f64 under each TPU.REMAT of `policies`, in turn, on
+    this process group: {policy: its result}, and the forward all-reduces
+    of SyncBN each issued."""
+    from dd3d_tpu_torch.models.layers import sync_batch_moments
+
+    out = {}
+    for policy in policies:
+        before = sync_batch_moments.calls
+        out[policy] = ddp_rank(global_batches, 1, True, policy)
+        out[policy]["syncbn_allreduces"] = sync_batch_moments.calls - before
+    return out
 
 
 # --- the loader ----------------------------------------------------------------
