@@ -26,8 +26,11 @@ EVAL_ONLY with the TTA test at the experiment's five sizes), the nine other
 DLA variants, DLA-X-60 in static int8 (its grouped convs on the `direct`
 and `mma` routes) and training, and DLA-34 with the FCOS2D v1 towers and
 the per-level, class-agnostic 3D predictors, then JPEG frames (the port's
-own decoder) through the nuScenes loader and serving, and the train step
-and CLI under TPU.REMAT, then the
+own decoder) through the nuScenes loader and serving, the train step
+and CLI under TPU.REMAT, and the image kinds past 8-bit RGB PNGs and
+Huffman JPEGs (gAMA,
+palette, Adam7 and 16-bit PNGs; arithmetic, smoothed progressive, cut and
+CMYK JPEGs) through the KITTI loader and serving, then the
 quantize kernel on every bf16 value and the int8 conv's s8 epilogue at
 every head-tower shape, and fails loudly (non-zero exit) if any phase fails.
 In static int8 the head towers' links run fused (the next conv's quantize
@@ -37,7 +40,11 @@ kernels: nms.cu holds the NMS mask, the one-warp and the block scan and the
 BEV NMS's pack; int8_conv.cu the int8 conv, with its s8 epilogue, and the
 grouped one) and the host code (csrc/imageio.cpp,
 csrc/kitti_eval.cpp with OpenMP, g++) are built first, one compiler
-process each, all at once.
+process each, all at once. The child processes of phases 14 to 32 (the
+training CLIs, EVAL_ONLY, the overfit run, predict, calibrate_int8 and the
+drawings) then start at once, beside phases 1-4, 6-8 and 10-12, which time
+nothing; phases 5, 9 and 13 time after the children are done, and the
+children's checks run in phase order after those.
 
 1. hold the greedy-NMS CUDA kernels' keep masks (dd3d_tpu_torch/csrc/nms.cu)
    against the plain PyTorch version on the card, exactly, at N from 1 to
@@ -294,7 +301,18 @@ process each, all at once.
     more steps, one profiled step's device time; the training steps of
     phase 19's CLI, which trains under TPU.REMAT=full under
     torch.distributed.run (NCCL, world size 1): finite losses, the dW
-    kernel twice a step.
+    kernel twice a step;
+44. the image kinds past 8-bit RGB PNGs and Huffman JPEGs, on a host
+    without cv2, libpng or libjpeg: every fixture of tests/data/png and
+    tests/data/jpeg decodes to the SHA-256 of the JAX package's
+    read_image_bgr; ms a 375x1242 frame on one thread for each kind beside
+    phase 42's baseline JPEG; dd3d_kitti_dla34's test loader serves one
+    bf16 batch of 8 at 384x1280 from a KITTI fixture whose frames are a gAMA
+    PNG, a palette Adam7 PNG, an Adam7 PNG, a 16-bit PNG, an
+    arithmetic-coded JPEG, a smoothed progressive JPEG, a JPEG cut inside a
+    marker segment and a CMYK JPEG, and from the same pixels as plain PNGs:
+    identical canvases and detections, the NMS kernel once, and identical
+    detections with the plain suppression.
 
 The training runs of phases 17, 19, 24, 28 and 32 run the train loader
 on its thread path (phase 15 times the process pool against it), so that
@@ -1645,25 +1663,47 @@ def cli_timing(argv):
                                       "shapes": [s[1] for s in loader], "synthetic_shape": [h, w]}), flush=True)
 
 
-def run_cli(mode, args, timeout_s=600):
-    """`chip_smoke.py <mode> args` under torch.distributed.run on one card;
-    returns the parsed CLI_RESULT line, with the child's whole output under
-    "log". The child's log tail is printed."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
-           os.path.abspath(__file__), mode, *args]
+def run_child(cmd, timeout_s=300):
+    """`python cmd...` from the repo's root: (its CompletedProcess, seconds)."""
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s)
+    proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=timeout_s,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.time() - t0
+
+
+def cli_child(mode, args, timeout_s=600):
+    """`chip_smoke.py <mode> args` under torch.distributed.run on one card:
+    (its CompletedProcess, seconds); cli_result reads it."""
+    return run_child(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                      os.path.abspath(__file__), mode, *args], timeout_s)
+
+
+def cli_output(child):
+    """The parsed CLI_RESULT line of a cli_child, or None."""
+    result = [line for line in child[0].stdout.splitlines() if line.startswith("CLI_RESULT ")]
+    return json.loads(result[0][len("CLI_RESULT "):]) if child[0].returncode == 0 and len(result) == 1 else None
+
+
+def cli_result(mode, child):
+    """A cli_child's parsed CLI_RESULT line, with the child's whole output
+    under "log" and its seconds under "seconds". The child's log tail is
+    printed."""
+    proc, seconds = child
     for line in (proc.stdout + proc.stderr).splitlines()[-12:]:
         log(f"  | {line[:220]}")
     if proc.returncode != 0:
         raise AssertionError(f"{mode}: the CLI exited {proc.returncode}")
-    result = [line for line in proc.stdout.splitlines() if line.startswith("CLI_RESULT ")]
-    if len(result) != 1:
+    out = cli_output(child)
+    if out is None:
         raise AssertionError(f"{mode}: no CLI_RESULT line")
-    out = json.loads(result[0][len("CLI_RESULT "):])
-    out["seconds"] = time.time() - t0
+    out["seconds"] = seconds
     out["log"] = proc.stdout + proc.stderr
     return out
+
+
+def run_cli(mode, args, timeout_s=600):
+    """cli_result of a cli_child run now."""
+    return cli_result(mode, cli_child(mode, args, timeout_s))
 
 
 def experiment_cfg(name, **overrides):
@@ -1684,18 +1724,30 @@ def loader_cfg(root, **overrides):
     return experiment_cfg("dd3d_kitti_dla34_overfit", DATASET_ROOT=root, **overrides)
 
 
-def phase14_cli(tmp):
-    """The training CLI from the port's fixture; checks in the docstring of
-    this file. Returns (the dW kernel's launches, SyncBN's all-reduces a
-    step, the fixture's root)."""
+def kitti_cli_children(tmp, root):
+    """Phase 14's child, the training CLI from the port's fixture, then
+    phase 16's, EVAL_ONLY from its checkpoint."""
+    out = {"train": cli_child("--cli-rank", cli_overrides(root, os.path.join(tmp, "out"), CLI_STEPS))}
+    trained = cli_output(out["train"])
+    if trained is not None:
+        out["eval"] = cli_child("--eval-only", [
+            "+experiments=dd3d_kitti_dla34_overfit", "EVAL_ONLY=True",
+            f"MODEL.CKPT={os.path.join(trained['output_dir'], 'ckpt')}", "TEST.AUG.ENABLED=False",
+            "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0", f"DATASET_ROOT={root}",
+            f"OUTPUT_ROOT={os.path.join(tmp, 'out_eval')}"])
+    return out
+
+
+def phase14_cli(root, child):
+    """The training CLI from the port's fixture (kitti_cli_children); checks
+    in the docstring of this file. Returns (the dW kernel's launches,
+    SyncBN's all-reduces a step, the run's directory)."""
     from dd3d_tpu_torch.data.build import TrainDataLoader
     from dd3d_tpu_torch.data.catalog import register_datasets
-    from dd3d_tpu_torch.overfit_smoke import make_fixture
     from dd3d_tpu_torch.training.checkpoint import CheckpointManager
     from dd3d_tpu_torch.training.train_loop import close_iterator, train
 
-    root = make_fixture(os.path.join(tmp, "fixture"), n_images=8)
-    res = run_cli("--cli-rank", cli_overrides(root, os.path.join(tmp, "out"), CLI_STEPS))
+    res = cli_result("--cli-rank", child)
     run_dir = res["output_dir"]
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         all_rows = [json.loads(line) for line in f]
@@ -1704,7 +1756,7 @@ def phase14_cli(tmp):
     buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
     steps = CheckpointManager(os.path.join(run_dir, "ckpt")).steps()
     log(f"phase14 CLI: {len(res['shapes'])} steps of batch {BATCH} in {res['seconds']:.1f} s (process start, "
-        f"kernel build, fixture loader and model included); canvases {buckets}; dW kernel launches "
+        f"fixture loader and model included; beside the other children); canvases {buckets}; dW kernel launches "
         f"{res['dw_launches']}; SyncBN all-reduces {res['syncbn_forward_allreduces']} in forward passes "
         f"({res['syncbn_forward_allreduces'] // max(len(res['shapes']), 1)} a step, as many in backward); "
         f"checkpoints {steps}")
@@ -1739,7 +1791,7 @@ def phase14_cli(tmp):
     if state.step != CLI_STEPS + 2 or state.optimizer.count != CLI_STEPS + 2:
         raise AssertionError("phase14: train() did not resume at step 8 and take 2 more steps")
     log("phase14 ok")
-    return res["dw_launches"], res["syncbn_forward_allreduces"] // CLI_STEPS, root, run_dir
+    return res["dw_launches"], res["syncbn_forward_allreduces"] // CLI_STEPS, run_dir
 
 
 def loader_images_per_s(root, use_processes, batches=6):
@@ -1904,9 +1956,40 @@ def kernel_and_plain(model, cfg, loader, phase):
     return turns
 
 
-def phase16_eval(tmp, root, run_dir, device):
+def start_cli_children(tmp, root):
+    """Start the children of phases 14, 16, 17, 19, 24, 28, 31 and 32 at
+    once, each chain on a thread of this process. They read nothing of this
+    process but the built kernels and its fixture, and their kernels launch
+    in their own processes, so this process's launch counts are untouched;
+    meanwhile this process runs only phases that time nothing. Their checks
+    run later, in phase order. Returns what wait_cli_children takes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(8)
+    overfit = pool.submit(overfit_child, tmp, root)
+    jobs = {14: pool.submit(kitti_cli_children, tmp, root),
+            17: overfit,
+            19: pool.submit(vis_children, tmp, root, overfit),
+            24: pool.submit(v99_children, tmp),
+            28: pool.submit(nusc_children, tmp),
+            31: pool.submit(regnety_predict_children, tmp),
+            32: pool.submit(regnety_train_children, tmp)}
+    return pool, jobs, time.time()
+
+
+def wait_cli_children(started):
+    """{phase: its children} once every chain of start_cli_children is done."""
+    pool, jobs, t0 = started
+    out = {phase: job.result() for phase, job in jobs.items()}
+    pool.shutdown()
+    log(f"the CLI children of phases {', '.join(map(str, out))} ran at once in {time.time() - t0:.1f} s (phases "
+        "1-4, 6-8 and 10-12 beside them)")
+    return out
+
+
+def phase16_eval(root, run_dir, device, child):
     """EVAL_ONLY through the CLI (under torch.distributed.run) from phase
-    14's checkpoint, then inference_on_dataset in this process on the same
+    14's checkpoint (kitti_cli_children), then inference_on_dataset in this process on the same
     loader's batches through the NMS kernel and with the plain suppression:
     identical detections and results, at least one kernel launch a batch."""
     from dd3d_tpu_torch.data.build import build_test_dataloader
@@ -1923,9 +2006,7 @@ def phase16_eval(tmp, root, run_dir, device):
     loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
     n_images, n_batches = len(loader.sampler), len(loader)
 
-    res = run_cli("--eval-only", ["+experiments=dd3d_kitti_dla34_overfit", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}",
-                                  "TEST.AUG.ENABLED=False", "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0",
-                                  f"DATASET_ROOT={root}", f"OUTPUT_ROOT={os.path.join(tmp, 'out_eval')}"])
+    res = cli_result("--eval-only", child)
     out_dir = res["output_dir"]
     with open(os.path.join(out_dir, "kitti_predictions.json")) as f:
         n_predictions = len(json.load(f))
@@ -2005,18 +2086,21 @@ def phase18_eval_scale(tmp, overfit_dir, device, card):
             "r40_s": r40_s, "parts": parts, "nms_launches": launches, "n_images": n}
 
 
-def phase17_overfit(tmp, root, card):
-    """The overfit run: `python -m dd3d_tpu_torch.overfit_smoke --iters
+def overfit_child(tmp, root):
+    """Phase 17's child: `python -m dd3d_tpu_torch.overfit_smoke --iters
     OVERFIT_ITERS --n-images 8 --int8-ab` on the fixture with the stem dW on
-    its kernel: its AP, ms a step, the int8 arm's worst |dAP| and each
-    arm's kernel launches."""
+    its kernel. Returns (its CompletedProcess, seconds, its output dir)."""
     out_dir = os.path.join(tmp, "out_overfit")
-    cmd = [sys.executable, "-m", "dd3d_tpu_torch.overfit_smoke", "--iters", str(OVERFIT_ITERS), "--n-images", "8",
-           "--int8-ab", "--root", root, "--output-dir", out_dir, "TPU.PALLAS_STEM_DW=True", THREAD_LOADER]
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    seconds = time.time() - t0
+    return (*run_child(["-m", "dd3d_tpu_torch.overfit_smoke", "--iters", str(OVERFIT_ITERS), "--n-images", "8",
+                        "--int8-ab", "--root", root, "--output-dir", out_dir, "TPU.PALLAS_STEM_DW=True",
+                        THREAD_LOADER], 600), out_dir)
+
+
+def phase17_overfit(child, card):
+    """The overfit run (overfit_child): its AP, ms a step (beside the other
+    children of cli_children), the int8 arm's worst |dAP| and each arm's
+    kernel launches."""
+    proc, seconds, out_dir = child
     lines = proc.stdout.splitlines()
     for line in [ln for ln in lines if not ln.startswith("INT8 AB: kitti")] + proc.stderr.splitlines()[-6:]:
         log(f"  | {line[:220]}")
@@ -2039,7 +2123,8 @@ def phase17_overfit(tmp, root, card):
     ap3d, bev, dap = (value("OVERFIT RESULT: Car Moderate AP3D@0.5"), value("OVERFIT RESULT: Car Moderate BEV@0.5"),
                       value("INT8 AB RESULT: worst |dAP|"))
     log(f"phase17 overfit run on {card}: {OVERFIT_ITERS} steps of batch 4 at 384x1280 in {seconds:.1f} s "
-        f"(process start, loader, evaluations included); {ms_step:.2f} ms a step over the last window of 20 "
+        f"(process start, loader, evaluations included; beside the other CLI children of phases 16-32); "
+        f"{ms_step:.2f} ms a step over the last window of 20 "
         f"(steps {windows[-1]['step'] if windows else '-'}); Car Moderate AP3D@0.5 {ap3d:.2f}, BEV@0.5 {bev:.2f}; "
         f"int8 worst |dAP| {dap:.2f}; kernel launches {launches}")
     if not (np.isfinite(ap3d) and np.isfinite(bev) and np.isfinite(dap)):
@@ -2057,7 +2142,8 @@ def phase17_overfit(tmp, root, card):
 
 
 VIS_STEPS = 4  # phase 19's CLI run: steps of batch 8, the dataloader drawn at steps 2 and 4
-TTA_IMAGES = 32  # phase 20's frames (48 until PR 15): one chunk at dd3d_kitti_dla34's TEST.IMS_PER_BATCH = 80
+VIS_LOADER_IMAGES = 4  # phase 19's visualize_dataloader samples
+TTA_IMAGES = 16  # phase 20's frames (48 until PR 15, 32 until PR 16): one chunk at TEST.IMS_PER_BATCH = 80
 LARGEST_BUCKET = 160  # instances of the largest TTA bucket at that chunk of 80 frames, with flip
 TTA_CHECK_IMAGES = 8  # phase 20(c): int8 TTA through the kernels and through their plain versions
 KITTI_INTRINSICS = "721.5377,721.5377,609.5593,172.854"
@@ -2109,7 +2195,31 @@ def drawn_inside(drawn, undrawn, box, margin=3) -> bool:
     return r0 < r1 and c0 < c1 and bool((drawn[r0:r1, c0:c1] != undrawn[r0:r1, c0:c1]).any())
 
 
-def phase19_visualizers(tmp, root, overfit_dir, card):
+def vis_children(tmp, root, overfit):
+    """Phase 19's children: the training CLI under TPU.REMAT=full with the
+    drawings on, `visualize_dataloader`, and `predict --vis` from the overfit
+    run's checkpoint once `overfit` (overfit_child's future) is done."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        vis = pool.submit(cli_child, "--vis-rank", [
+            "+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}",
+            f"OUTPUT_ROOT={os.path.join(tmp, 'out_vis')}", "TPU.PALLAS_STEM_DW=True", f"SOLVER.MAX_ITER={VIS_STEPS}",
+            f"SOLVER.CHECKPOINT_PERIOD={VIS_STEPS}", "TEST.EVAL_PERIOD=0", f"VIS.DATALOADER_PERIOD={VIS_STEPS // 2}",
+            THREAD_LOADER, "TPU.REMAT=full"])
+        loader = pool.submit(run_child, [
+            "-m", "dd3d_tpu_torch.visualize_dataloader", "--experiment", "dd3d_kitti_dla34_overfit", "--num-images",
+            str(VIS_LOADER_IMAGES), "--output-dir", os.path.join(tmp, "loader_vis"), f"DATASET_ROOT={root}"])
+        overfit_dir = overfit.result()[2]
+        predict = run_child([
+            "-m", "dd3d_tpu_torch.predict", "--experiment", "dd3d_kitti_dla34", "--images",
+            os.path.join(root, "KITTI3D", "training", "image_2"), "--intrinsics", KITTI_INTRINSICS, "--ckpt",
+            os.path.join(overfit_dir, "ckpt"), "--out", os.path.join(tmp, "predict_vis.json"), "--vis",
+            os.path.join(tmp, "predict_vis"), "--score-thresh", "0.3"])
+        return {"vis": vis.result(), "loader": loader.result(), "predict": predict}
+
+
+def phase19_visualizers(tmp, root, card, children):
     """The visualizers on a machine without cv2: the training CLI with the
     experiment's own TEST.AUG and VIS (the dataloader period brought inside
     VIS_STEPS) draws the dataloader and, in its final test, the predictions;
@@ -2124,12 +2234,7 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
     from dd3d_tpu_torch.data.imageio import read_image_bgr
     from dd3d_tpu_torch.visualizers.draw import BEVImage
 
-    t0 = time.time()
-    res = run_cli("--vis-rank", ["+experiments=dd3d_kitti_dla34_overfit", f"DATASET_ROOT={root}",
-                                 f"OUTPUT_ROOT={os.path.join(tmp, 'out_vis')}", "TPU.PALLAS_STEM_DW=True",
-                                 f"SOLVER.MAX_ITER={VIS_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={VIS_STEPS}",
-                                 "TEST.EVAL_PERIOD=0", f"VIS.DATALOADER_PERIOD={VIS_STEPS // 2}", THREAD_LOADER,
-                                 "TPU.REMAT=full"])
+    res = cli_result("--vis-rank", children["vis"])
     run_dir = res["output_dir"]
     vis = os.path.join(run_dir, "visualization")
     files = sorted(os.listdir(vis))
@@ -2167,13 +2272,8 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
         f"{len(pred_pngs)} prediction drawings at {test_hw}; {CAR_AP3D} {tests[0][CAR_AP3D]:.4f}, tta/ "
         f"{tests[1]['tta/' + CAR_AP3D]:.4f}")
 
-    images = os.path.join(root, "KITTI3D", "training", "image_2")
     pred_dir, pred_json = os.path.join(tmp, "predict_vis"), os.path.join(tmp, "predict_vis.json")
-    cmd = [sys.executable, "-m", "dd3d_tpu_torch.predict", "--experiment", "dd3d_kitti_dla34", "--images", images,
-           "--intrinsics", KITTI_INTRINSICS, "--ckpt", os.path.join(overfit_dir, "ckpt"), "--out", pred_json,
-           "--vis", pred_dir, "--score-thresh", "0.3"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc, seconds = children["predict"]
     if proc.returncode != 0:
         raise AssertionError(f"phase19: predict --vis exited {proc.returncode}: {proc.stderr[-2000:]}")
     with open(pred_json) as f:
@@ -2191,15 +2291,12 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
             raise AssertionError(f"phase19: predict --vis {rec['image_id']}_bev.png is empty")
     if n_det == 0 or len(os.listdir(pred_dir)) != len(records) + sum(bool(r["quat"]) for r in records):
         raise AssertionError(f"phase19: predict --vis: {n_det} detections, files {sorted(os.listdir(pred_dir))}")
-    log(f"phase19 predict --vis: {len(records)} frames, {n_det} detections at score >= 0.3 from the overfit "
-        f"checkpoint, each frame drawn at its boxes, BEV images drawn")
+    log(f"phase19 predict --vis ({seconds:.1f} s): {len(records)} frames, {n_det} detections at score >= 0.3 from "
+        f"the overfit checkpoint, each frame drawn at its boxes, BEV images drawn")
 
     loader_dir = os.path.join(tmp, "loader_vis")
-    n_vis = 4
-    cmd = [sys.executable, "-m", "dd3d_tpu_torch.visualize_dataloader", "--experiment", "dd3d_kitti_dla34_overfit",
-           "--num-images", str(n_vis), "--output-dir", loader_dir, f"DATASET_ROOT={root}"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    n_vis = VIS_LOADER_IMAGES
+    proc, seconds = children["loader"]
     if proc.returncode != 0:
         raise AssertionError(f"phase19: visualize_dataloader exited {proc.returncode}: {proc.stderr[-2000:]}")
     loader = build_train_dataloader(cfg, batch_size=1, num_workers=1)
@@ -2222,7 +2319,7 @@ def phase19_visualizers(tmp, root, overfit_dir, card):
     if n_boxes == 0:
         raise AssertionError("phase19: visualize_dataloader drew no box")
     log(f"phase19 visualize_dataloader: {n_vis} samples x 2 visualizers, drawn at their {n_boxes} boxes "
-        f"({time.time() - t0:.1f} s for the phase) on {card}")
+        f"({seconds:.1f} s) on {card}")
     log("phase19 ok")
     return res
 
@@ -2437,8 +2534,9 @@ def phase20_int8_conv_largest_bucket(device, card):
     from dd3d_tpu_torch.ops.int8_conv import dequant_plain, int8_conv, int8_conv_acc_plain
 
     gen = torch.Generator().manual_seed(SEED + 20)
+    on_card = torch.Generator(device=device).manual_seed(SEED + 20)  # the two large inputs, drawn where they lie
     b = LARGEST_BUCKET
-    xq = torch.randint(-127, 128, (b, 80, 240, 256), generator=gen, dtype=torch.int8).to(device)
+    xq = torch.randint(-127, 128, (b, 80, 240, 256), generator=on_card, dtype=torch.int8, device=device)
     wq = torch.randint(-127, 128, (256, 3, 3, 256), generator=gen, dtype=torch.int8).to(device)
     scale = (torch.rand(256, generator=gen) * 1e-3 + 1e-5).to(device)
     bias = torch.randn(256, generator=gen).to(device)
@@ -2466,7 +2564,7 @@ def phase20_int8_conv_largest_bucket(device, card):
         f"{c_ms:.4f} ms, plain {p_ms:.2f} ms (CUDA events), bound {bnd:.4f} ms by {by} ({bnd / k_ms:.2f} of the "
         f"kernel's time)")
     del xq
-    x0 = torch.randint(-127, 128, (b, 640, 1920, 16), generator=gen, dtype=torch.int8).to(device)
+    x0 = torch.randint(-127, 128, (b, 640, 1920, 16), generator=on_card, dtype=torch.int8, device=device)
     w0 = torch.randint(-127, 128, (16, 3, 3, 16), generator=gen, dtype=torch.int8).to(device)
     s0 = (torch.rand(16, generator=gen) * 1e-3 + 1e-5).to(device)
     before = int8_conv.launches
@@ -2641,7 +2739,43 @@ def phase23_v99_train(device, card):
     return med, peak
 
 
-def phase24_v99_clis(tmp, device, card):
+def v99_children(tmp):
+    """Phase 24's children on a fixture of its own: the training CLI, then
+    EVAL_ONLY, `predict` and `calibrate_int8` from its checkpoint at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dd3d_tpu_torch.data.imageio import write_png
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+
+    root = make_fixture(os.path.join(tmp, "v99_fixture"), n_images=8)
+    frames = os.path.join(tmp, "v99_frames")
+    os.makedirs(frames, exist_ok=True)
+    write_png(os.path.join(frames, "000000.png"),
+              np.random.RandomState(SEED + 24).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
+    out = {"root": root, "frames": frames}
+    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
+    out["train"] = cli_child("--cli-rank", [
+        f"+experiments={V99}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'v99_out')}", f"SOLVER.MAX_ITER={V99_CLI_STEPS}",
+        f"SOLVER.CHECKPOINT_PERIOD={V99_CLI_STEPS}", "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False",
+        "TPU.PALLAS_STEM_DW=True", THREAD_LOADER])
+    trained = cli_output(out["train"])
+    if trained is None:
+        return out
+    ckpt = os.path.join(trained["output_dir"], "ckpt")
+    common = ["--experiment", V99, "--images", frames, "--intrinsics", KITTI_INTRINSICS, "--ckpt", ckpt]
+    with ThreadPoolExecutor(3) as pool:
+        ev = pool.submit(cli_child, "--eval-only", [
+            f"+experiments={V99}", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}", *data[:2],
+            "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0", f"OUTPUT_ROOT={os.path.join(tmp, 'v99_eval')}"])
+        predict = pool.submit(run_child, ["-m", "dd3d_tpu_torch.predict", *common, "--out",
+                                          os.path.join(tmp, "v99_predictions.json")])
+        calibrate = pool.submit(run_child, ["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out",
+                                            os.path.join(tmp, "v99_scales.json")])
+        out.update(eval=ev.result(), predict=predict.result(), calibrate_int8=calibrate.result())
+    return out
+
+
+def phase24_v99_clis(tmp, device, card, children):
     """The CLIs under dd3d_kitti_v99 on the port's fixture (8 frames): the
     training CLI for V99_CLI_STEPS steps of batch 8 (its model's identity
     blocks damped as phase 23's; the resize buckets,
@@ -2649,22 +2783,17 @@ def phase24_v99_clis(tmp, device, card):
     from its checkpoint, then inference_on_dataset through the NMS kernel
     and with the plain suppression (identical detections and results);
     `predict` on a 375x1200 frame, whose canvas is 384x1280 as in JAX; and
-    `calibrate_int8`. Returns (NMS launches of EVAL_ONLY)."""
+    `calibrate_int8`; the children are v99_children's. Returns (NMS launches
+    of EVAL_ONLY)."""
     from dd3d_tpu_torch.data.build import build_test_dataloader
     from dd3d_tpu_torch.data.catalog import register_datasets
-    from dd3d_tpu_torch.data.imageio import write_png
     from dd3d_tpu_torch.models import build_model
-    from dd3d_tpu_torch.overfit_smoke import make_fixture
     from dd3d_tpu_torch.predict import iter_batches, read_image_dicts
     from dd3d_tpu_torch.training.checkpoint import CheckpointManager, load_weights
 
     t0 = time.time()
-    root = make_fixture(os.path.join(tmp, "v99_fixture"), n_images=8)
-    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
-    res = run_cli("--cli-rank", [f"+experiments={V99}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'v99_out')}",
-                                 f"SOLVER.MAX_ITER={V99_CLI_STEPS}", f"SOLVER.CHECKPOINT_PERIOD={V99_CLI_STEPS}",
-                                 "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", "TPU.PALLAS_STEM_DW=True",
-                                 THREAD_LOADER])
+    root, frames = children["root"], children["frames"]
+    res = cli_result("--cli-rank", children["train"])
     ckpt = os.path.join(res["output_dir"], "ckpt")
     buckets = sorted({tuple(s[1:3]) for s in res["shapes"]})
     log(f"phase24 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s (process start and "
@@ -2677,9 +2806,7 @@ def phase24_v99_clis(tmp, device, card):
 
     overrides = {"DATASET_ROOT": root, "DATASETS.TEST.NAME": "kitti_3d_train",
                  "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH": 0.0}
-    ev = run_cli("--eval-only", [f"+experiments={V99}", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}",
-                                 *[f"{k}={v}" for k, v in overrides.items()],
-                                 f"OUTPUT_ROOT={os.path.join(tmp, 'v99_eval')}"])
+    ev = cli_result("--eval-only", children["eval"])
     with open(os.path.join(ev["output_dir"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     log(f"phase24 EVAL_ONLY CLI ({ev['seconds']:.1f} s): NMS kernel launches {ev['nms_launches']}, {CAR_AP3D} = "
@@ -2693,24 +2820,17 @@ def phase24_v99_clis(tmp, device, card):
     load_weights(model, ckpt)
     kernel_and_plain(model.to(device), cfg, loader, "phase24")
 
-    frames = os.path.join(tmp, "v99_frames")
-    os.makedirs(frames, exist_ok=True)
-    write_png(os.path.join(frames, "000000.png"),
-              np.random.RandomState(SEED + 24).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
     (_, batch, _), = iter_batches(cfg, read_image_dicts([os.path.join(frames, "000000.png")],
                                                         np.asarray(KITTI_K, np.float64)), 1)
     if batch["image"].shape != (1, 384, 1280, 3):
         raise AssertionError(f"phase24: a 375x1200 frame gives a {batch['image'].shape} batch, not 384x1280")
-    common = ["--experiment", V99, "--images", frames, "--intrinsics", KITTI_INTRINSICS, "--ckpt", ckpt]
     out = os.path.join(tmp, "v99_predictions.json")
     scales = os.path.join(tmp, "v99_scales.json")
-    for name, cmd in (("predict", ["-m", "dd3d_tpu_torch.predict", *common, "--out", out]),
-                      ("calibrate_int8", ["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out", scales])):
-        t = time.time()
-        proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=300)
+    for name in ("predict", "calibrate_int8"):
+        proc, seconds = children[name]
         if proc.returncode != 0:
             raise AssertionError(f"phase24 {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
-        log(f"phase24 {name} CLI ({time.time() - t:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
+        log(f"phase24 {name} CLI ({seconds:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
     with open(out) as f:
         records = json.load(f)
     with open(scales) as f:
@@ -2888,7 +3008,25 @@ def phase25_nusc_serve(device, card):
             "peak_gib": peak, "scan": scan_t, "scan_err": scan_err}
 
 
-def phase27_nusc_eval(tmp, device, card):
+def nusc_children(tmp):
+    """Phase 28's child on the 6-camera fixture (written here, read by
+    phase 27 too): the training CLI."""
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, make_nusc_fixture
+
+    t0 = time.time()
+    root = make_nusc_fixture(os.path.join(tmp, "nusc_fixture"), n_samples=NUSC_SAMPLES, height=NUSC_HW[0],
+                             width=NUSC_HW[1])
+    write_s = time.time() - t0
+    return {"root": root, "write_s": write_s, "train": cli_child("--cli-rank", [
+        f"+experiments={NUSC}", f"DATASET_ROOT={root}", f"DATASETS.TRAIN.NAME={NUSC_FIXTURE}",
+        f"DATASETS.TEST.NAME={NUSC_FIXTURE}", f"OUTPUT_ROOT={os.path.join(tmp, 'nusc_train')}",
+        f"SOLVER.MAX_ITER={NUSC_TRAIN_STEPS}", f"SOLVER.IMS_PER_BATCH={NUSC_TRAIN_BATCH}",
+        f"SOLVER.CHECKPOINT_PERIOD={NUSC_TRAIN_STEPS}", f"INPUT.RESIZE.MIN_SIZE_TRAIN=[{NUSC_TRAIN_SIZE}]",
+        "TPU.PALLAS_STEM_DW=True", "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False",
+        THREAD_LOADER], timeout_s=900)}
+
+
+def phase27_nusc_eval(tmp, device, card, children):
     """The CLI's EVAL_ONLY on the 6-camera fixture (NUSC_SAMPLES samples at
     900x1600, random weights of the CLI's own build, PRE_NMS_THRESH 0),
     in this process through `train.main`: the plain test (the test loader's
@@ -2899,20 +3037,19 @@ def phase27_nusc_eval(tmp, device, card):
     metrics.jsonl, global translations in both submissions equal to the
     fixture's pose plus a camera-frame translation in front of the camera,
     the launch counts of each pass, the BEV NMS over the merge run.
-    Returns (fixture root, plain-pass launches)."""
+    The fixture is nusc_children's. Returns (plain-pass launches)."""
     import shutil
 
     import dd3d_tpu_torch.evaluators as evaluators_mod
     import dd3d_tpu_torch.train as train_mod
     from dd3d_tpu_torch.models import tta as tta_mod
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
-    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, NUSC_FIXTURE_TVEC, make_nusc_fixture
+    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE, NUSC_FIXTURE_TVEC
 
     t0 = time.time()
-    root = make_nusc_fixture(os.path.join(tmp, "nusc_fixture"), n_samples=NUSC_SAMPLES, height=NUSC_HW[0],
-                             width=NUSC_HW[1])
+    root = children["root"]
     log(f"phase27 fixture: {NUSC_SAMPLES} samples of 6 cameras, {6 * NUSC_SAMPLES} PNGs at {NUSC_HW[0]}x"
-        f"{NUSC_HW[1]}, written in {time.time() - t0:.1f} s")
+        f"{NUSC_HW[1]}, written in {children['write_s']:.1f} s (beside the other children)")
     passes, timed, ttas, bev_merges = [], [], [], []
     real_test, real_get_evaluator = train_mod.do_test, evaluators_mod.get_evaluator
     real_tta, real_bev = tta_mod.NuscenesDD3DWithTTA, tta_mod.greedy_rotated_nms_np
@@ -2997,26 +3134,20 @@ def phase27_nusc_eval(tmp, device, card):
     if tta_pass["nms"] or tta_pass["scan"] or "aggregate" not in tta.stats["seconds"]:
         raise AssertionError("phase27: the TTA variants ran an NMS kernel, or the host aggregation did not run")
     log(f"phase27 ok ({time.time() - t0:.2f} s)")
-    return root, {"greedy_nms": plain["nms"], "greedy_nms_scan": plain["scan"]}
+    return {"greedy_nms": plain["nms"], "greedy_nms_scan": plain["scan"]}
 
 
-def phase28_nusc_train(tmp, root, card):
+def phase28_nusc_train(card, children):
     """The training CLI, `+experiments=dd3d_nusc_dla34` on the fixture, under
     torch.distributed.run: NUSC_TRAIN_STEPS steps of NUSC_TRAIN_BATCH at the
     NUSC_TRAIN_SIZE resize bucket, TPU.PALLAS_STEM_DW on, the final test
     without TTA (phase 27 runs it). Checks: finite losses every step,
     loss_attr and loss_speed finite and non-zero at the logged step, the dW
-    kernel launched twice a step. Returns (dW launches, ms a step)."""
-    from dd3d_tpu_torch.overfit_smoke import NUSC_FIXTURE
-
+    kernel launched twice a step. The child is nusc_children's, and its step
+    times were taken beside the other children. Returns (dW launches, ms a
+    step)."""
     t0 = time.time()
-    res = run_cli("--cli-rank", [f"+experiments={NUSC}", f"DATASET_ROOT={root}", f"DATASETS.TRAIN.NAME={NUSC_FIXTURE}",
-                                 f"DATASETS.TEST.NAME={NUSC_FIXTURE}", f"OUTPUT_ROOT={os.path.join(tmp, 'nusc_train')}",
-                                 f"SOLVER.MAX_ITER={NUSC_TRAIN_STEPS}", f"SOLVER.IMS_PER_BATCH={NUSC_TRAIN_BATCH}",
-                                 f"SOLVER.CHECKPOINT_PERIOD={NUSC_TRAIN_STEPS}",
-                                 f"INPUT.RESIZE.MIN_SIZE_TRAIN=[{NUSC_TRAIN_SIZE}]", "TPU.PALLAS_STEM_DW=True",
-                                 "TEST.EVAL_PERIOD=0", "TEST.AUG.ENABLED=False", "VIS.DATALOADER_ENABLED=False",
-                                 THREAD_LOADER], timeout_s=900)
+    res = cli_result("--cli-rank", children["train"])
     with open(os.path.join(res["output_dir"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     train_row = [r for r in rows if "total_loss" in r][-1]
@@ -3045,6 +3176,35 @@ SCAN_LARGE = (2, 4096)
 REGNETY_TRAIN_STEPS = 4
 DENSE_DEPTH_STEPS = 4
 DENSE_DEPTH_DENSITY = 0.05  # share of pixels with a GT depth, near a projected 64-beam scan's at 384x1280
+
+
+def nms_large_bounds(boxes, valid, thr):
+    """Bounds (ms, bound_by) of the NMS past N = 2048 on these inputs: the
+    function (nms_bound: the greedy walk's IoU tests; boxes and valid read,
+    keep written), and each of its two kernels on its own inputs and
+    outputs (csrc/nms.cu): the mask kernel tests every pair of the upper
+    triangle, reads the boxes and writes the scratch words on or right of
+    the diagonal; the block scan reads those words and valid, writes keep
+    (bytes; its ORs are no f32 work)."""
+    b, n = valid.shape
+    words = -(-n // 64)
+    scratch = 8 * b * sum(min(64, n - 64 * r) * (words - r) for r in range(words))
+    pairs = 0  # nms_bound's count, walked an image at a time in numpy (f32, as the kernel rounds)
+    for bx, alive in zip(boxes.cpu().numpy(), valid.cpu().numpy().astype(bool)):
+        x1, y1, x2, y2 = bx.T
+        area = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+        for k in range(n - 1):
+            if not alive[k]:
+                continue
+            j = np.flatnonzero(alive[k + 1:]) + k + 1
+            pairs += len(j)
+            inter = (np.maximum(np.minimum(x2[k], x2[j]) - np.maximum(x1[k], x1[j]), 0)
+                     * np.maximum(np.minimum(y2[k], y2[j]) - np.maximum(y1[k], y1[j]), 0))
+            alive[j[inter / np.maximum(area[k] + area[j] - inter, np.float32(1e-9)) > thr]] = False
+    fn = bound_ms(boxes.numel() * 4 + valid.numel() * 2, NMS_OPS_PER_PAIR * pairs + NMS_OPS_PER_BOX * b * n, "f32")
+    ops = NMS_OPS_PER_PAIR * b * n * (n - 1) // 2 + NMS_OPS_PER_BOX * b * n
+    return {"function": fn, "mask": bound_ms(boxes.numel() * 4 + scratch, ops, "f32"),
+            "block scan": bound_ms(scratch + 2 * valid.numel(), 0, "f32")}
 
 
 def phase29_nms_large(device, images, intrinsics, card):
@@ -3081,10 +3241,12 @@ def phase29_nms_large(device, images, intrinsics, card):
         k_ms = sum(by_kernel.values())
         p_ms = cuda_ms(lambda: greedy_nms_plain(bx, vd, 0.5), 2)
         times[b, n] = (k_ms, p_ms)
+        bounds = nms_large_bounds(bx, vd, 0.5)
         log(f"phase29 nms (B, N) = ({b}, {n}): kept {int(keep_k.sum())}/{int(vd.sum())}, equal to the plain version "
             f"(tolerance 0); kernels' device time {k_ms:.4f} ms a call (profiler: " + ", ".join(
                 f"{k.split('::')[-1].split('(')[0]} {v:.4f}" for k, v in sorted(by_kernel.items()))
-            + f"), plain {p_ms:.3f} ms (CUDA events)")
+            + f"), plain {p_ms:.3f} ms (CUDA events); bounds: " + ", ".join(
+                f"{k} {v[0]:.5f} ms by {v[1]}" for k, v in bounds.items()))
     iou, valid = card_tests().scan_case(np.random.RandomState(SEED + 29), *SCAN_LARGE)
     it, vt = torch.from_numpy(iou).to(device), torch.from_numpy(valid).to(device)
     keep_k, keep_p = greedy_nms_scan(it, vt, 0.3), greedy_suppress(it, vt, 0.3)
@@ -3292,20 +3454,46 @@ def grouped_routes_forward_ms(infer, images, intrinsics):
     return times, on_direct.launches_by_route
 
 
-def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card):
+def regnety_predict_children(tmp):
+    """Phase 31's children on a 375x1200 frame: `predict` in bf16 beside
+    `calibrate_int8` and then `predict` in static int8 from its scales."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dd3d_tpu_torch.data.imageio import write_png
+
+    frames = os.path.join(tmp, "regnety_frames")
+    os.makedirs(frames, exist_ok=True)
+    write_png(os.path.join(frames, "000000.png"),
+              np.random.RandomState(SEED + 31).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
+    common = ["--experiment", REGNETY, "--images", frames, "--intrinsics", KITTI_INTRINSICS]
+    scales = os.path.join(tmp, "regnety_scales.json")
+    with ThreadPoolExecutor(1) as pool:
+        bf16 = pool.submit(run_child, ["-m", "dd3d_tpu_torch.predict", *common, "--out",
+                                       os.path.join(tmp, "regnety_bf16.json")])
+        out = {"calibrate_int8": run_child(["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out", scales,
+                                            "TPU.QUANT_MIN_CH=0", "TPU.QUANT_UNFOLDED=True"])}
+        if out["calibrate_int8"][0].returncode == 0:
+            out["predict int8"] = run_child([
+                "-m", "dd3d_tpu_torch.predict", *common, "--out", os.path.join(tmp, "regnety_int8.json"),
+                "TPU.QUANT_INT8=True", "TPU.QUANT_MIN_CH=32", "TPU.QUANT_UNFOLDED=True",
+                f"TPU.QUANT_SCALES_PATH={scales}"])
+        out["predict bf16"] = bf16.result()
+    return out
+
+
+def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card, children):
     """Static int8 of dd3d_kitti_regnety_006_bifpn in bench.py's settings:
     phase 7 at every distinct ungrouped int8 conv site, the grouped kernel at
     every grouped site (phase31_grouped_sites), phase 8's path checks with
     scales from 2 batches (launches of all four kernels, no scale miss,
     kernel and plain int8 detections identical, drift against bf16), int8
     against bf16 in turns, the int8 batch's device time with the grouped
-    convs on `direct` and on their own routes in turns; then the CLIs on a
-    375x1200 frame: `predict` in
-    bf16, `calibrate_int8`, and `predict` in static int8 from its scales.
+    convs on `direct` and on their own routes in turns; then the CLIs
+    (regnety_predict_children) on a 375x1200 frame: `predict` in bf16,
+    `calibrate_int8`, and `predict` in static int8 from its scales.
     Returns (launches by kernel, max error of the ungrouped sites, of the
     grouped ones, the grouped kernel's numbers at its largest shape, images/s
     {int8, bf16}, the grouped sums)."""
-    from dd3d_tpu_torch.data.imageio import write_png
     from dd3d_tpu_torch.models.postprocess import get_inference_fn
 
     t0 = time.time()
@@ -3336,27 +3524,15 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card)
         f"route {forced}), on its own route {fwd['own'][0]:.3f} / {fwd['own'][1]:.3f} ms")
     launches["fusion"] = fusion_ab(model, cfg8, images, intrinsics, "phase31", card)
 
-    frames = os.path.join(tmp, "regnety_frames")
-    os.makedirs(frames, exist_ok=True)
-    write_png(os.path.join(frames, "000000.png"),
-              np.random.RandomState(SEED + 31).randint(0, 256, (375, 1200, 3)).astype(np.uint8))
-    common = ["--experiment", REGNETY, "--images", frames, "--intrinsics", KITTI_INTRINSICS]
     scales = os.path.join(tmp, "regnety_scales.json")
     outs = {name: os.path.join(tmp, f"regnety_{name}.json") for name in ("bf16", "int8")}
-    int8_args = ["TPU.QUANT_INT8=True", "TPU.QUANT_MIN_CH=32", "TPU.QUANT_UNFOLDED=True",
-                 f"TPU.QUANT_SCALES_PATH={scales}"]
-    for name, cmd in (("predict bf16", ["-m", "dd3d_tpu_torch.predict", *common, "--out", outs["bf16"]]),
-                      ("calibrate_int8", ["-m", "dd3d_tpu_torch.calibrate_int8", *common, "--out", scales,
-                                          "TPU.QUANT_MIN_CH=0", "TPU.QUANT_UNFOLDED=True"]),
-                      ("predict int8", ["-m", "dd3d_tpu_torch.predict", *common, "--out", outs["int8"],
-                                        *int8_args])):
-        t = time.time()
-        proc = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=300)
+    for name in ("predict bf16", "calibrate_int8", "predict int8"):
+        proc, seconds = children[name]
         if proc.returncode != 0:
             raise AssertionError(f"phase31 {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
         if "no calibrated scale" in proc.stderr:
             raise AssertionError(f"phase31 {name}: a static scale missed: {proc.stderr[-1000:]}")
-        log(f"phase31 {name} CLI ({time.time() - t:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
+        log(f"phase31 {name} CLI ({seconds:.1f} s): " + proc.stdout.strip().splitlines()[-1][:200])
     with open(scales) as f:
         keys = json.load(f)
     for key in ("backbone/bottom_up/s1_b0/b/conv", "backbone/cell2/p7_out_conv/dw"):
@@ -3412,15 +3588,34 @@ def timed_train_steps(cfg, model, batches, steps, device, phase):
             sum(e.count for e in kernels) / len(batches))
 
 
-def phase32_regnety_train(tmp, device, card):
+def regnety_train_children(tmp):
+    """Phase 32's children on a fixture of its own: the training CLI for 2
+    steps, then EVAL_ONLY from its checkpoint."""
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+
+    root = make_fixture(os.path.join(tmp, "regnety_fixture"), n_images=8)
+    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
+    out = {"train": cli_child("--cli-rank", [
+        f"+experiments={REGNETY}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'rg_out')}", "SOLVER.MAX_ITER=2",
+        "SOLVER.CHECKPOINT_PERIOD=2", "TEST.EVAL_PERIOD=0", "VIS.DATALOADER_ENABLED=False", "TEST.AUG.ENABLED=False",
+        THREAD_LOADER])}
+    trained = cli_output(out["train"])
+    if trained is not None:
+        out["eval"] = cli_child("--eval-only", [
+            f"+experiments={REGNETY}", "EVAL_ONLY=True", f"MODEL.CKPT={os.path.join(trained['output_dir'], 'ckpt')}",
+            *data[:2], "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0", "TEST.AUG.ENABLED=False",
+            f"OUTPUT_ROOT={os.path.join(tmp, 'rg_eval')}"])
+    return out
+
+
+def phase32_regnety_train(device, card, children):
     """The bf16 train step of dd3d_kitti_regnety_006_bifpn at batch 8,
     384x1280, on seeded synthetic batches (He-initialized convs, seeded norm
     statistics): finite losses, ms a step, peak memory, the profiler's
     launches and busy share; then the training CLI for 2 steps on the port's
     8-frame fixture and EVAL_ONLY from its checkpoint (the KITTI-3D and
-    COCO-2D evaluators). Returns (ms a step, peak GiB, NMS launches of
-    EVAL_ONLY)."""
-    from dd3d_tpu_torch.overfit_smoke import make_fixture
+    COCO-2D evaluators; regnety_train_children). Returns (ms a step, peak
+    GiB, NMS launches of EVAL_ONLY)."""
     from dd3d_tpu_torch.training.train_loop import to_device
 
     t0 = time.time()
@@ -3436,19 +3631,12 @@ def phase32_regnety_train(tmp, device, card):
     del batches
     torch.cuda.empty_cache()
 
-    root = make_fixture(os.path.join(tmp, "regnety_fixture"), n_images=8)
-    data = [f"DATASET_ROOT={root}", "DATASETS.TEST.NAME=kitti_3d_train", "SOLVER.IMS_PER_BATCH=8"]
-    res = run_cli("--cli-rank", [f"+experiments={REGNETY}", *data, f"OUTPUT_ROOT={os.path.join(tmp, 'rg_out')}",
-                                 "SOLVER.MAX_ITER=2", "SOLVER.CHECKPOINT_PERIOD=2", "TEST.EVAL_PERIOD=0",
-                                 "VIS.DATALOADER_ENABLED=False", "TEST.AUG.ENABLED=False", THREAD_LOADER])
-    ckpt = os.path.join(res["output_dir"], "ckpt")
+    res = cli_result("--cli-rank", children["train"])
     log(f"phase32 train CLI: {len(res['shapes'])} steps of batch 8 in {res['seconds']:.1f} s, losses "
         + ", ".join(f"{v:.3f}" for v in res["losses"]))
     if len(res["losses"]) != 2 or not np.all(np.isfinite(res["losses"])):
         raise AssertionError("phase32: the training CLI did not take 2 finite steps")
-    ev = run_cli("--eval-only", [f"+experiments={REGNETY}", "EVAL_ONLY=True", f"MODEL.CKPT={ckpt}", *data[:2],
-                                 "DD3D.FCOS2D.INFERENCE.PRE_NMS_THRESH=0.0", "TEST.AUG.ENABLED=False",
-                                 f"OUTPUT_ROOT={os.path.join(tmp, 'rg_eval')}"])
+    ev = cli_result("--eval-only", children["eval"])
     with open(os.path.join(ev["output_dir"], "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     coco = [k for k in rows[-1] if "bbox/AP" in k]
@@ -3990,7 +4178,7 @@ def phase41_head_options(device, images, intrinsics, card):
 
 
 
-# --- JPEG frames and TPU.REMAT (phases 42-43) --------------------------------
+# --- JPEG frames, TPU.REMAT and the new image kinds (phases 42-44) ------------
 
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
 JPEG_FRAME = "frame_900x1600.jpg"  # a nuScenes camera's size, 4:2:0 at quality 90
@@ -4126,6 +4314,130 @@ def phase42_jpeg(tmp, device, card):
     torch.cuda.empty_cache()
     log(f"phase42 ok ({time.time() - t0:.2f} s)")
     return {"frame_ms": frame_ms, "loader_ips": loader_ips, "launches": launches}
+
+
+PNG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "png")
+# phase 44's frames, 375x1242 each, one of each kind past 8-bit RGB PNGs and
+# Huffman JPEGs, in the order of the fixture's 8 frames
+NEW_KIND_FRAMES = ((PNG_DIR, "frame_gama.png"), (PNG_DIR, "frame_palette_adam7.png"), (PNG_DIR, "frame_adam7.png"),
+                   (PNG_DIR, "frame_16bit.png"), (JPEG_DIR, "frame_arith.jpg"), (JPEG_DIR, "frame_smoothed.jpg"),
+                   (JPEG_DIR, "frame_cut_mid_segment.jpg"), (JPEG_DIR, "frame_cmyk.jpg"))
+NEW_KIND_DECODE_REPS = 10
+
+
+def new_kind_fixtures(tmp):
+    """Two KITTI-format fixtures of 8 frames with the same labels and calib
+    (make_fixture's): `kinds`, whose image_2 files hold the bytes of
+    NEW_KIND_FRAMES (the reader tells formats apart by their magic bytes,
+    not by the file's name), and `plain`, the same pixels as the port
+    decodes them, written as 8-bit RGB PNGs with write_png."""
+    from dd3d_tpu_torch.data.imageio import decode_bgr, write_png
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+
+    roots = {}
+    for kind in ("kinds", "plain"):
+        roots[kind] = make_fixture(os.path.join(tmp, f"new_kinds_{kind}"), n_images=len(NEW_KIND_FRAMES))
+        image_dir = os.path.join(roots[kind], "KITTI3D", "training", "image_2")
+        for i, (folder, name) in enumerate(NEW_KIND_FRAMES):
+            with open(os.path.join(folder, name), "rb") as f:
+                data = f.read()
+            path = os.path.join(image_dir, f"{i:06d}.png")
+            if kind == "kinds":
+                with open(path, "wb") as f:
+                    f.write(data)
+            else:
+                write_png(path, decode_bgr(data, name))
+    return roots
+
+
+def phase44_new_kinds(tmp, device, card, baseline_jpeg_ms):
+    """The image kinds past 8-bit RGB PNGs and Huffman JPEGs (the host's own
+    decoders in csrc/imageio.cpp and data/imageio.py; this machine has no
+    cv2, libpng or libjpeg): every fixture of tests/data/png and
+    tests/data/jpeg decodes to the SHA-256 of the JAX package's
+    read_image_bgr; ms a frame on one host thread of each 375x1242 frame
+    beside phase 42's baseline JPEG; dd3d_kitti_dla34's test loader serves
+    one bf16 batch of 8 at 384x1280 from a fixture whose frames are the new
+    kinds (gAMA, palette + Adam7, Adam7, 16-bit PNGs; arithmetic-coded,
+    smoothed progressive, cut mid-segment and CMYK JPEGs) and from the same
+    pixels as plain PNGs, in turns: the same canvases and identical
+    detections, through the NMS kernel (launched) and its plain version
+    (identical). Returns the timings and the serving's launches."""
+    import hashlib
+
+    from dd3d_tpu_torch.data.build import build_test_dataloader
+    from dd3d_tpu_torch.data.catalog import register_datasets
+    from dd3d_tpu_torch.data.imageio import decode_bgr, read_image_bgr
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    from dd3d_tpu_torch.overfit_smoke import overfit_cfg
+
+    t0 = time.time()
+    checked = []
+    for folder in (PNG_DIR, JPEG_DIR):
+        with open(os.path.join(folder, "digests.json")) as f:
+            digests = json.load(f)
+        for name, want in sorted(digests.items()):
+            img = read_image_bgr(os.path.join(folder, name))
+            got = hashlib.sha256(img.tobytes()).hexdigest()
+            if list(img.shape) != want["shape"] or got != want["sha256"]:
+                raise AssertionError(f"phase44: {name} decodes to {img.shape} {got}, not {want}")
+            checked.append(name)
+    log(f"phase44 the {len(checked)} PNG and JPEG fixtures decode to the SHA-256 of the JAX package's "
+        f"read_image_bgr: {', '.join(checked)}")
+    frame_ms = {}
+    for folder, name in NEW_KIND_FRAMES:
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(NEW_KIND_DECODE_REPS):
+            t = time.perf_counter()
+            decode_bgr(data, name)
+            times.append((time.perf_counter() - t) * 1e3)
+        frame_ms[name] = float(np.median(times))
+    log(f"phase44 timing on {card} (host): ms a 375x1242 frame on one thread (median of {NEW_KIND_DECODE_REPS}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items())
+        + f"; phase 42's baseline 900x1600 JPEG {baseline_jpeg_ms:.3f}; {os.cpu_count()} host cores")
+
+    roots = new_kind_fixtures(tmp)
+    batches = {}
+    for kind, root in roots.items():
+        cfg = overfit_cfg(root, 1)
+        cfg.TEST.IMS_PER_BATCH = len(NEW_KIND_FRAMES)
+        register_datasets(cfg)
+        loader = build_test_dataloader(cfg, dataset_name=cfg.DATASETS.TEST.NAME)
+        batches[kind] = [b for b, _meta in loader]
+    (bk,), (bp,) = batches["kinds"], batches["plain"]
+    if bk["image"].shape[1:3] != (384, 1280) or bk["image"].tobytes() != bp["image"].tobytes():
+        raise AssertionError(f"phase44: the new kinds' batch {tuple(bk['image'].shape)} is not the plain PNGs' "
+                             "384x1280 canvases")
+    model = build(cfg, device)
+    dets = {}
+    for turn, b, suppress in (("plain", bp, None), ("plain suppression", bk, greedy_nms_plain), ("kinds", bk, None)):
+        args = [torch.from_numpy(np.asarray(b[k])).to(device) for k in ("image", "intrinsics")]
+        if turn == "kinds":
+            zero_launches()
+        dets[turn] = get_inference_fn(model, cfg, suppress=suppress)(*args)
+        torch.cuda.synchronize()
+        if turn == "kinds":
+            launches = {"greedy_nms": greedy_nms.launches}
+    for other in ("plain", "plain suppression"):
+        for k, v in dets["kinds"].items():
+            if not torch.equal(v, dets[other][k]):
+                raise AssertionError(f"phase44: {k} of the new kinds' batch differs from the {other} turn's")
+    for k, v in dets["kinds"].items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"phase44: {k} is not finite")
+    kept = int(dets["kinds"]["valid"].sum())
+    log(f"phase44 dd3d_kitti_dla34 {cfg.TPU.COMPUTE_DTYPE} batch of {len(NEW_KIND_FRAMES)} at 384x1280 from the "
+        f"new kinds and from plain PNGs of the same pixels: identical detections ({kept} kept), and identical with "
+        f"the plain suppression; launches on the new kinds' path {launches}")
+    if kept == 0 or launches != {"greedy_nms": 1}:
+        raise AssertionError(f"phase44: {kept} detections, launches {launches} (want 1 NMS)")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase44 ok ({time.time() - t0:.2f} s)")
+    return {"frame_ms": frame_ms, "launches": launches}
 
 
 def remat_run(cfg, policy, batches, device):
@@ -4268,6 +4580,11 @@ def main():
     build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "imageio.cpp",
                     "kitti_eval.cpp")  # one compiler each
     log(f"kernels built in {time.time() - t0:.2f} s")
+    from dd3d_tpu_torch.overfit_smoke import make_fixture
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    root = make_fixture(os.path.join(tmp_dir.name, "fixture"), n_images=8)
+    started = start_cli_children(tmp_dir.name, root)  # phases 5, 9 and 13 time after them
 
     nms_err, random_nms = phase1_kernel(device)
     torch.cuda.synchronize()
@@ -4281,9 +4598,6 @@ def main():
     torch.cuda.synchronize()
     phase4_fp32(get_experiment_cfg("dd3d_kitti_dla34"), device)
     torch.cuda.synchronize()
-    imgs_per_s, nms_t = phase5_timing(cfg, model, images, intrinsics,
-                                      {"random boxes": random_nms, "serving inputs": serving_nms})
-    torch.cuda.synchronize()
 
     quant_err, quant_case = phase6_quantize(device)
     torch.cuda.synchronize()
@@ -4291,32 +4605,37 @@ def main():
     torch.cuda.synchronize()
     cfg8, launches = phase8_int8_path(cfg, model, images, intrinsics, sites)
     torch.cuda.synchronize()
-    serving, kernel_ms = phase9_int8_timing(cfg8, cfg, model, images, intrinsics, quant_case, conv_case)
-    int8_conv_sites_timing(conv_cases, cfg8.TPU.QUANT_MIN_CH)
-    del conv_cases
-    fusion = {"DLA-34": fusion_ab(model, cfg8, images, intrinsics, "phase9", card)}
-    standalone = standalone_quantize_timing(model, cfg8, images, intrinsics, "phase9", card)
-    torch.cuda.synchronize()
-
     dw_err, stem_cases = phase10_conv_dw(device)
     torch.cuda.synchronize()
     phase11_training(device)
     torch.cuda.synchronize()
     phase12_fp32_train(device)
     torch.cuda.synchronize()
+    children = wait_cli_children(started)
+    torch.cuda.empty_cache()
+
+    imgs_per_s, nms_t = phase5_timing(cfg, model, images, intrinsics,
+                                      {"random boxes": random_nms, "serving inputs": serving_nms})
+    torch.cuda.synchronize()
+    serving, kernel_ms = phase9_int8_timing(cfg8, cfg, model, images, intrinsics, quant_case, conv_case)
+    int8_conv_sites_timing(conv_cases, cfg8.TPU.QUANT_MIN_CH)
+    del conv_cases
+    fusion = {"DLA-34": fusion_ab(model, cfg8, images, intrinsics, "phase9", card)}
+    standalone = standalone_quantize_timing(model, cfg8, images, intrinsics, "phase9", card)
+    torch.cuda.synchronize()
     train_ms, train_peak, dw_ms = phase13_train_timing(device, stem_cases)
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_dw_launches, syncbn_per_step, root, run_dir = phase14_cli(tmp)
+    with tmp_dir as tmp:
+        cli_dw_launches, syncbn_per_step, run_dir = phase14_cli(root, children[14]["train"])
         torch.cuda.synchronize()
         loader_ips, cli_ms, synth_ms = phase15_cli_timing(tmp, root, card)
         torch.cuda.synchronize()
-        eval_nms_launches = phase16_eval(tmp, root, run_dir, device)
+        eval_nms_launches = phase16_eval(root, run_dir, device, children[14]["eval"])
         torch.cuda.synchronize()
-        overfit = phase17_overfit(tmp, root, card)
+        overfit = phase17_overfit(children[17], card)
         evaluation = phase18_eval_scale(tmp, overfit["output_dir"], device, card)
         torch.cuda.synchronize()
-        vis_cli = phase19_visualizers(tmp, root, overfit["output_dir"], card)
+        vis_cli = phase19_visualizers(tmp, root, card, children[19])
         tta = phase20_tta(tmp, overfit["output_dir"], device, card)
         torch.cuda.synchronize()
 
@@ -4330,7 +4649,7 @@ def main():
         v99_train_ms, v99_train_peak = phase23_v99_train(device, card)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        v99_eval_nms = phase24_v99_clis(tmp, device, card)
+        v99_eval_nms = phase24_v99_clis(tmp, device, card, children[24])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
@@ -4340,10 +4659,10 @@ def main():
         phase4_fp32(experiment_cfg(NUSC), device, shape=(1, 256, 448), phase="phase26")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        nusc_root, nusc_eval_launches = phase27_nusc_eval(tmp, device, card)
+        nusc_eval_launches = phase27_nusc_eval(tmp, device, card, children[28])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        nusc_dw_launches, nusc_train_ms = phase28_nusc_train(tmp, nusc_root, card)
+        nusc_dw_launches, nusc_train_ms = phase28_nusc_train(card, children[28])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
@@ -4353,11 +4672,11 @@ def main():
         rg_model, rg_bf16, rg_nms, rg_ips = phase30_regnety_serve(device, images, intrinsics, card)
         torch.cuda.synchronize()
         rg_launches, rg_conv_err, grouped_err, grouped_t, rg_turns, grouped_sums = phase31_regnety_int8(
-            rg_model, rg_bf16, images, intrinsics, device, tmp, card)
+            rg_model, rg_bf16, images, intrinsics, device, tmp, card, children[31])
         del rg_model
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        rg_train_ms, rg_train_peak, rg_eval_nms = phase32_regnety_train(tmp, device, card)
+        rg_train_ms, rg_train_peak, rg_eval_nms = phase32_regnety_train(device, card, children[32])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         dd_train_ms, dd_peak, dd_dw_launches = phase33_dense_depth_train(device, card)
@@ -4385,6 +4704,9 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         remat = phase43_remat(vis_cli, device, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kinds = phase44_new_kinds(tmp, device, card, jpeg["frame_ms"])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     quant_err = max(quant_err, phase34_quantize_exhaustive(device))
@@ -4481,6 +4803,8 @@ def main():
         f"(phase 42); TPU.REMAT train step (phase 43) " + ", ".join(
             f"{k} {v['ms']:.2f} ms ({v['device_ms']:.2f} of device time) / peak {v['peak_gib']:.3f} GiB "
             f"({v['step_gib']:.3f} above the steps' start)" for k, v in remat["runs"].items()))
+    log(f"timing on {card}: ms a 375x1242 frame on one host thread (phase 44): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in kinds["frame_ms"].items()) + f"; baseline JPEG 900x1600 {jpeg['frame_ms']:.3f}")
     log(f"timing on {card}: the {standalone['n']} standalone quantizes of a fused DLA-34 int8 forward "
         f"{standalone['kernel']:.4f} ms of device time, the same-bytes cast {standalone['cast']:.4f} ms, bound "
         f"{standalone['bound']:.4f} ms; at {QUANT_SHAPE} bf16 {kernel_ms['quantize_int8'][0]:.4f} ms against "
@@ -4491,7 +4815,8 @@ def main():
                 + nusc["launches"]["greedy_nms"] + nusc_eval_launches["greedy_nms"] + large_nms + rg_nms
                 + rg_launches["greedy_nms"] + rg_eval_nms + nusc8["launches"]["greedy_nms"]
                 + nusc8_v99["launches"]["greedy_nms"] + nusc8_eval["plain"]["greedy_nms"] + dla_nms
-                + dx_launches["greedy_nms"] + ho_launches["greedy_nms"] + jpeg["launches"]["greedy_nms"],
+                + dx_launches["greedy_nms"] + ho_launches["greedy_nms"] + jpeg["launches"]["greedy_nms"]
+                + kinds["launches"]["greedy_nms"],
                 "greedy_nms_scan": nusc["launches"]["greedy_nms_scan"] + nusc_eval_launches["greedy_nms_scan"]
                 + nusc8["launches"]["greedy_nms_scan"] + nusc8_v99["launches"]["greedy_nms_scan"]
                 + nusc8_eval["plain"]["greedy_nms_scan"] + jpeg["launches"]["greedy_nms_scan"],

@@ -30,7 +30,7 @@ import numpy as np
 
 from dd3d_tpu_torch.data.augmentations import ResizeShortestEdge, build_augmentation, resize_shortest_edge_dims
 from dd3d_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
-from dd3d_tpu_torch.data.imageio import decode_resize_batch, image_size
+from dd3d_tpu_torch.data.imageio import decode_resize_batch, oriented_image_size
 from dd3d_tpu_torch.data.mapper import DatasetMapper, collate_batch
 from dd3d_tpu_torch.data.samplers import (
     InferenceGroupSampler,
@@ -174,7 +174,9 @@ def _native_preresize(dataset_dicts, indices, augmentations, cache_dir: str = ""
                     blobs.append(f.read())
             except OSError:
                 blobs.append(b"")
-        dims = [image_size(b) if b else None for b in blobs]  # an unreadable file: the mapper raises
+        # the size of the image the JAX reader returns (turned where cv2 turns it); an unreadable file: the
+        # mapper raises
+        dims = [oriented_image_size(b) if b else None for b in blobs]
         targets = [resize_shortest_edge_dims(d[0], d[1], size, max_size) if d else None for d in dims]
         imgs = decode_resize_batch(blobs, targets, executor)
         for k, j in enumerate(miss):

@@ -608,6 +608,34 @@ def test_conv_dw_kernel_rejects_what_it_does_not_take(card):
         conv_dw_s1_same(big, dbig, 9)
 
 
+def test_every_image_kind_on_card(card):
+    """chip_smoke.py phase 44's digests: on the machine with the card (no
+    cv2, libpng or libjpeg), every PNG fixture (tests/data/png: gAMA,
+    palette, low-bit gray, Adam7, 16-bit) and every JPEG fixture
+    (tests/data/jpeg: arithmetic-coded, CMYK/YCCK, smoothed progressive,
+    cut inside a marker segment) decodes to the SHA-256 of the JAX
+    package's read_image_bgr, and decodes the same through the loader's
+    batch call."""
+    import hashlib
+    import json
+    import os
+
+    from dd3d_tpu_torch.data.imageio import decode_resize_batch, read_image_bgr
+
+    for kind in ("png", "jpeg"):
+        fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", kind)
+        with open(os.path.join(fixtures, "digests.json")) as f:
+            digests = json.load(f)
+        assert len(digests) >= 35
+        for name, want in digests.items():
+            img = read_image_bgr(os.path.join(fixtures, name))
+            assert list(img.shape) == want["shape"], name
+            assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"], name
+            with open(os.path.join(fixtures, name), "rb") as f:
+                (batched,) = decode_resize_batch([f.read()], [tuple(want["shape"][:2])])
+            assert batched.tobytes() == img.tobytes(), name
+
+
 def test_jpeg_fixtures_and_remat_steps_on_card(card, monkeypatch):
     """The machine with the card cannot encode JPEGs: the committed fixtures
     (tests/data/jpeg) decode to the digests of the JAX package's libjpeg

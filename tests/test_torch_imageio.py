@@ -10,8 +10,9 @@ in csrc/imageio.cpp) against what the JAX package reads and resizes with:
   dd3d_tpu/data/augmentations.py:61-78);
 - `png_size` from the header equals the decoded shape; a JPEG decodes as
   cv2 decodes it (the decoder's own tests: tests/test_torch_jpeg.py), an
-  arithmetic-coded JPEG and a 16-bit PNG raise NotImplementedError, a
-  broken CRC ValueError;
+  arithmetic-coded JPEG and a 16-bit PNG as the JAX package reads them
+  (tests/test_torch_png.py holds the PNG kinds), a broken CRC raises
+  ValueError;
 - `write_png` read back by cv2; the port's make_fixture (pixels, calib,
   labels, split) equal to scripts/overfit_smoke.py::make_fixture's.
 """
@@ -137,16 +138,18 @@ def test_decode_resize_and_batch(tmp_path):
 
 def test_refuses_what_it_does_not_read(tmp_path):
     """A JPEG is read (tests/test_torch_jpeg.py holds the decoder) as
-    cv2.imdecode reads it; an arithmetic-coded one raises. 16-bit PNGs, a
-    corrupt CRC, other bytes and a missing file raise."""
+    cv2.imdecode reads it; Huffman data under an arithmetic-coding frame
+    header decodes as the JAX package's native reader decodes it, and a
+    16-bit PNG as the cv2.imread it falls back to (tests/test_torch_png.py).
+    A corrupt CRC, other bytes and a missing file raise."""
+    from tests.reader_parity import assert_reads_as_jax
+
     _, jpeg = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))
     assert imageio.decode_bgr(jpeg.tobytes()).tobytes() == cv2.imdecode(jpeg, cv2.IMREAD_COLOR).tobytes()
     arithmetic = jpeg.tobytes().replace(b"\xff\xc0", b"\xff\xc9", 1)
-    with pytest.raises(NotImplementedError, match="arithmetic-coded JPEG"):
-        imageio.decode_bgr(arithmetic)
-    _, png16 = cv2.imencode(".png", np.zeros((8, 8, 3), np.uint16))
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
-        imageio.decode_bgr(png16.tobytes())
+    assert assert_reads_as_jax(arithmetic, "arithmetic-coded JPEG") is not None
+    _, png16 = cv2.imencode(".png", np.full((8, 8, 3), 0x1234, np.uint16))
+    assert (assert_reads_as_jax(png16.tobytes(), "16-bit PNG") == 0x12).all()
     path = str(tmp_path / "c.png")
     imageio.write_png(path, np.zeros((4, 5, 3), np.uint8))
     data = bytearray(open(path, "rb").read())
