@@ -23,7 +23,7 @@ TTA test, training), then NMS past N = 2048, dd3d_kitti_regnety_006_bifpn
 conv, the train step, the CLIs) and DD3DDenseDepth's train step, then both
 nuScenes experiments in static int8 (serving with the aggregation, and
 EVAL_ONLY with the TTA test at the experiment's five sizes), the nine other
-DLA variants, DLA-X-60 in static int8 (its grouped convs on the `direct`
+DLA variants, DLA-X-60 in static int8 (its grouped convs on the `narrow`
 and `mma` routes) and training, and DLA-34 with the FCOS2D v1 towers and
 the per-level, class-agnostic 3D predictors, then JPEG frames (the port's
 own decoder) through the nuScenes loader and serving, the train step
@@ -35,10 +35,10 @@ quantize kernel on every bf16 value and the int8 conv's s8 epilogue at
 every head-tower shape, and fails loudly (non-zero exit) if any phase fails.
 In static int8 the head towers' links run fused (the next conv's quantize
 in the int8 conv's s8 epilogue); phases 9, 22 and 31 serve each backbone
-with the links fused and unfused in turns. The four CUDA sources (nine
-kernels: nms.cu holds the NMS mask, the one-warp and the block scan and the
-BEV NMS's pack; int8_conv.cu the int8 conv, with its s8 epilogue, and the
-grouped one) and the host code (csrc/imageio.cpp,
+with the links fused and unfused in turns. The four CUDA sources (nms.cu
+holds the NMS mask, the one-warp and the block scan and the BEV NMS's
+pack; int8_conv.cu the int8 conv, with its s8 epilogue, and the grouped
+one's four routes) and the host code (csrc/imageio.cpp,
 csrc/kitti_eval.cpp with OpenMP, g++) are built first, one compiler
 process each, all at once. The child processes of phases 14 to 32 (the
 training CLIs, EVAL_ONLY, the overfit run, predict, calibrate_int8 and the
@@ -222,8 +222,8 @@ children's checks run in phase order after those.
     Y-block `b` on the `mma` route, BiFPN's depthwise `dw` on the
     `depthwise` route; 39 a forward): every route a shape admits (its own
     and `direct`) bit for bit against the plain version, timed in turns
-    (direct, own, own, direct, twice) beside cuDNN's bf16 grouped conv and
-    the bound, summed over a forward; phase 8's path checks with the grouped
+    with cuDNN's bf16 grouped conv (direct, own, cuDNN, cuDNN, own, direct,
+    twice) beside the bound, summed over a forward; phase 8's path checks with the grouped
     launches by route; int8 against bf16 in turns; the int8 batch's device
     time with every grouped conv on `direct` and on its own route in
     turns; the tower links fused and unfused in turns as in phase 9; then
@@ -275,9 +275,12 @@ children's checks run in phase order after those.
     batch of 8 at 384x1280 each, finite, the NMS kernel once;
 39. DLA-X-60 in bench.py's static int8: phase 7 at every ungrouped site, the
     grouped kernel at each of its 8 grouped shapes (C/g = 4 and 8 on
-    `direct`, 16 and 32 on `mma`) on every route the shape admits, bit for
-    bit, timed on both beside cuDNN's bf16 grouped conv (not gated) and the
-    bound; phase 8's path checks (direct and mma launches both non-zero);
+    `narrow`, 16 and 32 on `mma`) and at DLA-X-60-C's C/g 2 and
+    DLA-X-102-64's 64-group shapes on every route the shape admits, bit for
+    bit, timed on both in turns with cuDNN's bf16 grouped conv (not gated)
+    beside the bound; phase 8's path checks (narrow and mma launches both
+    non-zero); the int8 batch's detections identical and its device time
+    in turns with every grouped conv on `direct` and on its own route;
 40. DLA-X-60's bf16 train step at batch 8, 384x1280, TPU.PALLAS_STEM_DW:
     finite losses, the dW kernel twice a step, ms a step;
 41. DLA-34 with FCOS2D _VERSION v1, PER_LEVEL_PREDICTORS and
@@ -319,8 +322,9 @@ on its thread path (phase 15 times the process pool against it), so that
 none spawns a pool of its own.
 
 Before the last line, the card's name and power limit and one JSON line of
-the seven kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
-int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv, dW): launches on the main paths (DLA-34's,
+the eight kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
+int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv on its
+depthwise, mma and direct routes, on its narrow route, dW): launches on the main paths (DLA-34's,
 V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's, the head
 options', the JPEG-served batch's and the REMAT steps'), error against the plain
 version, ms, the plain version's ms, the bound (bytes or operations at the
@@ -3347,18 +3351,20 @@ def cudnn_bf16_grouped(xq, wq, stride, pad, groups):
     return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad, groups=groups)
 
 
-def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=True):
-    """The grouped int8 conv at every distinct grouped shape of the regnety
-    forward at batch 8, 384x1280: on every route the shape admits (its own,
-    and `direct`), accumulators, bf16 and f32 epilogues bit for bit against
-    the plain version; device time of its own route and of `direct` in
-    turns (direct, own, own, direct, twice; medians), beside cuDNN's bf16
-    grouped conv of the same codes and the bound; its own route no slower
-    than `direct`, and the forward's sum on the own routes below cuDNN's.
-    Sums are count x ms over a forward. Returns (max error, (own route,
-    plain, bound, bound_by, cudnn) ms at the largest shape, sums {"own",
-    "direct", "cudnn", "bound", "n"}). With `below_cudnn` False the sum
-    against cuDNN's is logged, not gated (a route that loses stays, timed)."""
+def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=True, per="forward"):
+    """The grouped int8 conv at every distinct grouped shape of `grouped`
+    ({(B, H, W, C, O, k, stride, groups): count a forward}; the regnety
+    forward at batch 8, 384x1280 in phase 31): on every route the shape
+    admits (its own, and `direct`), accumulators, bf16 and f32 epilogues bit
+    for bit against the plain version; device time of its own route, of
+    `direct` and of cuDNN's bf16 grouped conv of the same codes in turns
+    (direct, own, cuDNN, cuDNN, own, direct, twice; medians), beside the
+    bound; its own route no slower than `direct`, and the sum on the own
+    routes below cuDNN's. Sums are count x ms (`per`: what a count counts).
+    Returns ({route: max error}, (own route, plain, bound, bound_by, cudnn)
+    ms at the largest shape, sums {"own", "direct", "cudnn", "bound", "n"}).
+    With `below_cudnn` False the sum against cuDNN's is logged, not gated (a
+    route that loses stays, timed)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dd3d_tpu_torch.ops.int8_conv import (dequant_plain, grouped_routes, int8_conv_grouped,
@@ -3366,7 +3372,7 @@ def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=Tr
 
     prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
     gen = torch.Generator().manual_seed(SEED + 31)
-    max_err, largest = 0.0, None
+    errors, largest = {}, None
     sums = dict.fromkeys(("own", "direct", "cudnn", "bound"), 0.0)
     sums["n"] = 0
     for key, count in sorted(grouped.items(), key=lambda kv: -kv[0][1] * kv[0][2] * kv[0][3]):
@@ -3387,26 +3393,26 @@ def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=Tr
                       for dt in (torch.bfloat16, torch.float32)}}
             torch.cuda.synchronize()
             for name, value in got.items():
-                max_err = max(max_err, float((value.float() - want[name].float()).abs().max()))
+                errors[route] = max(errors.get(route, 0.0), float((value.float() - want[name].float()).abs().max()))
                 if not torch.equal(value, want[name]):
                     raise AssertionError(f"{phase} grouped {key} {route} {name}: kernel and plain differ")
         own = routes[0]
-        turns = {"direct": [], own: []}
-        for route in ("direct", own, own, "direct") * 2:
-            turns[route].append(device_ms(lambda: int8_conv_grouped(xq, wq, scale, bias, stride, pad,
-                                                                    torch.bfloat16, g, route=route), 10, prof))
+        calls = {r: (lambda r=r: int8_conv_grouped(xq, wq, scale, bias, stride, pad, torch.bfloat16, g, route=r))
+                 for r in ("direct", own)}
+        calls["cudnn"] = cudnn_bf16_grouped(xq, wq, stride, pad, g)
+        turns = {name: [] for name in calls}
+        for name in ("direct", own, "cudnn", "cudnn", own, "direct") * 2:
+            turns[name].append(device_ms(calls[name], 10, prof))
         # medians: a profiler window now and then reads short (part of its
         # kernels missing) or a few times long
-        own_ms, direct_ms = float(np.median(turns[own])), float(np.median(turns["direct"]))
-        c_ms = device_ms(cudnn_bf16_grouped(xq, wq, stride, pad, g), 10, prof)
+        own_ms, direct_ms, c_ms = (float(np.median(turns[name])) for name in (own, "direct", "cudnn"))
         bnd, by = grouped_conv_bound(xq, wq, stride, pad, g)
-        log(f"{phase} grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/forward: "
+        log(f"{phase} grouped int8 conv (B,H,W,C)=({b},{h},{w},{c}) O={o} k={k} s={stride} g={g} x{count}/{per}: "
             f"routes {routes} each equal to the plain version (accumulators, bf16 and f32; tolerance 0); device "
-            f"time in turns (direct, {own}, {own}, direct, twice): {own} "
-            + " / ".join(f"{t:.4f}" for t in turns[own]) + " ms, direct "
-            + " / ".join(f"{t:.4f}" for t in turns["direct"]) + f" ms; medians {own} {own_ms:.4f}, direct "
-            f"{direct_ms:.4f} ms; cuDNN bf16 grouped {c_ms:.4f} ms; bound {bnd:.5f} ms by {by} ({bnd / own_ms:.2f} "
-            f"of it on {own}, {bnd / direct_ms:.2f} on direct)")
+            f"time in turns (direct, {own}, cuDNN, cuDNN, {own}, direct, twice): "
+            + "; ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in turns[name]) + " ms" for name in turns)
+            + f"; medians {own} {own_ms:.4f}, direct {direct_ms:.4f}, cuDNN bf16 grouped {c_ms:.4f} ms; bound "
+            f"{bnd:.5f} ms by {by} ({bnd / own_ms:.2f} of it on {own}, {bnd / direct_ms:.2f} on direct)")
         if own_ms > direct_ms:
             raise AssertionError(f"{phase} grouped {key}: the {own} route ({own_ms:.4f} ms) is slower than direct "
                                  f"({direct_ms:.4f} ms)")
@@ -3418,23 +3424,22 @@ def phase31_grouped_sites(grouped, device, card, phase="phase31", below_cudnn=Tr
                                                  torch.bfloat16), 3)
             largest = (own_ms, p_ms, bnd, by, c_ms)
             log(f"{phase} grouped int8 conv at its largest shape {key}: plain version {p_ms:.3f} ms (CUDA events)")
-    log(f"{phase} timing on {card}: grouped int8 convs a forward ({sums['n']} convs), device time: own routes "
+    log(f"{phase} timing on {card}: grouped int8 convs a {per} ({sums['n']} convs), device time: own routes "
         f"{sums['own']:.4f} ms, direct {sums['direct']:.4f} ms, cuDNN bf16 grouped {sums['cudnn']:.4f} ms, bound "
         f"{sums['bound']:.4f} ms ({sums['bound'] / sums['own']:.2f} of it; count x ms summed)")
     if below_cudnn and sums["own"] >= sums["cudnn"]:
         raise AssertionError(f"{phase}: the grouped convs of a forward take {sums['own']:.4f} ms on their routes, "
                              f"not below cuDNN bf16 grouped's {sums['cudnn']:.4f} ms")
-    return max_err, largest, sums
+    return errors, largest, sums
 
 
-def grouped_routes_forward_ms(infer, images, intrinsics):
-    """Device ms a batch of the int8 path `infer` (serving_profile) with
-    every grouped conv on `direct` (the first, PR 11 kernel) and on its own
-    route, in turns (direct, own, own, direct): ({"direct": [...], "own":
-    [...]}, launches by route in the direct turns). `direct` is forced by
-    standing a wrapper with route="direct" in for the module's
-    int8_conv_grouped for the span of its turn; the wrapper counts its
-    launches on that module name, so the stand-in carries counters too."""
+@contextlib.contextmanager
+def grouped_on_direct():
+    """Every grouped int8 conv on `direct` (the first, general kernel) for the
+    span of the block: a wrapper with route="direct" stands in for the
+    module's int8_conv_grouped. It counts its launches on its own name (the
+    wrapper counts on the module's), so the stand-in carries counters too;
+    yields it."""
     from dd3d_tpu_torch.ops import int8_conv as int8_ops
 
     dispatch = int8_ops.int8_conv_grouped
@@ -3444,14 +3449,36 @@ def grouped_routes_forward_ms(infer, images, intrinsics):
 
     on_direct.launches = 0
     on_direct.launches_by_route = dict.fromkeys(int8_ops.GROUPED_ROUTES, 0)
+    int8_ops.int8_conv_grouped = on_direct
+    try:
+        yield on_direct
+    finally:
+        int8_ops.int8_conv_grouped = dispatch
+
+
+def grouped_routes_forward_ms(infer, images, intrinsics):
+    """Device ms a batch of the int8 path `infer` (serving_profile) with
+    every grouped conv on `direct` (`grouped_on_direct`) and on its own
+    route, in turns (direct, own, own, direct): ({"direct": [...], "own":
+    [...]}, launches by route in the direct turns)."""
+    from dd3d_tpu_torch.ops.int8_conv import GROUPED_ROUTES
+
     times = {"direct": [], "own": []}
+    forced = dict.fromkeys(GROUPED_ROUTES, 0)
     for arm in ("direct", "own", "own", "direct"):
-        int8_ops.int8_conv_grouped = on_direct if arm == "direct" else dispatch
-        try:
+        if arm == "own":
             times[arm].append(serving_profile(infer, images, intrinsics)[0])
-        finally:
-            int8_ops.int8_conv_grouped = dispatch
-    return times, on_direct.launches_by_route
+            continue
+        with grouped_on_direct() as on_direct:
+            times[arm].append(serving_profile(infer, images, intrinsics)[0])
+        for route, n in on_direct.launches_by_route.items():
+            forced[route] += n
+    return times, forced
+
+
+def forced_not_direct(forced):
+    """The routes other than `direct` that launched in the direct turns."""
+    return {route: n for route, n in forced.items() if route != "direct" and n}
 
 
 def regnety_predict_children(tmp):
@@ -3501,10 +3528,10 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card,
     int8_conv_sites(model, images[0], unfolded=True, grouped=grouped)
     conv_err, sites, _, _ = phase7_int8_conv(model, images[0], unfolded=True, phase="phase31")
     log(f"phase31 {len(grouped)} grouped int8 conv shapes, {sum(grouped.values())} grouped convs a forward")
-    g_err, g_largest, g_sums = phase31_grouped_sites(grouped, device, card)
+    g_errs, g_largest, g_sums = phase31_grouped_sites(grouped, device, card)
     cfg8, launches = phase8_int8_path(bf16_cfg, model, images, intrinsics, sites, base_cfg=regnety_int8_cfg(),
                                       phase="phase31", grouped=grouped)
-    want = {"direct": 0, "depthwise": 24 * N_BATCHES, "mma": 15 * N_BATCHES}
+    want = {"direct": 0, "depthwise": 24 * N_BATCHES, "mma": 15 * N_BATCHES, "narrow": 0}
     if launches["int8_conv_grouped_by_route"] != want:
         raise AssertionError(f"phase31: grouped launches by route {launches['int8_conv_grouped_by_route']}, "
                              f"expected {want} (24 BiFPN dw and 15 Y-block b convs a forward)")
@@ -3517,7 +3544,7 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card,
         f"{runs['int8'][0]:.3f} / {runs['int8'][1]:.3f}, bf16 {runs['bf16'][0]:.3f} / {runs['bf16'][1]:.3f}: "
         f"static int8 {ips['int8']:.2f} images/s, bf16 {ips['bf16']:.2f} images/s")
     fwd, forced = grouped_routes_forward_ms(paths["int8"], images, intrinsics)
-    if forced["direct"] == 0 or forced["depthwise"] or forced["mma"]:
+    if forced["direct"] == 0 or forced_not_direct(forced):
         raise AssertionError(f"phase31: the direct turns' grouped launches by route {forced}")
     log(f"phase31 timing on {card}: static int8 serving, device time a batch (profiler) in turns (direct, own, own, "
         f"direct): every grouped conv on direct {fwd['direct'][0]:.3f} / {fwd['direct'][1]:.3f} ms (launches by "
@@ -3546,7 +3573,7 @@ def phase31_regnety_int8(model, bf16_cfg, images, intrinsics, device, tmp, card,
             raise AssertionError(f"phase31: predict {name}'s detections are missing or outside the 1200x375 frame")
         log(f"phase31 predict {name}: {len(boxes)} detections inside the 1200x375 frame")
     log(f"phase31 ok ({time.time() - t0:.2f} s): calibrate_int8 wrote {len(keys)} convs")
-    return launches, conv_err, g_err, g_largest, ips, g_sums
+    return launches, conv_err, max(g_errs.values()), g_largest, ips, g_sums
 
 
 def timed_train_steps(cfg, model, batches, steps, device, phase):
@@ -4089,16 +4116,27 @@ def phase38_dla_family(device, images, intrinsics, card):
     return nms
 
 
+# The narrow route's other DLA-X shapes at batch 8, 384x1280, (B, H, W, C,
+# O, k, stride, groups): DLA-X-60-C's C/g = 2 at level 2 and DLA-X-102-64's
+# stride-2 convs with 64 groups (C/g 4 and 8); one call each
+DLA_X_NARROW_EXTRA = {(8, 192, 640, 64, 64, 3, 2, 32): 1, (8, 96, 320, 64, 64, 3, 1, 32): 1,
+                      (8, 192, 640, 256, 256, 3, 2, 64): 1, (8, 96, 320, 512, 512, 3, 2, 64): 1}
+
+
 def phase39_dla_x_int8(device, images, intrinsics, card):
     """DLA-X-60 (BottleneckX, cardinality 32: C/g = 4, 8, 16 and 32 at levels
     2-5) under dd3d_kitti_dla34's heads in bench.py's static int8: phase 7
     at every ungrouped int8 site; the grouped kernel at every grouped site
-    on every route the shape admits, bit for bit, timed on its own route and
-    on `direct` in turns beside cuDNN's bf16 grouped conv and the bound
-    (`phase31_grouped_sites`, cuDNN not gated: a route that loses stays);
-    phase 8's path checks (launches by route: `direct` and `mma` both
-    non-zero). Returns (launches, max error of the ungrouped sites, of the
-    grouped ones, the grouped sums)."""
+    on every route the shape admits, bit for bit, timed on its own route, on
+    `direct` and cuDNN's bf16 grouped conv in turns beside the bound
+    (`phase31_grouped_sites`, cuDNN not gated: a route that loses stays),
+    then the same at DLA_X_NARROW_EXTRA's shapes; phase 8's path checks
+    (launches by route: `narrow` and `mma` both non-zero); the int8 batch's
+    device time with every grouped conv on `direct` and on its own route in
+    turns, and its detections identical on both. Returns (launches, max
+    error of the ungrouped sites, {route: max error} of the grouped ones,
+    the grouped sums, `narrow`'s (own, plain, bound, bound_by, cudnn) ms at
+    the largest C/g 4 shape, device ms a batch {"direct", "own"})."""
     t0 = time.time()
     cfg = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": DLA_X})
     model = build(cfg, device)
@@ -4106,17 +4144,44 @@ def phase39_dla_x_int8(device, images, intrinsics, card):
     int8_conv_sites(model, images[0], unfolded=True, grouped=grouped)
     conv_err, sites, _, _ = phase7_int8_conv(model, images[0], unfolded=True, phase="phase39")
     log(f"phase39 {DLA_X}: {len(grouped)} grouped int8 conv shapes, {sum(grouped.values())} grouped convs a forward")
-    g_err, _, g_sums = phase31_grouped_sites(grouped, device, card, phase="phase39", below_cudnn=False)
+    g_errs, narrow_t, g_sums = phase31_grouped_sites(grouped, device, card, phase="phase39", below_cudnn=False)
+    log("phase39 DLA-X-60-C's C/g 2 and DLA-X-102-64's 64-group shapes, one call each:")
+    extra_errs, _, _ = phase31_grouped_sites(DLA_X_NARROW_EXTRA, device, card, phase="phase39", below_cudnn=False,
+                                             per="call")
+    for route, err in extra_errs.items():
+        g_errs[route] = max(g_errs.get(route, 0.0), err)
     base = experiment_cfg("dd3d_kitti_dla34", **{"FE.BACKBONE.NAME": DLA_X, **NUSC_INT8})
-    _, launches = phase8_int8_path(cfg, model, images, intrinsics, sites, base_cfg=base, phase="phase39",
-                                   grouped=grouped)
+    cfg8, launches = phase8_int8_path(cfg, model, images, intrinsics, sites, base_cfg=base, phase="phase39",
+                                      grouped=grouped)
     by_route = launches["int8_conv_grouped_by_route"]
-    if not (by_route["direct"] and by_route["mma"]):
-        raise AssertionError(f"phase39: grouped launches by route {by_route}: direct and mma must both run")
-    del model
+    if not (by_route["narrow"] and by_route["mma"]):
+        raise AssertionError(f"phase39: grouped launches by route {by_route}: narrow and mma must both run")
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+
+    infer = get_inference_fn(model, cfg8)
+    det = infer(images[0], intrinsics)
+    with grouped_on_direct() as on_direct:
+        det_direct = infer(images[0], intrinsics)
+    torch.cuda.synchronize()
+    for k in det:
+        if not torch.equal(det[k], det_direct[k]):
+            raise AssertionError(f"phase39: {k} differs between the grouped convs' own routes and direct")
+    if on_direct.launches_by_route["direct"] == 0 or forced_not_direct(on_direct.launches_by_route):
+        raise AssertionError(f"phase39: the direct batch's grouped launches by route {on_direct.launches_by_route}")
+    log(f"phase39 static int8 detections identical with the grouped convs on their own routes and all on direct "
+        f"({int(det['valid'].sum())} kept; direct launches {on_direct.launches_by_route['direct']})")
+    fwd, forced = grouped_routes_forward_ms(infer, images, intrinsics)
+    if forced["direct"] == 0 or forced_not_direct(forced):
+        raise AssertionError(f"phase39: the direct turns' grouped launches by route {forced}")
+    batch_ms = {arm: float(np.median(ms)) for arm, ms in fwd.items()}
+    log(f"phase39 timing on {card}: {DLA_X} static int8 serving, device time a batch (profiler) in turns (direct, "
+        f"own, own, direct): every grouped conv on direct {fwd['direct'][0]:.3f} / {fwd['direct'][1]:.3f} ms "
+        f"(launches by route {forced}), on its own route (narrow, mma) {fwd['own'][0]:.3f} / {fwd['own'][1]:.3f} "
+        f"ms; medians {batch_ms['direct']:.3f} / {batch_ms['own']:.3f} ms")
+    del model, infer
     torch.cuda.empty_cache()
     log(f"phase39 ok ({time.time() - t0:.2f} s)")
-    return launches, conv_err, g_err, g_sums
+    return launches, conv_err, g_errs, g_sums, narrow_t, batch_ms
 
 
 def phase40_dla_x_train(device, card):
@@ -4691,7 +4756,8 @@ def main():
         torch.cuda.empty_cache()
         dla_nms = phase38_dla_family(device, images, intrinsics, card)
         torch.cuda.synchronize()
-        dx_launches, dx_conv_err, dx_grouped_err, dx_sums = phase39_dla_x_int8(device, images, intrinsics, card)
+        dx_launches, dx_conv_err, dx_grouped_errs, dx_sums, narrow_t, dx_batch_ms = phase39_dla_x_int8(
+            device, images, intrinsics, card)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         dx_train_ms, dx_dw_launches = phase40_dla_x_train(device, card)
@@ -4790,7 +4856,10 @@ def main():
     log(f"timing on {card}: {DLA_X} static int8 (phase 39): its {dx_sums['n']} grouped int8 convs a forward "
         f"{dx_sums['own']:.4f} ms of device time on their own routes (direct {dx_sums['direct']:.4f} ms) against "
         f"cuDNN bf16 grouped {dx_sums['cudnn']:.4f} ms and the bound {dx_sums['bound']:.4f} ms; launches by route "
-        f"{dx_launches['int8_conv_grouped_by_route']}; train step {dx_train_ms:.2f} ms (phase 40)")
+        f"{dx_launches['int8_conv_grouped_by_route']}; the int8 batch's device time {dx_batch_ms['own']:.3f} ms on "
+        f"the own routes, {dx_batch_ms['direct']:.3f} ms all on direct (medians of two turns); `narrow` at its "
+        f"largest shape {narrow_t[0]:.4f} ms (cuDNN {narrow_t[4]:.4f}, bound {narrow_t[2]:.5f} by {narrow_t[3]}); "
+        f"train step {dx_train_ms:.2f} ms (phase 40)")
     for name, ab in fusion.items():
         f, u = ab["fused"], ab["unfused"]
         log(f"timing on {card}: {name} static int8, tower links fused against unfused (in turns): quantize launches a "
@@ -4826,13 +4895,19 @@ def main():
                 + nusc8_eval["plain"]["int8_conv"] + nusc8_eval["tta"]["int8_conv"],
                 "int8_conv_requant": sum(x["int8_conv_by_out"]["s8"] for x in int8_paths)
                 + nusc8_eval["plain"]["int8_conv_s8"] + nusc8_eval["tta"]["int8_conv_s8"],
-                "int8_conv_grouped": rg_launches["int8_conv_grouped"] + dx_launches["int8_conv_grouped"]}
+                # the narrow route has a row of its own
+                "int8_conv_grouped": rg_launches["int8_conv_grouped"] + dx_launches["int8_conv_grouped"]
+                - rg_launches["int8_conv_grouped_by_route"]["narrow"]
+                - dx_launches["int8_conv_grouped_by_route"]["narrow"],
+                "int8_conv_grouped_narrow": rg_launches["int8_conv_grouped_by_route"]["narrow"]
+                + dx_launches["int8_conv_grouped_by_route"]["narrow"]}
     quant_err = max(quant_err, v99_quant_err)
     conv_err = max(conv_err, v99_conv_err, rg_conv_err, nusc8["conv_err"], nusc8_v99["conv_err"], dx_conv_err)
-    grouped_err = max(grouped_err, dx_grouped_err)
+    grouped_err = max([grouped_err] + [e for route, e in dx_grouped_errs.items() if route != "narrow"])
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
              "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"], "int8_conv_requant": s8_t,
-             "int8_conv_grouped": grouped_t, "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
+             "int8_conv_grouped": grouped_t, "int8_conv_grouped_narrow": narrow_t,
+             "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              max(nms_err, large_err)),
             ("greedy_nms_scan", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/nms.py:37",
@@ -4845,6 +4920,8 @@ def main():
              launches["int8_conv_requant"], s8_err),
             ("int8_conv_grouped", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
              launches["int8_conv_grouped"], grouped_err),
+            ("int8_conv_grouped_narrow", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
+             launches["int8_conv_grouped_narrow"], dx_grouped_errs["narrow"]),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
              cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches + remat["dw"], dw_err)]
     kernels = []

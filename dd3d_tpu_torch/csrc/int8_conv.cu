@@ -68,11 +68,12 @@
 // A second entry, dd3d_int8_conv_grouped, is the same function with
 // feature_group_count = g > 1 (layers.py:273): output channel o reads the
 // input channels of its group, (o / (O/g)) * C/g onward. The caller names one
-// of three routes (ops/int8_conv.py::grouped_route picks one by shape); each
+// of four routes (ops/int8_conv.py::grouped_route picks one by shape); each
 // keeps the plain version's bits, through the same epilogue operations
 // (`dequant`, `dequant_pair`).
-// Sizes are those of the dd3d_kitti_regnety_006_bifpn forward at batch 8,
-// 384x1280, where every grouped conv is bound by bytes.
+// Sizes are those of the dd3d_kitti_regnety_006_bifpn forward (depthwise,
+// mma) and of the DLA-X-60 forward (narrow) at batch 8, 384x1280, where
+// every grouped conv is bound by bytes.
 //
 // - depthwise (C/g = 1, O = C, C % 16 == 0, 3x3, stride 1 or 2): BiFPN's
 //   24 `dw` convs, (8, 48, 160, 160) at P3 down to (8, 3, 10, 160) at P7.
@@ -116,10 +117,44 @@
 //   and writes 16-byte rows. The tile's geometry is fixed at compile time,
 //   so the loops hold no division by a runtime value, and a thread is held
 //   to 64 registers (four blocks an SM).
-// - direct (any shape; served alone where C/g is not 1, 16 or 32, O/g is
-//   not 1 or a multiple of 8, or the kernel is not 3x3: C/g = 3 or 4,
-//   O = 2C, ...): the first version, kept as the general route. A thread
-//   owns one output channel at kPix neighbouring output columns, so each
+// - narrow (C/g = O/g = 2, 4 or 8, C % 16 == 0, 3x3, stride 1 or 2): the 3x3
+//   of DLA-X's BottleneckX (cardinality 32 or 64), the XLA op of
+//   dd3d_tpu/models/layers.py:273 at C/g 4 and 8 in DLA-X-60 and DLA-X-102
+//   (levels 2-3), 2 to 8 in the -C variants. What bounds it: bytes. Level 2's stride-2 conv,
+//   (8, 192, 640, 128) -> (8, 96, 320, 128) at C/g 4, reads 126 MB and writes
+//   63 MB of bf16 (56 us at 3.35 TB/s) for 1.13 G multiply-adds, 0.28 G
+//   __dp4a: 17 us at 64 __dp4a a clock an SM (the IMAD rate; a __dp4a loop
+//   issues as fast as an IMAD loop on this card), so once each input byte
+//   comes from device memory about once, the memory sets the time. (At stride 1 and C/g 8, (8, 48, 160, 256), the
+//   bytes take 14 us and the same 0.28 G __dp4a 17 us.) Design: the
+//   depthwise route's tile (8 output rows x 32 columns x 32 channels, the
+//   input halo staged with 16-byte cp.async, zero-filled, on rows that put a
+//   half-warp's reads on distinct banks); 32 channels are whole groups at
+//   C/g <= 8. A thread owns 8 channels at 4 neighbouring columns, and since
+//   O/g = C/g its 8 outputs read exactly its 8 input channels: one 8-byte
+//   shared load a pixel and tap feeds 16 __dp4a at C/g 8 (two words of one
+//   group), 8 at C/g 4 (a word a group) and 8 at C/g 2 (two groups a word:
+//   each output's weight word is zero in the other group's half), where the
+//   direct route loads a word for one __dp4a. The weights are expanded once
+//   a block into such words, block-diagonal, in shared memory ([tap][octet]
+//   rows padded so the four octets a warp reads lie on distinct banks), and
+//   read as 16-byte vectors, one tap's at a time. A block sums kNarrowTiles
+//   tiles of one image in turn, two staging buffers deep: the copies of
+//   tile i + 1 are in flight while tile i is summed. Blocks of the same
+//   tiles and neighbouring channel runs are neighbours in the grid. Sums are
+//   exact int32s below 2^24, so the epilogue's float conversion is exact;
+//   it writes 8 channels a pixel with 16-byte stores (store8). A thread is
+//   held to 128 registers (two blocks an SM; 74 KB of shared memory a block
+//   at stride 2). Measured against it on the card, each slower or no faster
+//   on DLA-X-60's six convs: one tile a block held to 80 registers (three
+//   blocks an SM, a few bytes spilled), 2 or 8 tiles a block, the channel
+//   runs slowest in the grid, and the tensor cores: the mma kernel on
+//   block-diagonal weights, every 32 channels one group of C/g 32
+//   (dd3d_tpu_torch/bench_grouped.py times it beside this route).
+// - direct (any shape; served alone where no other route admits it: C/g
+//   3, O = 2C, 5x5, stride 3, C % 16 != 0, ...): the first version, kept as
+//   the general route. A thread owns one output channel at kPix
+//   neighbouring output columns, so each
 //   weight it loads serves kPix sums; neighbouring threads own neighbouring
 //   channels, so a warp's stores and input reads are contiguous. With
 //   C % 4 == 0 and C/g % 4 == 0 it takes four channels a __dp4a, else one
@@ -594,6 +629,35 @@ __device__ __forceinline__ void store8(OutT* dst, const float (&sum)[8], const f
   }
 }
 
+// The staged halo tile of a kDwTH x kDwTW output tile at stride S: rows,
+// columns (pixels of kDwCB bytes), bytes between rows.
+template <int S>
+struct DwTile {
+  static constexpr int kRows = (kDwTH - 1) * S + 3;
+  static constexpr int kCols = (kDwTW - 1) * S + 3;
+  static constexpr int kRowBytes = dw_row_bytes(S);
+};
+
+// Stages the input tile with its halo (input rows and columns from h0 and
+// w0, channels c0 onward of image b) with 16-byte cp.async, two chunks a
+// pixel; zeros outside the image and past the last channel. Commits the
+// copies as one group.
+template <int S>
+__device__ __forceinline__ void stage_dw_tile(unsigned char* tile, const int8_t* x, const ConvShape& s, int b, int h0,
+                                              int w0, int c0) {
+  using Tile = DwTile<S>;
+  const int8_t* xb = x + static_cast<size_t>(b) * s.h * s.w * s.c;
+  for (int i = threadIdx.x; i < Tile::kRows * Tile::kCols * 2; i += kDwThreads) {
+    const int half = i & 1, pix = i >> 1;
+    const int r = pix / Tile::kCols, q = pix - r * Tile::kCols;
+    const int hi = h0 + r, wi = w0 + q, c = c0 + half * 16;
+    const bool ok = hi >= 0 && hi < s.h && wi >= 0 && wi < s.w && c < s.c;
+    cp_async16(smem_u32(tile + r * Tile::kRowBytes + q * kDwCB + half * 16),
+               ok ? xb + (static_cast<size_t>(hi) * s.w + wi) * s.c + c : x, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 // x int8 (B, H, W, C); w int8 (C, 3, 3, 1); out (B, Ho, Wo, C). Grid: (output
 // tiles of kDwTH x kDwTW, runs of kDwCB channels, images).
 template <int S, typename OutT>
@@ -601,29 +665,15 @@ __global__ void __launch_bounds__(kDwThreads, 2)  // <= 128 registers: two block
 int8_conv_depthwise_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                            const float* __restrict__ scale, const float* __restrict__ bias, OutT* __restrict__ out,
                            ConvShape s, int tiles_w) {
-  constexpr int kRows = (kDwTH - 1) * S + 3, kCols = (kDwTW - 1) * S + 3;
-  constexpr int kRowBytes = dw_row_bytes(S);
-  __shared__ __align__(16) unsigned char tile[kRows * kRowBytes];
+  constexpr int kRowBytes = DwTile<S>::kRowBytes;
+  __shared__ __align__(16) unsigned char tile[DwTile<S>::kRows * kRowBytes];
   __shared__ __align__(16) float wsm[9][kDwCB];
 
   const int tid = threadIdx.x;
   const int oh0 = (blockIdx.x / tiles_w) * kDwTH, ow0 = (blockIdx.x % tiles_w) * kDwTW;
   const int c0 = blockIdx.y * kDwCB;
   const int b = blockIdx.z;
-  const int h0 = oh0 * S - s.pad, w0 = ow0 * S - s.pad;
-  const int8_t* xb = x + static_cast<size_t>(b) * s.h * s.w * s.c;
-
-  // The input tile with its halo, two 16-byte chunks a pixel; zeros outside
-  // the image and past the last channel.
-  for (int i = tid; i < kRows * kCols * 2; i += kDwThreads) {
-    const int half = i & 1, pix = i >> 1;
-    const int r = pix / kCols, q = pix - r * kCols;
-    const int hi = h0 + r, wi = w0 + q, c = c0 + half * 16;
-    const bool ok = hi >= 0 && hi < s.h && wi >= 0 && wi < s.w && c < s.c;
-    cp_async16(smem_u32(tile + r * kRowBytes + q * kDwCB + half * 16),
-               ok ? xb + (static_cast<size_t>(hi) * s.w + wi) * s.c + c : x, ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  stage_dw_tile<S>(tile, x, s, b, oh0 * S - s.pad, ow0 * S - s.pad, c0);
   for (int i = tid; i < 9 * kDwCB; i += kDwThreads) {
     const int tap = i / kDwCB, c = c0 + i % kDwCB;
     wsm[tap][i % kDwCB] = c < s.c ? static_cast<float>(w[c * 9 + tap]) : 0.0f;
@@ -700,6 +750,167 @@ int launch_grouped_depthwise(const void* x, const void* w, const float* scale, c
     int8_conv_depthwise_kernel<2, OutT><<<grid, kDwThreads, 0, st>>>(xi, wi, scale, bias, o, s, tiles_w);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The narrow route ----
+
+constexpr int kNarrowTiles = 4;  // output tiles a block: each staged while the one before is summed
+
+// The expanded weights of the narrow route at C/g = CG: for each tap and
+// octet of the block's channels, the 8 outputs' weight words over the
+// octet's 8 input channels, zero outside each output's group. Only the
+// words that can be non-zero are kept: both at C/g 8, at C/g 2 and 4 the one
+// that holds the output's group (input word e / 4 for output e).
+template <int CG>
+struct NarrowWeights {
+  static constexpr int kWords = CG == 8 ? 2 : 1;          // words an output a tap
+  static constexpr int kOctBytes = 8 * kWords * 4 + 16;  // an octet's row, +16: four octets on distinct banks
+  static constexpr int kBytes = 9 * 4 * kOctBytes;
+};
+
+// x int8 (B, H, W, C); w int8 (C, 3, 3, CG); out (B, Ho, Wo, C), with C/g =
+// O/g = CG. Grid: (runs of kDwCB channels; runs of kNarrowTiles of the
+// image's output tiles of kDwTH x kDwTW, in row-major order; images).
+template <int S, int CG, typename OutT>
+__global__ void __launch_bounds__(kDwThreads, 2)  // <= 128 registers: two blocks an SM
+int8_conv_grouped_narrow_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                const float* __restrict__ scale, const float* __restrict__ bias,
+                                OutT* __restrict__ out, ConvShape s, int tiles_w, int tiles) {
+  using Wt = NarrowWeights<CG>;
+  constexpr int kRowBytes = DwTile<S>::kRowBytes;
+  constexpr int kTileBytes = DwTile<S>::kRows * kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* wsm = smem + 2 * kTileBytes;
+
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kDwCB;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.y * kNarrowTiles, t1 = min(t0 + kNarrowTiles, tiles);
+  auto stage = [&](int t, int buf) {
+    stage_dw_tile<S>(smem + buf * kTileBytes, x, s, b, (t / tiles_w) * kDwTH * S - s.pad,
+                     (t % tiles_w) * kDwTW * S - s.pad, c0);
+  };
+  stage(t0, 0);
+  // Weight word k of output e (channel c0 + 8 oct + e) at tap t: input
+  // channels 4 kx .. 4 kx + 3 of the octet, kx = k at C/g 8 and e / 4
+  // otherwise; byte i holds the weight of channel 4 kx + i where that
+  // channel lies in the output's group, else 0.
+  for (int i = tid; i < 9 * kDwCB * Wt::kWords; i += kDwThreads) {
+    const int k = i % Wt::kWords, ol = (i / Wt::kWords) % kDwCB, t = i / (Wt::kWords * kDwCB);
+    const int o = c0 + ol, e = ol % 8;
+    const int kx = Wt::kWords == 2 ? k : e / 4;
+    uint32_t word = 0;
+    if (o < s.c) {
+      const int8_t* wo = w + (static_cast<size_t>(o) * 9 + t) * CG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ch = 4 * kx + j;  // input channel within the octet
+        if (ch / CG == e / CG) word |= static_cast<uint32_t>(static_cast<uint8_t>(wo[ch % CG])) << (8 * j);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(wsm + (t * 4 + ol / 8) * Wt::kOctBytes + (e * Wt::kWords + k) * 4) = word;
+  }
+
+  // Thread: 8 channels (octet lane % 4) at kDwPix neighbouring columns
+  // (warp) of one output row (lane / 4) of each tile, as the depthwise
+  // route's.
+  const int lane = tid % 32, warp = tid / 32;
+  const int oct = lane % 4, row = lane / 4;
+  const int c = c0 + oct * 8;
+  float sc[8], bi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sc[e] = c < s.c ? __ldg(scale + c + e) : 0.0f;
+    bi[e] = c < s.c ? bias_term(bias, c + e, OutT()) : 0.0f;
+  }
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) {
+      stage(t + 1, buf ^ 1);  // into the buffer the previous tile was summed from
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // tile t staged by all (and the weights, before the first)
+
+    int acc[kDwPix][8];
+#pragma unroll
+    for (int p = 0; p < kDwPix; ++p) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[p][e] = 0;
+    }
+    const unsigned char* src = smem + buf * kTileBytes + row * S * kRowBytes + warp * kDwPix * S * kDwCB + oct * 8;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int r = tap / 3, q = tap % 3;
+      uint32_t wt[8 * Wt::kWords];
+#pragma unroll
+      for (int v = 0; v < 2 * Wt::kWords; ++v) {
+        const uint4 u = reinterpret_cast<const uint4*>(wsm + (tap * 4 + oct) * Wt::kOctBytes)[v];
+        wt[4 * v] = u.x; wt[4 * v + 1] = u.y; wt[4 * v + 2] = u.z; wt[4 * v + 3] = u.w;
+      }
+#pragma unroll
+      for (int p = 0; p < kDwPix; ++p) {
+        const uint2 xv = *reinterpret_cast<const uint2*>(src + r * kRowBytes + (p * S + q) * kDwCB);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (Wt::kWords == 2) {
+            acc[p][e] = __dp4a(static_cast<int>(xv.y), static_cast<int>(wt[2 * e + 1]),
+                               __dp4a(static_cast<int>(xv.x), static_cast<int>(wt[2 * e]), acc[p][e]));
+          } else {
+            acc[p][e] = __dp4a(static_cast<int>(e < 4 ? xv.x : xv.y), static_cast<int>(wt[e]), acc[p][e]);
+          }
+        }
+      }
+    }
+
+    const int oh = (t / tiles_w) * kDwTH + row, ow0 = (t % tiles_w) * kDwTW + warp * kDwPix;
+    if (oh < s.ho && c < s.c) {
+#pragma unroll
+      for (int p = 0; p < kDwPix; ++p) {
+        if (ow0 + p < s.wo) {
+          float sum[8];  // exact: |sum| <= 9 * 8 * 127^2 < 2^24
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum[e] = __int2float_rn(acc[p][e]);
+          store8(out + ((static_cast<size_t>(b) * s.ho + oh) * s.wo + ow0 + p) * s.o + c, sum, sc, bi,
+                 bias != nullptr);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is staged again
+  }
+}
+
+template <int S, int CG, typename OutT>
+int launch_narrow_kernel(const int8_t* x, const int8_t* w, const float* scale, const float* bias, OutT* out,
+                         const ConvShape& s, cudaStream_t stream) {
+  constexpr int smem = 2 * DwTile<S>::kRows * DwTile<S>::kRowBytes + NarrowWeights<CG>::kBytes;  // 2 tiles, weights
+  cudaError_t err = cudaFuncSetAttribute(int8_conv_grouped_narrow_kernel<S, CG, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_w = (s.wo + kDwTW - 1) / kDwTW, tiles = ((s.ho + kDwTH - 1) / kDwTH) * tiles_w;
+  const dim3 grid((s.c + kDwCB - 1) / kDwCB, (tiles + kNarrowTiles - 1) / kNarrowTiles, s.batch);
+  int8_conv_grouped_narrow_kernel<S, CG, OutT><<<grid, kDwThreads, smem, stream>>>(x, w, scale, bias, out, s,
+                                                                                   tiles_w, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_grouped_narrow(const void* x, const void* w, const float* scale, const float* bias, void* out,
+                          const ConvShape& s, int groups, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  const int8_t* wi = static_cast<const int8_t*>(w);
+  OutT* o = static_cast<OutT*>(out);
+  const int cg = s.c / groups;
+  if (s.stride == 1) {
+    return cg == 2   ? launch_narrow_kernel<1, 2>(xi, wi, scale, bias, o, s, st)
+           : cg == 4 ? launch_narrow_kernel<1, 4>(xi, wi, scale, bias, o, s, st)
+                     : launch_narrow_kernel<1, 8>(xi, wi, scale, bias, o, s, st);
+  }
+  return cg == 2   ? launch_narrow_kernel<2, 2>(xi, wi, scale, bias, o, s, st)
+         : cg == 4 ? launch_narrow_kernel<2, 4>(xi, wi, scale, bias, o, s, st)
+                   : launch_narrow_kernel<2, 8>(xi, wi, scale, bias, o, s, st);
 }
 
 // ---- The mma route ----
@@ -965,8 +1176,9 @@ int dd3d_int8_conv(const void* x, const void* w, const float* scale, const float
 // groups; no channel padding is needed. Every tensor contiguous and under
 // 2^31 elements (the wrapper checks). `route` names the kernel: 0 direct
 // (any shape), 1 depthwise (c / groups == 1, o == c, c % 16 == 0), 2 mma
-// (c / groups 16 or 32, o / groups a multiple of 8 up to 64); 1 and 2 take
-// 3x3 kernels at stride 1 or 2 and 16-byte aligned x, w and out. Launches on
+// (c / groups 16 or 32, o / groups a multiple of 8 up to 64), 3 narrow
+// (c / groups == o / groups, 2, 4 or 8, c % 16 == 0); 1, 2 and 3 take 3x3
+// kernels at stride 1 or 2 and 16-byte aligned x, w and out. Launches on
 // `stream`, does not synchronise; returns cudaGetLastError(), or -1 on a
 // shape or route the kernels do not take.
 int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, const float* bias, void* out,
@@ -985,7 +1197,8 @@ int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, con
                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (route == 1 && !(tiled && cg == 1 && og == 1 && c % 16 == 0)) return -1;
   if (route == 2 && !(tiled && (cg == 16 || cg == 32) && og % 8 == 0 && og <= 64)) return -1;
-  if (route < 0 || route > 2) return -1;
+  if (route == 3 && !(tiled && (cg == 2 || cg == 4 || cg == 8) && og == cg && c % 16 == 0)) return -1;
+  if (route < 0 || route > 3) return -1;
   if (s.m == 0) return 0;
   if (route == 1) {
     return out_bf16 ? launch_grouped_depthwise<__nv_bfloat16>(x, w, scale, bias, out, s, stream)
@@ -994,6 +1207,10 @@ int dd3d_int8_conv_grouped(const void* x, const void* w, const float* scale, con
   if (route == 2) {
     return out_bf16 ? launch_grouped_mma<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
                     : launch_grouped_mma<float>(x, w, scale, bias, out, s, groups, stream);
+  }
+  if (route == 3) {
+    return out_bf16 ? launch_grouped_narrow<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
+                    : launch_grouped_narrow<float>(x, w, scale, bias, out, s, groups, stream);
   }
   return out_bf16 ? launch_grouped<__nv_bfloat16>(x, w, scale, bias, out, s, groups, stream)
                   : launch_grouped<float>(x, w, scale, bias, out, s, groups, stream);

@@ -23,9 +23,11 @@ the TPU. PyTorch has no int8 convolution on CUDA.
   grouped kernels of the same source, chosen by shape (`grouped_route`):
   `depthwise` (C/g = 1, O = C: BiFPN's `dw` convs, a shared-memory tile on
   the CUDA cores), `mma` (C/g = 16 or 32, O/g a multiple of 8: RegNet's
-  Y-block `b` convs, an implicit GEMM a group on the tensor cores) or
-  `direct` (any shape, a direct conv on the CUDA cores); `route=` forces one
-  the shape admits. CPU tensors run `int8_conv_grouped_plain`.
+  Y-block `b` convs, an implicit GEMM a group on the tensor cores), `narrow`
+  (C/g = O/g = 2, 4 or 8: DLA-X's BottleneckX 3x3, the depthwise tile with
+  __dp4a over whole groups) or `direct` (any shape, a direct conv on the
+  CUDA cores); `route=` forces one the shape admits. CPU tensors run
+  `int8_conv_grouped_plain`.
 - `int8_conv_dequant(x, weight, bias, stride, pad, out_dtype, act_amax,
   groups=1, requant_amax=None)`: the counterpart of `_int8_conv` as a whole
   (plus the bias), on the port's NCHW (channels_last) activations and OIHW
@@ -245,14 +247,15 @@ int8_conv.launches = 0
 int8_conv.launches_by_out = dict.fromkeys(OUT_KINDS, 0)
 
 
-GROUPED_ROUTES = ("direct", "depthwise", "mma")  # the C entry's route codes 0, 1, 2
+GROUPED_ROUTES = ("direct", "depthwise", "mma", "narrow")  # the C entry's route codes 0, 1, 2, 3
 
 
 def grouped_routes(c: int, o: int, kh: int, kw: int, stride: int, groups: int):
     """The routes of csrc/int8_conv.cu's grouped conv that take this shape,
     the preferred first; `direct` takes every shape. `depthwise`: one input
     and one output channel a group, C % 16 == 0; `mma`: C/g of 16 or 32,
-    O/g a multiple of 8 up to 64; both 3x3 at stride 1 or 2."""
+    O/g a multiple of 8 up to 64; `narrow`: C/g = O/g of 2, 4 or 8,
+    C % 16 == 0; all three 3x3 at stride 1 or 2."""
     cg, og = c // groups, o // groups
     tiled = kh == 3 and kw == 3 and stride in (1, 2)
     routes = []
@@ -260,6 +263,8 @@ def grouped_routes(c: int, o: int, kh: int, kw: int, stride: int, groups: int):
         routes.append("depthwise")
     if tiled and cg in (16, 32) and og % 8 == 0 and og <= 64:
         routes.append("mma")
+    if tiled and cg in (2, 4, 8) and og == cg and c % 16 == 0:
+        routes.append("narrow")
     return tuple(routes) + ("direct",)
 
 

@@ -421,10 +421,10 @@ def test_int8_conv_grouped_kernel_matches_plain(card, b, h, w, c, g, stride):
 # 1 here): BottleneckX's 3x3, cardinality 32, so C/g = O/g = 4, 8, 16 and 32
 # at levels 2-5, stride 2 in each level's first block
 DLAX_GROUPED_SHAPES = [
-    (1, 192, 640, 128, 2, "direct"),  # level2, C/g = 4
-    (1, 96, 320, 128, 1, "direct"),
-    (1, 96, 320, 256, 2, "direct"),   # level3, C/g = 8
-    (1, 48, 160, 256, 1, "direct"),
+    (1, 192, 640, 128, 2, "narrow"),  # level2, C/g = 4
+    (1, 96, 320, 128, 1, "narrow"),
+    (1, 96, 320, 256, 2, "narrow"),   # level3, C/g = 8
+    (1, 48, 160, 256, 1, "narrow"),
     (1, 48, 160, 512, 2, "mma"),      # level4, C/g = 16
     (1, 24, 80, 512, 1, "mma"),
     (1, 24, 80, 1024, 2, "mma"),      # level5, C/g = 32
@@ -436,7 +436,7 @@ DLAX_GROUPED_SHAPES = [
 def test_int8_conv_grouped_kernel_matches_plain_at_dlax_shapes(card, b, h, w, c, stride, route):
     """DLA-X's grouped shapes on the route they take, and on `direct`, bit
     for bit: C/g = 32 is the mma route's widest group, which no RegNetY conv
-    reaches; C/g = 4 and 8 run the direct kernel on a model's path."""
+    reaches; C/g = 4 and 8 run the narrow kernel on a model's path."""
     from dd3d_tpu_torch.ops.int8_conv import grouped_routes
 
     assert grouped_routes(c, c, 3, 3, stride, 32)[0] == route
@@ -455,19 +455,33 @@ def test_int8_conv_grouped_kernel_matches_plain_at_dlax_shapes(card, b, h, w, c,
     (2, 12, 20, 48, 72, 3, 2, "mma"),           # O/g = 24: a pass of two n8 tiles, then one
     (2, 23, 45, 64, 64, 4, 2, "mma"),           # odd H and W at stride 2
     (1, 11, 19, 112, 112, 7, 1, "mma"),         # 7 groups: a run of 4, then a ragged run of 3
+    (2, 13, 37, 64, 64, 16, 1, "narrow"),       # C/g = 4; H and W that no 8 x 32 tile divides
+    (2, 23, 45, 64, 64, 8, 2, "narrow"),        # C/g = 8; odd H and W at stride 2
+    (1, 9, 33, 128, 128, 32, 1, "narrow"),      # batch 1
+    (1, 5, 3, 32, 32, 8, 2, "narrow"),          # a tile larger than the image
+    (2, 12, 20, 64, 64, 32, 1, "narrow"),       # C/g = 2: two groups a word
+    (2, 11, 19, 64, 64, 32, 2, "narrow"),       # C/g = 2 at stride 2
+    (2, 10, 18, 256, 256, 64, 2, "narrow"),     # 64 groups, C/g = 4
+    (1, 9, 14, 512, 512, 64, 1, "narrow"),      # 64 groups, C/g = 8
+    (2, 11, 21, 48, 48, 6, 1, "narrow"),        # C = 48: a half-filled run of 32 channels
+    (1, 7, 9, 16, 16, 8, 2, "narrow"),          # C = 16, C/g = 2: one half-filled run
     (2, 9, 11, 12, 12, 4, 1, "direct"),         # C/g = 3
-    (2, 13, 17, 24, 24, 6, 2, "direct"),        # C/g = 4
+    (2, 13, 17, 24, 24, 6, 2, "direct"),        # C/g = 4, C % 16 != 0
     (1, 7, 9, 8, 16, 2, 1, "direct"),           # O = 2 C
 ])
 def test_int8_conv_grouped_route_edges(card, b, h, w, c, o, g, stride, route):
-    """Each route at its edges, bit for bit, and the dispatcher's choice."""
-    from dd3d_tpu_torch.ops.int8_conv import grouped_route
+    """Each route at its edges, and `direct` on the same case, bit for bit,
+    and the dispatcher's choice."""
+    from dd3d_tpu_torch.ops.int8_conv import grouped_route, grouped_routes
 
     assert grouped_route(c, o, 3, 3, stride, g) == route
-    _check_grouped_route(*_grouped_case(card, b, h, w, c, o, g, stride, b + h + c), stride, g, route)
+    case = _grouped_case(card, b, h, w, c, o, g, stride, b + h + c)
+    for r in grouped_routes(c, o, 3, 3, stride, g):
+        _check_grouped_route(*case, stride, g, r)
 
 
 @pytest.mark.parametrize("c,o,g,stride,route", [(32, 32, 32, 2, "depthwise"), (64, 64, 4, 2, "mma"),
+                                                 (64, 64, 16, 2, "narrow"), (48, 48, 6, 1, "narrow"),
                                                  (24, 24, 6, 1, "direct")])
 def test_int8_conv_grouped_routes_on_runs_of_images(card, monkeypatch, c, o, g, stride, route):
     """A batch split by `batch_chunks` into runs of 2 images (as past 2^31
@@ -486,10 +500,13 @@ def test_int8_conv_grouped_rejects_a_route_the_shape_does_not_take(card):
     xq, wq, scale, _ = _grouped_case(card, 1, 8, 8, 24, 24, 6, 1, 0)
     with pytest.raises(ValueError, match="route"):
         int8_conv_grouped(xq, wq, scale, None, 1, 1, torch.float32, 6, route="mma")
-    _, wq, scale, _ = _grouped_case(card, 1, 8, 8, 64, 64, 4, 1, 0)
+    with pytest.raises(ValueError, match="route"):  # C/g = 4, but C % 16 != 0
+        int8_conv_grouped(xq, wq, scale, None, 1, 1, torch.float32, 6, route="narrow")
     shifted = torch.zeros(8 * 8 * 64 + 1, dtype=torch.int8, device=card)[1:].view(1, 8, 8, 64)  # 1 byte off
-    with pytest.raises(ValueError, match="aligned"):
-        int8_conv_grouped(shifted, wq, scale, None, 1, 1, torch.float32, 4, route="mma")
+    for g, route in ((4, "mma"), (16, "narrow")):
+        _, wq, scale, _ = _grouped_case(card, 1, 8, 8, 64, 64, g, 1, 0)
+        with pytest.raises(ValueError, match="aligned"):
+            int8_conv_grouped(shifted, wq, scale, None, 1, 1, torch.float32, g, route=route)
 
 
 def test_int8_conv_dequant_kernel_path_matches_plain(card):

@@ -9,8 +9,8 @@ with cardinality 32 (DLA-X-46-C, DLA-X-60-C, DLA-X-60, DLA-X-102) or 64
   the f64 oracle of tests/test_torch_train.py;
 - the grouped int8 conv's route for every grouped conv of each variant:
   C/g = planes * cardinality / 32 / cardinality, so DLA-X-60's levels 2-5
-  give C/g = 4, 8, 16 and 32 (O/g the same), 4 and 8 on `direct`, 16 and 32
-  on `mma`; the -C variants' 2, 2, 4 and 8 all on `direct`;
+  give C/g = 4, 8, 16 and 32 (O/g the same), 4 and 8 on `narrow`, 16 and 32
+  on `mma`; the -C variants' 2, 2, 4 and 8 all on `narrow`;
 - the plain grouped int8 conv at C/g = 2, 4, 8 and 32, stride 1 and 2,
   against JAX's `_int8_conv` with feature_group_count: accumulators bit for
   bit, the dequant bit for bit to its written arithmetic and within
@@ -79,9 +79,9 @@ def test_every_grouped_conv_takes_its_route(name):
     for (c, o, stride, g), n in shapes.items():
         assert o == c and stride in (1, 2)
         by_cg.setdefault(c // g, set()).add(grouped_route(c, o, 3, 3, stride, g))
-    want = {"DLA-X-46-C": {2: {"direct"}, 4: {"direct"}, 8: {"direct"}},
-            "DLA-X-60-C": {2: {"direct"}, 4: {"direct"}, 8: {"direct"}}}.get(
-        name, {4: {"direct"}, 8: {"direct"}, 16: {"mma"}, 32: {"mma"}})
+    want = {"DLA-X-46-C": {2: {"narrow"}, 4: {"narrow"}, 8: {"narrow"}},
+            "DLA-X-60-C": {2: {"narrow"}, 4: {"narrow"}, 8: {"narrow"}}}.get(
+        name, {4: {"narrow"}, 8: {"narrow"}, 16: {"mma"}, 32: {"mma"}})
     assert by_cg == want
     if name == "DLA-X-60":  # 2, 4, 8 and 2 blocks at levels 2-5; each level's first 3x3 has stride 2
         assert sum(shapes.values()) == 16 and sum(n for (_, _, s, _), n in shapes.items() if s == 2) == 4
@@ -138,7 +138,7 @@ def test_static_int8_trunk_runs_every_grouped_conv_on_its_route():
         mp.setattr(int8_ops, "int8_conv_grouped", counted)
         static = pt(x)
     assert spec.misses == []
-    assert routes == {(4, "direct"): 2, (8, "direct"): 4, (16, "mma"): 8, (32, "mma"): 2}
+    assert routes == {(4, "narrow"): 2, (8, "narrow"): 4, (16, "mma"): 8, (32, "mma"): 2}
     for k in dynamic:
         assert torch.equal(dynamic[k], static[k]), k
     with jax_quant_globals_restored():

@@ -1,9 +1,10 @@
 """The grouped int8 conv's choice of kernel and its CPU path
 (dd3d_tpu_torch/ops/int8_conv.py). The choice is Python: every grouped conv
 of dd3d_kitti_regnety_006_bifpn goes to the kernel built for its shape (the
-Y-block `b` convs to `mma`, BiFPN's `dw` convs to `depthwise`), every other
-shape to `direct`, and a CPU tensor runs the plain version whatever route
-is named. The kernels are held to the plain version on the card
+Y-block `b` convs to `mma`, BiFPN's `dw` convs to `depthwise`), every
+BottleneckX 3x3 of the DLA-X variants at C/g = 2, 4 and 8 to `narrow`, every
+other shape to `direct`, and a CPU tensor runs the plain version whatever
+route is named. The kernels are held to the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 31)."""
 from collections import Counter
 
@@ -15,7 +16,7 @@ from dd3d_tpu_torch.configs import get_experiment_cfg
 from dd3d_tpu_torch.models import build_model
 from dd3d_tpu_torch.models.layers import FoldableConv
 from dd3d_tpu_torch.ops.int8_conv import (GROUPED_ROUTES, grouped_route, grouped_routes, int8_conv_grouped,
-                                          int8_conv_grouped_plain)
+                                          int8_conv_grouped_acc_plain, int8_conv_grouped_plain)
 
 # (H, W, C, groups, stride) of every distinct grouped conv of the regnety
 # forward at 384x1280 (O = C), and the route each must take
@@ -34,9 +35,26 @@ REGNETY_GROUPED = [
     ((3, 10, 160, 160, 1), "depthwise"),    # P7 dw
 ]
 
+# (C, stride, groups) of every grouped conv of the five DLA-X variants at
+# C/g = 2, 4 or 8 (O = C): BottleneckX's 3x3, cardinality 32 or 64, stride 2
+# in each level's first block
+DLAX_NARROW = [
+    (64, 2, 32), (64, 1, 32),    # DLA-X-46-C / -60-C levels 2-3: C/g = 2
+    (128, 2, 32), (128, 1, 32),  # DLA-X-60 / -102 level 2, the -C variants' level 4: C/g = 4
+    (256, 2, 32), (256, 1, 32),  # DLA-X-60 / -102 level 3, the -C variants' level 5: C/g = 8
+    (256, 2, 64), (256, 1, 64),  # DLA-X-102-64 level 2: C/g = 4
+    (512, 2, 64), (512, 1, 64),  # DLA-X-102-64 level 3: C/g = 8
+]
+
 # (C, O, k, stride, groups): shapes no tiled kernel takes
 DIRECT_ONLY = [
-    (24, 24, 3, 2, 6),     # C/g = 4
+    (24, 24, 3, 2, 6),     # C/g = 4, C % 16 != 0
+    (24, 24, 3, 1, 6),     # the same at stride 1
+    (40, 40, 3, 1, 10),    # C/g = 4, C % 16 == 8
+    (48, 96, 3, 1, 12),    # C/g = 4, O/g = 8
+    (64, 64, 5, 1, 16),    # C/g = 4, 5x5
+    (64, 64, 3, 3, 8),     # C/g = 8, stride 3
+    (64, 64, 1, 1, 32),    # C/g = 2, 1x1
     (12, 12, 3, 1, 4),     # C/g = 3
     (8, 16, 3, 1, 2),      # O = 2 C
     (160, 320, 3, 1, 160),  # a depthwise multiplier of 2
@@ -56,6 +74,14 @@ def test_regnety_grouped_shapes_take_their_kernel(shape, route):
     _, _, c, g, stride = shape
     assert grouped_route(c, c, 3, 3, stride, g) == route
     assert grouped_routes(c, c, 3, 3, stride, g) == (route, "direct")
+
+
+@pytest.mark.parametrize("c,stride,g", DLAX_NARROW)
+def test_dlax_narrow_shapes_take_the_narrow_kernel(c, stride, g):
+    """Every BottleneckX 3x3 at C/g = 2, 4 or 8 goes to `narrow`, with
+    `direct` the only other route that takes it."""
+    assert grouped_route(c, c, 3, 3, stride, g) == "narrow"
+    assert grouped_routes(c, c, 3, 3, stride, g) == ("narrow", "direct")
 
 
 @pytest.mark.parametrize("c,o,k,stride,g", DIRECT_ONLY)
@@ -87,7 +113,8 @@ def _case(b, h, w, c, o, g, seed=0):
     return xq, wq, scale, bias
 
 
-@pytest.mark.parametrize("c,o,g,stride", [(32, 32, 32, 1), (32, 32, 2, 2), (12, 12, 4, 1)])
+@pytest.mark.parametrize("c,o,g,stride", [(32, 32, 32, 1), (32, 32, 2, 2), (12, 12, 4, 1), (32, 32, 8, 2),
+                                          (32, 32, 16, 1), (16, 16, 2, 1)])
 def test_cpu_tensors_run_the_plain_version_on_every_route(c, o, g, stride):
     """On CPU tensors the wrapper runs `int8_conv_grouped_plain`, whichever
     route the shape admits is named, and launches nothing."""
@@ -102,8 +129,21 @@ def test_cpu_tensors_run_the_plain_version_on_every_route(c, o, g, stride):
 
 
 @pytest.mark.parametrize("c,o,g,route", [(12, 12, 4, "mma"), (12, 12, 4, "depthwise"), (32, 32, 2, "depthwise"),
-                                          (32, 32, 32, "mma"), (32, 32, 32, "wgmma")])
+                                          (32, 32, 32, "mma"), (32, 32, 32, "wgmma"), (12, 12, 4, "narrow"),
+                                          (24, 24, 6, "narrow"), (32, 32, 32, "narrow"), (32, 32, 2, "narrow")])
 def test_a_route_the_shape_does_not_take_raises(c, o, g, route):
     xq, wq, scale, _ = _case(1, 5, 5, c, o, g)
     with pytest.raises(ValueError, match="route"):
         int8_conv_grouped(xq, wq, scale, None, 1, 1, torch.float32, g, route=route)
+
+
+@pytest.mark.parametrize("c,g,stride", [(64, 32, 1), (128, 32, 2), (256, 32, 1), (256, 64, 2)])
+def test_block_diagonal_weights_give_the_same_grouped_conv(c, g, stride):
+    """bench_grouped's tensor-core alternative to `narrow`: the conv of C/g
+    = 2, 4 or 8 written as C/32 groups of 32 channels with block-diagonal
+    weights has the same int32 sums."""
+    from dd3d_tpu_torch.bench_grouped import block_diagonal_weights
+
+    xq, wq, _, _ = _case(2, 6, 9, c, c, g, seed=c + g)
+    want = int8_conv_grouped_acc_plain(xq, wq, stride, 1, g)
+    assert torch.equal(int8_conv_grouped_acc_plain(xq, block_diagonal_weights(wq, g), stride, 1, c // 32), want)
