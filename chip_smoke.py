@@ -964,6 +964,14 @@ def cudnn_bf16_conv(xq, wq, stride, pad):
     return lambda: torch.nn.functional.conv2d(xb, wb, stride=stride, padding=pad)
 
 
+def device_rows(prof):
+    """The profile's key_averages rows of device work: CUDA-typed rows, less
+    the device-side copies of host annotations (the program's spans), which
+    cover kernels already counted."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms_by_kernel(fn, reps, profiler):
     """{kernel name: device ms a call of `fn`}, from one profiler window over
     `reps` calls (after one call outside it). The profiler now and then
@@ -977,7 +985,7 @@ def device_ms_by_kernel(fn, reps, profiler):
                 fn()
             torch.cuda.synchronize()
         by_kernel = {e.key: (getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)) / 1e3
-                     / reps for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+                     / reps for e in device_rows(prof)}
         if sum(by_kernel.values()) > 0:
             return by_kernel
     log("  the profiler recorded no device time in two windows: CUDA events instead")
@@ -1536,7 +1544,7 @@ def phase13_train_timing(device, stem_cases):
             step(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = device_rows(prof)
     device_us = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0), e.key)
                  for e in kernels]
     busy = sum(t for t, _ in device_us)
@@ -2640,7 +2648,7 @@ def serving_profile(infer, images, intrinsics, reps=3):
         for i in range(reps):
             infer(images[i % len(images)], intrinsics)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = device_rows(prof)
     busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in kernels)
     return busy / 1e3 / reps, sum(e.count for e in kernels) / reps
 
@@ -3608,7 +3616,7 @@ def timed_train_steps(cfg, model, batches, steps, device, phase):
             step(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = device_rows(prof)
     busy = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
                for e in kernels) / 1e3
     return (metrics, np.percentile(times, [50, 25, 75]), peak, busy / len(batches), busy / wall_ms,
@@ -4554,7 +4562,7 @@ def remat_run(cfg, policy, batches, device):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # one step: a window costs ~2 s a step here
         step(batches[1])
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = device_rows(prof)
     device_ms = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
                     for e in kernels) / 1e3
     dw = conv_dw.conv_dw_s1_same.launches

@@ -31,6 +31,7 @@ from dd3d_tpu_torch.ops.nms import NEG_INF, batched_nms_padded
 from dd3d_tpu_torch.ops.rotated_boxes import boxes3d_corners_to_bev_boxes, rotated_nms_padded
 from dd3d_tpu_torch.structures.boxes3d import generic_corners
 from dd3d_tpu_torch.utils.convert_checkpoint import assign_quant_paths
+from dd3d_tpu_torch.utils.profiling import annotate
 
 HEAD_KEYS_2D = ("logits", "box2d_reg", "centerness")
 HEAD_KEYS_3D = ("quat", "proj_ctr", "depth", "size", "conf")
@@ -63,10 +64,12 @@ class DD3D(nn.Module):
         the cls tower's per-level NCHW outputs, as (outputs, towers)."""
         feats = self.backbone(self.preprocess_image(images))
         features = [feats[k] for k in sorted(feats, key=lambda k: int(k[1:]))]
-        head2d = self.fcos2d_head(features, return_cls_tower=return_cls_tower)
+        with annotate("forward.fcos2d"):
+            head2d = self.fcos2d_head(features, return_cls_tower=return_cls_tower)
         heads = dict(zip(HEAD_KEYS_2D, head2d))
         if self.fcos3d_head is not None:
-            heads.update(zip(HEAD_KEYS_3D, self.fcos3d_head(features)))
+            with annotate("forward.fcos3d"):
+                heads.update(zip(HEAD_KEYS_3D, self.fcos3d_head(features)))
         out = {k: [x.permute(0, 2, 3, 1) for x in v] for k, v in heads.items()}
         return (out, head2d[3]) if return_cls_tower else out
 
@@ -188,84 +191,87 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
     inf2d = cfg.DD3D.FCOS2D.INFERENCE
     box3d_on = cfg.MODEL.BOX3D_ON and ("quat" in outputs)
     device = outputs["logits"][0].device
-    if box3d_on:
-        canon = torch.tensor(cfg.DD3D.FCOS3D.CANONICAL_BOX3D_SIZES, dtype=torch.float32, device=device)
-        inv_k = torch.linalg.inv(intrinsics.float())
-
-    cands = []
-    for l, stride in enumerate(strides):
-        h, w = outputs["logits"][l].shape[1:3]
-        locations = compute_feature_locations(h, w, stride, cfg.DD3D.FEATURE_LOCATIONS_OFFSET, device=device)
-        cand = decode_fcos2d_level(
-            outputs["logits"][l], outputs["box2d_reg"][l], outputs["centerness"][l], locations,
-            num_candidates=cfg.TPU.PRE_NMS_CANDIDATES_PER_LEVEL,
-            pre_nms_thresh=inf2d.PRE_NMS_THRESH,
-            thresh_with_ctr=inf2d.THRESH_WITH_CTR,
-            use_approx_topk=bool(cfg.TPU.get("USE_APPROX_TOPK", True)),
-        )
+    with annotate("decode.levels"):
         if box3d_on:
-            cand.update(decode_fcos3d_candidates(
-                *(outputs[k][l] for k in HEAD_KEYS_3D), cand, inv_k, canon, cfg.DD3D.FCOS3D,
-                num_classes=cfg.DD3D.NUM_CLASSES, class_agnostic=cfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D,
-            ))
-        if "attr_logits" in outputs:
-            # NuscenesDD3D's attribute and speed at each candidate (dd3d_tpu/models/dd3d.py:342-349)
-            attr = outputs["attr_logits"][l].float()
-            attr = attr.reshape(attr.shape[0], -1, attr.shape[-1])
-            idx = cand["loc_idx"]
-            cand["attribute"] = torch.argmax(torch.gather(attr, 1, idx[..., None].expand(idx.shape + attr.shape[-1:])),
-                                             dim=-1)
-            speed = outputs["speed"][l].float().reshape(attr.shape[0], -1)
-            cand["speed"] = torch.gather(speed, 1, idx)
-        cand["fpn_level"] = torch.full_like(cand["cls"], l)
-        cand.pop("loc_idx")
-        cands.append(cand)
-    merged = {k: torch.cat([c[k] for c in cands], dim=1) for k in cands[0]}
+            canon = torch.tensor(cfg.DD3D.FCOS3D.CANONICAL_BOX3D_SIZES, dtype=torch.float32, device=device)
+            inv_k = torch.linalg.inv(intrinsics.float())
+
+        cands = []
+        for l, stride in enumerate(strides):
+            h, w = outputs["logits"][l].shape[1:3]
+            locations = compute_feature_locations(h, w, stride, cfg.DD3D.FEATURE_LOCATIONS_OFFSET, device=device)
+            cand = decode_fcos2d_level(
+                outputs["logits"][l], outputs["box2d_reg"][l], outputs["centerness"][l], locations,
+                num_candidates=cfg.TPU.PRE_NMS_CANDIDATES_PER_LEVEL,
+                pre_nms_thresh=inf2d.PRE_NMS_THRESH,
+                thresh_with_ctr=inf2d.THRESH_WITH_CTR,
+                use_approx_topk=bool(cfg.TPU.get("USE_APPROX_TOPK", True)),
+            )
+            if box3d_on:
+                cand.update(decode_fcos3d_candidates(
+                    *(outputs[k][l] for k in HEAD_KEYS_3D), cand, inv_k, canon, cfg.DD3D.FCOS3D,
+                    num_classes=cfg.DD3D.NUM_CLASSES, class_agnostic=cfg.DD3D.FCOS3D.CLASS_AGNOSTIC_BOX3D,
+                ))
+            if "attr_logits" in outputs:
+                # NuscenesDD3D's attribute and speed at each candidate (dd3d_tpu/models/dd3d.py:342-349)
+                attr = outputs["attr_logits"][l].float()
+                attr = attr.reshape(attr.shape[0], -1, attr.shape[-1])
+                idx = cand["loc_idx"]
+                cand["attribute"] = torch.argmax(
+                    torch.gather(attr, 1, idx[..., None].expand(idx.shape + attr.shape[-1:])), dim=-1)
+                speed = outputs["speed"][l].float().reshape(attr.shape[0], -1)
+                cand["speed"] = torch.gather(speed, 1, idx)
+            cand["fpn_level"] = torch.full_like(cand["cls"], l)
+            cand.pop("loc_idx")
+            cands.append(cand)
+        merged = {k: torch.cat([c[k] for c in cands], dim=1) for k in cands[0]}
     score_key = "score_3d" if box3d_on else "score"
 
-    # Cap the NMS candidate pool: suppression is a serial walk over the
-    # candidates, and only POST_NMS_TOPK boxes survive anyway.
-    nms_cap = int(cfg.TPU.get("NMS_CANDIDATES", 512))
-    total = merged[score_key].shape[1]
-    pre_sorted = 0 < nms_cap < total
-    if pre_sorted:
-        _, top_idx = stable_topk(merged[score_key], nms_cap)
-        merged = _gather_fields(merged, top_idx)
-    nms_scores = merged[score_key]
+    with annotate("decode.nms"):
+        # Cap the NMS candidate pool: suppression is a serial walk over the
+        # candidates, and only POST_NMS_TOPK boxes survive anyway.
+        nms_cap = int(cfg.TPU.get("NMS_CANDIDATES", 512))
+        total = merged[score_key].shape[1]
+        pre_sorted = 0 < nms_cap < total
+        if pre_sorted:
+            _, top_idx = stable_topk(merged[score_key], nms_cap)
+            merged = _gather_fields(merged, top_idx)
+        nms_scores = merged[score_key]
 
-    if inf2d.NMS_THRESH > 0 and cfg.DD3D.INFERENCE.DO_NMS:
-        order, keep = batched_nms_padded(merged["box"], nms_scores, merged["cls"], inf2d.NMS_THRESH,
-                                         inf2d.POST_NMS_TOPK, assume_sorted=pre_sorted, suppress=suppress)
-    else:
-        order = torch.sort(nms_scores, dim=1, descending=True, stable=True).indices
-        rank = torch.arange(order.shape[1], device=device)[None]
-        keep = torch.gather(merged["valid"], 1, order) & (rank < inf2d.POST_NMS_TOPK)
+        if inf2d.NMS_THRESH > 0 and cfg.DD3D.INFERENCE.DO_NMS:
+            order, keep = batched_nms_padded(merged["box"], nms_scores, merged["cls"], inf2d.NMS_THRESH,
+                                             inf2d.POST_NMS_TOPK, assume_sorted=pre_sorted, suppress=suppress)
+        else:
+            order = torch.sort(nms_scores, dim=1, descending=True, stable=True).indices
+            rank = torch.arange(order.shape[1], device=device)[None]
+            keep = torch.gather(merged["valid"], 1, order) & (rank < inf2d.POST_NMS_TOPK)
 
-    # Compact kept boxes to the front (stable: keeps score order), then
-    # truncate to the fixed output size D.
-    compact = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
-    order = torch.gather(order, 1, compact)
-    keep = torch.gather(keep, 1, compact)
+    with annotate("decode.outputs"):
+        # Compact kept boxes to the front (stable: keeps score order), then
+        # truncate to the fixed output size D.
+        compact = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
+        order = torch.gather(order, 1, compact)
+        keep = torch.gather(keep, 1, compact)
 
-    d = inf2d.POST_NMS_TOPK
-    merged_sorted = _gather_fields(merged, order[:, :d])
-    keep_d = keep[:, :d]
-    result = {
-        "boxes2d": merged_sorted["box"],
-        "scores": torch.where(keep_d, torch.clamp(merged_sorted["score"], min=0.0), 0.0),
-        "classes": merged_sorted["cls"],
-        "fpn_levels": merged_sorted["fpn_level"],
-        "valid": keep_d,
-    }
-    if "attribute" in merged_sorted:
-        result["attributes"] = merged_sorted["attribute"]
-        result["speeds"] = merged_sorted["speed"]
-    if box3d_on:
-        result["scores_3d"] = torch.where(keep_d, torch.clamp(merged_sorted["score_3d"], min=0.0), 0.0)
-        for k in ("boxes3d_quat", "boxes3d_proj_ctr", "boxes3d_depth", "boxes3d_size", "conf3d"):
-            result[k] = merged_sorted[k]
-        if cfg.DD3D.INFERENCE.DO_BEV_NMS:
-            result = _bev_nms_in_graph(cfg, result, intrinsics, scan=scan)
+        d = inf2d.POST_NMS_TOPK
+        merged_sorted = _gather_fields(merged, order[:, :d])
+        keep_d = keep[:, :d]
+        result = {
+            "boxes2d": merged_sorted["box"],
+            "scores": torch.where(keep_d, torch.clamp(merged_sorted["score"], min=0.0), 0.0),
+            "classes": merged_sorted["cls"],
+            "fpn_levels": merged_sorted["fpn_level"],
+            "valid": keep_d,
+        }
+        if "attribute" in merged_sorted:
+            result["attributes"] = merged_sorted["attribute"]
+            result["speeds"] = merged_sorted["speed"]
+        if box3d_on:
+            result["scores_3d"] = torch.where(keep_d, torch.clamp(merged_sorted["score_3d"], min=0.0), 0.0)
+            for k in ("boxes3d_quat", "boxes3d_proj_ctr", "boxes3d_depth", "boxes3d_size", "conf3d"):
+                result[k] = merged_sorted[k]
+    if box3d_on and cfg.DD3D.INFERENCE.DO_BEV_NMS:
+        result = _bev_nms_in_graph(cfg, result, intrinsics, scan=scan)
     return result
 
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dd3d_tpu_torch.models.layers import INIT_UNIFORM_FAN_IN, ConvNorm, PlainConv
+from dd3d_tpu_torch.utils.profiling import annotate
 
 
 def _upsample_nearest_2x(x):
@@ -107,20 +108,22 @@ class FPN(nn.Module):
         return max(self.out_feature_strides.values())
 
     def forward(self, x):
-        trunk_feats = self.bottom_up(x)
-        results, prev = {}, None
-        for f in reversed(self.in_features):
-            idx = self.in_strides[f].bit_length() - 1
-            lateral = getattr(self, f"fpn_lateral{idx}")(trunk_feats[f])
-            if prev is not None:
-                lateral = lateral + _upsample_nearest_2x(prev)
-                if self.fuse_type == "avg":
-                    lateral = lateral / 2.0
-            prev = lateral
-            results[f"p{idx}"] = getattr(self, f"fpn_output{idx}")(lateral)
-        max_idx = max(self.in_strides.values()).bit_length() - 1
-        for i, p in enumerate(self.top_block(results[f"p{max_idx}"]), start=1):
-            results[f"p{max_idx + i}"] = p
+        with annotate("forward.backbone"):
+            trunk_feats = self.bottom_up(x)
+        with annotate("forward.fpn"):
+            results, prev = {}, None
+            for f in reversed(self.in_features):
+                idx = self.in_strides[f].bit_length() - 1
+                lateral = getattr(self, f"fpn_lateral{idx}")(trunk_feats[f])
+                if prev is not None:
+                    lateral = lateral + _upsample_nearest_2x(prev)
+                    if self.fuse_type == "avg":
+                        lateral = lateral / 2.0
+                prev = lateral
+                results[f"p{idx}"] = getattr(self, f"fpn_output{idx}")(lateral)
+            max_idx = max(self.in_strides.values()).bit_length() - 1
+            for i, p in enumerate(self.top_block(results[f"p{max_idx}"]), start=1):
+                results[f"p{max_idx + i}"] = p
         return results
 
 

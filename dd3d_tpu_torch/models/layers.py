@@ -48,6 +48,7 @@ from torch import nn
 
 from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, check_kernel_size
 from dd3d_tpu_torch.ops.int8_conv import QuantizedActivation, int8_conv_dequant
+from dd3d_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -361,27 +362,34 @@ class FoldableConv(nn.Module):
         norm or not, on an input of `in_channels` channels."""
         return spec.enabled and self.quantizable and (folded or spec.unfolded) and in_channels >= spec.min_ch
 
+    def _folded(self, mul, add):
+        """(weight, bias) with the norm's `mul`/`add` folded in, in fp32."""
+        if mul is None:
+            return self.weight, self.bias
+        weight = self.weight * mul[:, None, None, None]  # fp32, before the cast
+        return weight, self.bias * mul + add if self.bias is not None else add
+
     def forward(self, x, mul=None, add=None, requant_amax=None):
         """The conv (the norm's `mul`/`add` folded in). With `requant_amax`
         (TowerConv's fused link), the QuantizedActivation of its ReLU at
         that static amax's scale; a QuantizedActivation `x` must take the
         int8 path."""
-        weight, bias = self.weight, self.bias
-        if mul is not None:
-            weight = weight * mul[:, None, None, None]  # fp32, before the cast
-            bias = bias * mul + add if bias is not None else add
         pad = (self.kernel_size - 1) // 2
         if self.kernel_weight_grad and self.training:
             # conv, then the bias in the activation dtype, as the s2d stem's
             # conv2d_s1_same path does (dd3d_tpu/models/s2d.py:310-314)
+            weight, bias = self._folded(mul, add)
             y = Conv2dS1Same.apply(x, weight.to(x.dtype), self.weight_grad_plain)
             return y if bias is None else y + bias.to(x.dtype)[:, None, None]
         spec = _QUANT.get()
         if spec.enabled and self.quantizable and (mul is not None or spec.unfolded):
             act_amax = _observe(spec, self.quant_path, x)
             if x.shape[1] >= spec.min_ch:  # all input channels, not a group's (JAX :339)
-                return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain,
-                                         self.groups, requant_amax=requant_amax)
+                with annotate("int8.conv"):
+                    weight, bias = self._folded(mul, add)
+                    return int8_conv_dequant(x, weight, bias, self.stride, pad, x.dtype, act_amax, spec.plain,
+                                             self.groups, requant_amax=requant_amax)
+        weight, bias = self._folded(mul, add)
         if isinstance(x, QuantizedActivation) or requant_amax is not None:
             raise RuntimeError("a fused int8 link reached a conv that does not quantize")
         return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), self.stride, pad,
@@ -524,6 +532,15 @@ class PredictorConv(nn.Module):
         return fused_predictor_apply(x, [self])[0]
 
 
+def _stacked(preds):
+    """(weight, bias) of sibling predictors concatenated along the output
+    channels; a bias-free predictor gets a zero bias slice."""
+    weight = preds[0].weight if len(preds) == 1 else torch.cat([m.weight for m in preds], 0)
+    if all(m.bias is None for m in preds):
+        return weight, None
+    return weight, torch.cat([m.bias if m.bias is not None else m.weight.new_zeros(m.out_channels) for m in preds])
+
+
 def fused_predictor_apply(x, preds):
     """Run sibling PredictorConvs as ONE conv over output-channel-concatenated
     kernels, then split. Exact: each output channel is computed as by its own
@@ -534,18 +551,15 @@ def fused_predictor_apply(x, preds):
     k = preds[0].kernel_size
     if any(m.kernel_size != k for m in preds):
         raise ValueError("fused predictors need one kernel size")
-    weight = preds[0].weight if len(preds) == 1 else torch.cat([m.weight for m in preds], 0)
-    bias = None
-    if any(m.bias is not None for m in preds):
-        bias = torch.cat([m.bias if m.bias is not None else m.weight.new_zeros(m.out_channels)
-                          for m in preds])
     spec = _QUANT.get()
     if spec.enabled and spec.unfolded:
         act_amax = _observe(spec, preds[0].quant_path, x)
-        y = int8_conv_dequant(x, weight, bias, 1, k // 2, x.dtype, act_amax, spec.plain)
+        with annotate("int8.conv"):
+            y = int8_conv_dequant(x, *_stacked(preds), 1, k // 2, x.dtype, act_amax, spec.plain)
     elif isinstance(x, QuantizedActivation):
         raise RuntimeError("a fused int8 link reached predictors that do not quantize")
     else:
+        weight, bias = _stacked(preds)
         y = F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=k // 2)
     return list(torch.split(y, [m.out_channels for m in preds], dim=1))
 

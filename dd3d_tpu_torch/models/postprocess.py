@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from dd3d_tpu_torch.utils import comm
+from dd3d_tpu_torch.utils.profiling import annotate
 
 
 def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False, group_size: int = 1, scan=None):
@@ -44,11 +45,14 @@ def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False, group_
     aggregate = bool(cfg.DD3D.INFERENCE.get("NUSC_SAMPLE_AGGREGATE", False)) and group_size > 1
 
     def infer(images, intrinsics, pose_quat=None, pose_tvec=None):
-        with torch.inference_mode(), quant_scope(spec):
-            images = torch.as_tensor(images, device=device)
-            intrinsics = torch.as_tensor(intrinsics, device=device)
-            outputs = model(images)
-            det = dd3d_inference(cfg, outputs, intrinsics, model.strides, suppress=suppress, scan=scan)
+        with annotate("serve"), torch.inference_mode(), quant_scope(spec):
+            with annotate("serve.to_device"):
+                images = torch.as_tensor(images, device=device)
+                intrinsics = torch.as_tensor(intrinsics, device=device)
+            with annotate("serve.forward"):
+                outputs = model(images)
+            with annotate("serve.decode"):
+                det = dd3d_inference(cfg, outputs, intrinsics, model.strides, suppress=suppress, scan=scan)
             if aggregate and pose_quat is not None:
                 g = group_size
 

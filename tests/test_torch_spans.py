@@ -1,0 +1,155 @@
+"""The port's spans (dd3d_tpu_torch/utils/profiling.annotate) along the
+serving path, on the CPU: a batch of a small static-int8 DLA-34 served
+through `get_inference_fn` at 128x128 (the int8 convs run their plain
+versions here).
+
+- With no profiler recording, `annotate` enters nothing and the span table
+  stays empty.
+- Under `torch.profiler.profile`, one batch records one `serve` root, its
+  children under the right parents, in order and inside their parent's
+  interval, and one `int8.conv` for each conv that takes the int8 path.
+- Each row starts within 100 us of its `record_function` event in the same
+  profile (the first span of a profile, which sets the profiler up, aside).
+- `trace()` clears the table on entry.
+"""
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from dd3d_tpu_torch.configs import get_experiment_cfg
+from dd3d_tpu_torch.models import build_model, layers
+from dd3d_tpu_torch.models.calibrate import prepare_static_scales
+from dd3d_tpu_torch.models.postprocess import get_inference_fn
+from dd3d_tpu_torch.utils import profiling
+
+from tests.torch_port_util import torch_threads
+
+KITTI_K = np.array([[721.5, 0, 64.0], [0, 721.5, 64.0], [0, 0, 1]], np.float32)
+CHILDREN = {"serve.to_device": "serve", "serve.forward": "serve", "serve.decode": "serve",
+            "forward.backbone": "serve.forward", "forward.fpn": "serve.forward", "forward.fcos2d": "serve.forward",
+            "forward.fcos3d": "serve.forward", "decode.levels": "serve.decode", "decode.nms": "serve.decode",
+            "decode.outputs": "serve.decode"}
+DLA34_INT8_CONVS = 115  # a DLA-34 forward's int8 convs at QUANT_MIN_CH 32 with QUANT_UNFOLDED
+
+
+@pytest.fixture(scope="module")
+def server():
+    with torch_threads():
+        cfg = get_experiment_cfg("dd3d_kitti_dla34")
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        cfg.TPU.QUANT_INT8, cfg.TPU.QUANT_MIN_CH, cfg.TPU.QUANT_UNFOLDED = True, 32, True
+        torch.manual_seed(0)
+        model = build_model(cfg)
+        images = (np.random.RandomState(0).rand(1, 128, 128, 3) * 255).astype(np.uint8)
+        infer = get_inference_fn(model, prepare_static_scales(cfg, model, [images], tag="spans"))
+        infer(images, KITTI_K[None])
+        yield infer, images, KITTI_K[None]
+
+
+@pytest.fixture
+def int8_calls(monkeypatch):
+    """Counts the calls of the int8 conv wrapper (one a conv on the int8 path)."""
+    calls = []
+    original = layers.int8_conv_dequant
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(layers, "int8_conv_dequant", counting)
+    return calls
+
+
+def served_under_profiler(server):
+    infer, images, intrinsics = server
+    profiling.clear_spans()
+    with torch_threads(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        infer(images, intrinsics)
+    return profiling.spans(), prof
+
+
+def test_no_profiler_no_spans(server, int8_calls):
+    infer, images, intrinsics = server
+    profiling.clear_spans()
+    assert profiling.annotate("a") is profiling.annotate("b")  # the shared null context: nothing entered
+    with torch_threads():
+        infer(images, intrinsics)
+    assert profiling.spans() == [] and len(int8_calls) == DLA34_INT8_CONVS
+
+
+def test_a_served_batch_is_one_root_with_its_layers_nested(server, int8_calls):
+    rows, _ = served_under_profiler(server)
+    counts = Counter(r.name for r in rows)
+    assert counts == Counter({**{name: 1 for name in ("serve", *CHILDREN)}, "int8.conv": len(int8_calls)})
+    assert len(int8_calls) == DLA34_INT8_CONVS
+    assert rows[0].name == "serve" and rows[0].parent == -1
+    assert all(r.root == 0 for r in rows)
+    for r in rows[1:]:
+        parent = rows[r.parent]
+        assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns, r
+        if r.name == "int8.conv":
+            assert parent.name.startswith("forward."), r
+        else:
+            assert parent.name == CHILDREN[r.name], r
+    first = {r.name: r for r in rows}
+    order = ["serve.to_device", "serve.forward", "serve.decode"]
+    assert all(first[a].end_ns <= first[b].start_ns for a, b in zip(order, order[1:]))
+    assert {rows[r.parent].name for r in rows if r.name == "int8.conv"} == {
+        "forward.backbone", "forward.fpn", "forward.fcos2d", "forward.fcos3d"}
+
+
+def clock_gaps(rows, prof):
+    """|row start - its record_function event's start| in ns, row by row."""
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation() and not str(e.device_type()).endswith("CUDA"):
+            events.setdefault(e.name(), []).append(e.start_ns())
+    seen = Counter()
+    gaps = []
+    for r in rows:
+        gaps.append(abs(r.start_ns - sorted(events[r.name])[seen[r.name]]))
+        seen[r.name] += 1
+    assert seen == Counter(r.name for r in rows) == Counter({n: len(v) for n, v in events.items()})
+    return gaps
+
+
+def test_rows_share_the_profilers_clock(server):
+    """Up to three profiles: a row's clock read and the profiler's lie a few
+    microseconds apart, unless the scheduler takes the core between them
+    (the tests run in several processes at once); another clock would put
+    every profile off."""
+    tries = []
+    for _ in range(3):
+        gaps = clock_gaps(*served_under_profiler(server))[1:]
+        tries.append(sorted(gaps)[-3:])
+        if max(gaps) < 100_000:
+            return
+    raise AssertionError(f"rows off the profiler's clock: the largest gaps of each profile, ns: {tries}")
+
+
+def test_trace_clears_the_table(tmp_path):
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("outer"), profiling.annotate("inner"):
+            pass
+        with profiling.annotate("open"):
+            profiling.clear_spans()  # a span open across the clearing leaves no row
+            with profiling.annotate("after"):
+                pass
+    assert [(r.name, r.parent, r.root) for r in profiling.spans()] == [("after", -1, 0)]
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("outer"), profiling.annotate("inner"):
+            pass
+    assert [(r.name, r.parent, r.root) for r in profiling.spans()] == [("outer", -1, 0), ("inner", 0, 0)]
+    with profiling.trace(str(tmp_path / "trace")):
+        assert profiling.spans() == []
+        with profiling.annotate("kept"):
+            pass
+    assert [r.name for r in profiling.spans()] == ["kept"]
+    profiling.clear_spans()
+    assert profiling.spans() == []
+
