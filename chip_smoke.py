@@ -315,18 +315,26 @@ children's checks run in phase order after those.
     arithmetic-coded JPEG, a smoothed progressive JPEG, a JPEG cut inside a
     marker segment and a CMYK JPEG, and from the same pixels as plain PNGs:
     identical canvases and detections, the NMS kernel once, and identical
-    detections with the plain suppression.
+    detections with the plain suppression;
+45. DLA's stem convs on the stem kernel (ops/stem_conv.py): DLA-34's
+    folded weights chained from uint8 frames, at 128 frames of 384x1280
+    and 12 of 896x1664, each output against stem_conv_plain within 2 bf16
+    ulps, none beyond the bound, at least 99.9 % equal bit for bit; device
+    time of the three kernels, the plain version and cuDNN + bias + ReLU at
+    128x384x1280; 3 kernel launches a served forward in bf16 and in static
+    int8.
 
 The training runs of phases 17, 19, 24, 28 and 32 run the train loader
 on its thread path (phase 15 times the process pool against it), so that
 none spawns a pool of its own.
 
 Before the last line, the card's name and power limit and one JSON line of
-the eight kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
+the nine kernel entries (the greedy NMS, the BEV NMS's scan, quantize,
 int8 conv, the int8 conv with the s8 epilogue, grouped int8 conv on its
-depthwise, mma and direct routes, on its narrow route, dW): launches on the main paths (DLA-34's,
-V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's, the head
-options', the JPEG-served batch's and the REMAT steps'), error against the plain
+depthwise, mma and direct routes, on its narrow route, dW, the stem conv): launches on the main paths
+(DLA-34's, V2-99's, nuScenes' in bf16 and int8, RegNetY's, DenseDepth's, the DLA variants', DLA-X-60's,
+the head options', the JPEG-served batch's and the REMAT steps'; the stem conv's on phase 45's bf16 and
+static-int8 serving), error against the plain
 version, ms, the plain version's ms, the bound (bytes or operations at the
 published H100 peaks) and, where one PyTorch call computes the same thing,
 that call's ms.
@@ -2342,8 +2350,9 @@ def zero_launches():
     from dd3d_tpu_torch.ops.int8_conv import int8_conv, int8_conv_grouped
     from dd3d_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_scan
     from dd3d_tpu_torch.ops.quantize import quantize_int8
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
 
-    for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, int8_conv_grouped, conv_dw_s1_same):
+    for k in (greedy_nms, greedy_nms_scan, quantize_int8, int8_conv, int8_conv_grouped, conv_dw_s1_same, stem_conv):
         k.launches = 0
     int8_conv.launches_by_out.update(dict.fromkeys(int8_conv.launches_by_out, 0))
     int8_conv_grouped.launches_by_route.update(dict.fromkeys(int8_conv_grouped.launches_by_route, 0))
@@ -4633,6 +4642,121 @@ def phase43_remat(vis_cli, device, card):
             "dw": sum(r["dw"] for r in runs.values()) + res["dw_launches"]}
 
 
+# --- DLA's stem convs on the stem kernel (phase 45) ---------------------------
+# (batch, height, width) of the frames: the benchmark cells' batch of 128 at
+# KITTI's 384x1280 canvas, and nuScenes' two samples of six cameras at 896x1664
+STEM_CANVASES = ((128, HEIGHT, WIDTH), (NUSC_BATCH, 896, 1664))
+STEM_CHECK_SLICE = 32  # images a comparison with the plain version holds at once
+
+
+def stem_conv_check(y, x, weight, bias, stride):
+    """bench_stem.stem_conv_error of the kernel's output `y` on `x`, taken
+    over slices of STEM_CHECK_SLICE images: (max ulps, elements beyond the
+    bound, share equal bit for bit)."""
+    from dd3d_tpu_torch.bench_stem import stem_conv_error
+    from dd3d_tpu_torch.ops.stem_conv import NormalizedFrames
+
+    worst, beyond, equal, n = 0.0, 0, 0.0, 0
+    for i0 in range(0, y.shape[0], STEM_CHECK_SLICE):
+        i1 = min(y.shape[0], i0 + STEM_CHECK_SLICE)
+        xs = NormalizedFrames(x.frames[i0:i1], x.mean, x.std, x.dtype) if isinstance(x, NormalizedFrames) else x[i0:i1]
+        e = stem_conv_error(y[i0:i1], xs, weight, bias, stride)
+        worst, beyond = max(worst, e["max_ulps"]), beyond + e["beyond"]
+        equal, n = equal + e["equal_share"] * e["elements"], n + e["elements"]
+    return worst, beyond, equal / n
+
+
+def cudnn_stem(x, weight, bias, stride):
+    """The unfused ConvNorm on the card: cuDNN's bf16 conv, PyTorch's
+    separate bias add, then the ReLU."""
+    return torch.nn.functional.relu(torch.nn.functional.conv2d(x, weight, bias, stride, (weight.shape[-1] - 1) // 2))
+
+
+def phase45_stem_conv(model, cfg, cfg8, images, intrinsics, device, card):
+    """DLA's stem convs on the stem kernel (ops/stem_conv.py) at the shapes
+    the serving path gives it: DLA-34's own folded bf16 weights, chained as
+    the forward chains them from uint8 frames (`base_layer` on the frames,
+    `level0` and `level1` on the kernel's outputs), at each of
+    STEM_CANVASES; every output against stem_conv_plain within
+    bench_stem.stem_conv_error's bound (at most 2 ulps, none beyond, at
+    least 99.9 % equal bit for bit). At the first canvas, device time of the
+    three kernels, of the plain version, and of cuDNN + bias + ReLU, with
+    the three convs' bound (each reading its input and writing its output
+    once). Then N_BATCHES served batches in bf16 and in static int8
+    (QUANT_MIN_CH 32 leaves the stem in bf16), each counted from zero: 3
+    kernel launches a forward in each. Returns (launches, max ulps, (ms,
+    plain_ms, bound_ms, bound_by, library_ms))."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.stem_conv import NormalizedFrames, stem_conv, stem_conv_plain
+
+    t0 = time.time()
+    trunk = model.eval().backbone.bottom_up
+    convs = []
+    with torch.no_grad():
+        for name in ("base_layer", "level0.0", "level1.0"):
+            conv = trunk.get_submodule(name)
+            weight, bias = conv._folded(*conv.norm.folded())
+            convs.append((name, weight.to(torch.bfloat16), bias.to(torch.bfloat16), conv.stride))
+    gen = torch.Generator(device=device).manual_seed(SEED + 45)
+    prof = lambda: profile(activities=[ProfilerActivity.CUDA])  # noqa: E731
+    worst_ulps, timed = 0.0, None
+    for b, h, w in STEM_CANVASES:
+        frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8, device=device)
+        x = NormalizedFrames(frames, model.pixel_mean, model.pixel_std, torch.bfloat16)
+        times = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0, "bound": 0.0}
+        bys = set()
+        with torch.inference_mode():
+            for name, weight, bias, stride in convs:
+                y = stem_conv(x, weight, bias, stride)
+                ulps, beyond, equal = stem_conv_check(y, x, weight, bias, stride)
+                log(f"phase45 {name} at {b}x{h}x{w}: kernel against plain: max {ulps:.3f} bf16 ulps, {beyond} "
+                    f"elements beyond the bound, {equal:.6f} equal bit for bit")
+                if ulps > 2 or beyond or equal < 0.999:
+                    raise AssertionError(f"phase45: {name} at {b}x{h}x{w} strays from the plain version: {ulps} ulps, "
+                                         f"{beyond} beyond, {equal} equal")
+                worst_ulps = max(worst_ulps, ulps)
+                if (b, h, w) == STEM_CANVASES[0]:
+                    xt = x.normalized() if isinstance(x, NormalizedFrames) else x
+                    times["kernel"] += device_ms(functools.partial(stem_conv, x, weight, bias, stride), 10, prof)
+                    times["plain"] += device_ms(functools.partial(stem_conv_plain, x, weight, bias, stride), 2, prof)
+                    times["cudnn"] += device_ms(functools.partial(cudnn_stem, xt, weight, bias, stride), 10, prof)
+                    del xt
+                    _, c, hi, wi = x.shape
+                    o, k = weight.shape[0], weight.shape[-1]
+                    ho, wo = y.shape[2], y.shape[3]
+                    in_bytes = 1 if isinstance(x, NormalizedFrames) else 2
+                    ms, by = bound_ms(b * hi * wi * c * in_bytes + b * ho * wo * o * 2, 2 * b * ho * wo * o * c * k * k,
+                                      "bf16")
+                    times["bound"] += ms
+                    bys.add(by)
+                x = y
+        if (b, h, w) == STEM_CANVASES[0]:
+            timed = (times["kernel"], times["plain"], times["bound"], "/".join(sorted(bys)), times["cudnn"])
+            log(f"phase45 timing on {card}: the three stem convs at {b}x{h}x{w}, device time: kernels "
+                f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, cuDNN + bias + ReLU {times['cudnn']:.4f} "
+                f"ms; bound {times['bound']:.4f} ms by {timed[3]}")
+        del frames, x, y
+        torch.cuda.empty_cache()
+
+    launches = {}
+    for arm, arm_cfg in (("bf16", cfg), ("int8", cfg8)):
+        infer = get_inference_fn(model, arm_cfg)
+        stem_conv.launches = 0
+        for im in images:
+            infer(im, intrinsics)
+        torch.cuda.synchronize()
+        launches[arm] = stem_conv.launches
+    log(f"phase45 stem kernel launches on {N_BATCHES} served batches of {BATCH}: {launches}")
+    if launches != {"bf16": 3 * N_BATCHES, "int8": 3 * N_BATCHES}:
+        raise AssertionError(f"phase45: stem kernel launches {launches}, want 3 a forward in bf16 and in static int8")
+    log(f"phase45 ok ({time.time() - t0:.2f} s)")
+    return launches, worst_ulps, timed
+
+
 def main():
     modes = {"--cli-rank": cli_rank, "--cli-timing": cli_timing, "--eval-only": eval_only, "--vis-rank": vis_rank}
     if len(sys.argv) > 1 and sys.argv[1] in modes:
@@ -4650,7 +4774,7 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "imageio.cpp",
+    build_libraries("nms.cu", "quantize.cu", "int8_conv.cu", "conv_dw.cu", "stem_conv.cu", "imageio.cpp",
                     "kitti_eval.cpp")  # one compiler each
     log(f"kernels built in {time.time() - t0:.2f} s")
     from dd3d_tpu_torch.overfit_smoke import make_fixture
@@ -4696,6 +4820,10 @@ def main():
     fusion = {"DLA-34": fusion_ab(model, cfg8, images, intrinsics, "phase9", card)}
     standalone = standalone_quantize_timing(model, cfg8, images, intrinsics, "phase9", card)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stem_launches, stem_ulps, stem_t = phase45_stem_conv(model, cfg, cfg8, images, intrinsics, device, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     train_ms, train_peak, dw_ms = phase13_train_timing(device, stem_cases)
     torch.cuda.synchronize()
     with tmp_dir as tmp:
@@ -4908,14 +5036,15 @@ def main():
                 - rg_launches["int8_conv_grouped_by_route"]["narrow"]
                 - dx_launches["int8_conv_grouped_by_route"]["narrow"],
                 "int8_conv_grouped_narrow": rg_launches["int8_conv_grouped_by_route"]["narrow"]
-                + dx_launches["int8_conv_grouped_by_route"]["narrow"]}
+                + dx_launches["int8_conv_grouped_by_route"]["narrow"],
+                "stem_conv": stem_launches["bf16"] + stem_launches["int8"]}
     quant_err = max(quant_err, v99_quant_err)
     conv_err = max(conv_err, v99_conv_err, rg_conv_err, nusc8["conv_err"], nusc8_v99["conv_err"], dx_conv_err)
     grouped_err = max([grouped_err] + [e for route, e in dx_grouped_errs.items() if route != "narrow"])
     timed = {"greedy_nms": (*nms_t["random boxes"], None), "greedy_nms_scan": (*scan_samples, None),
              "quantize_int8": kernel_ms["quantize_int8"], "int8_conv": kernel_ms["int8_conv"], "int8_conv_requant": s8_t,
              "int8_conv_grouped": grouped_t, "int8_conv_grouped_narrow": narrow_t,
-             "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH]}
+             "conv_dw_s1_same": dw_ms[7, HEIGHT, WIDTH], "stem_conv": stem_t}
     rows = [("greedy_nms", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/pallas_nms.py:40", launches["greedy_nms"],
              max(nms_err, large_err)),
             ("greedy_nms_scan", "dd3d_tpu_torch/csrc/nms.cu", "dd3d_tpu/ops/nms.py:37",
@@ -4931,7 +5060,9 @@ def main():
             ("int8_conv_grouped_narrow", "dd3d_tpu_torch/csrc/int8_conv.cu", "dd3d_tpu/models/layers.py:273",
              launches["int8_conv_grouped_narrow"], dx_grouped_errs["narrow"]),
             ("conv_dw_s1_same", "dd3d_tpu_torch/csrc/conv_dw.cu", "dd3d_tpu/ops/pallas_conv.py:58",
-             cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches + remat["dw"], dw_err)]
+             cli_dw_launches + nusc_dw_launches + dd_dw_launches + dx_dw_launches + remat["dw"], dw_err),
+            # no TPU kernel: the JAX package leaves these convs to XLA; its error is in bf16 ulps
+            ("stem_conv", "dd3d_tpu_torch/csrc/stem_conv.cu", None, launches["stem_conv"], stem_ulps)]
     kernels = []
     for name, source, replaces, n, err in rows:
         ms, plain_ms, bnd, by, library_ms = timed[name]

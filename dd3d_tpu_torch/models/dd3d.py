@@ -29,6 +29,7 @@ from dd3d_tpu_torch.ops.geometry import unproject_points2d
 from dd3d_tpu_torch.ops.locations import compute_feature_locations
 from dd3d_tpu_torch.ops.nms import NEG_INF, batched_nms_padded
 from dd3d_tpu_torch.ops.rotated_boxes import boxes3d_corners_to_bev_boxes, rotated_nms_padded
+from dd3d_tpu_torch.ops.stem_conv import NormalizedFrames
 from dd3d_tpu_torch.structures.boxes3d import generic_corners
 from dd3d_tpu_torch.utils.convert_checkpoint import assign_quant_paths
 from dd3d_tpu_torch.utils.profiling import annotate
@@ -56,13 +57,16 @@ class DD3D(nn.Module):
     def preprocess_image(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float BGR -> normalized NCHW (channels_last
         strides) in the compute dtype; the normalization is fp32."""
-        x = images.permute(0, 3, 1, 2).float()
-        return ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
+        return NormalizedFrames(images, self.pixel_mean, self.pixel_std, self.dtype).normalized()
 
     def forward(self, images: torch.Tensor, return_cls_tower: bool = False):
         """Per-level (B, H, W, C) head outputs; with `return_cls_tower`, also
         the cls tower's per-level NCHW outputs, as (outputs, towers)."""
-        feats = self.backbone(self.preprocess_image(images))
+        if images.dtype == torch.uint8 and getattr(self.backbone, "reads_frames", False):
+            # the frames themselves: the stem conv normalizes them (models/layers.py ConvNorm)
+            feats = self.backbone(NormalizedFrames(images, self.pixel_mean, self.pixel_std, self.dtype))
+        else:
+            feats = self.backbone(self.preprocess_image(images))
         features = [feats[k] for k in sorted(feats, key=lambda k: int(k[1:]))]
         with annotate("forward.fcos2d"):
             head2d = self.fcos2d_head(features, return_cls_tower=return_cls_tower)

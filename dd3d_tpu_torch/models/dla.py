@@ -15,6 +15,14 @@ weight-gradient CUDA kernel in train mode: `base_layer` (7x7, 3->16) and
 every `level0` conv (3x3, 16->16), all stride 1, in every variant. The
 stride-2 `level1` conv stays on the library conv in both packages.
 
+In eval on the card in bf16, `base_layer` (reading the uint8 frames,
+normalized in its load), `level0` and `level1` each run as one launch of
+ops/stem_conv's kernel, conv, folded-BN bias and ReLU together
+(ConvNorm.takes_stem_kernel); `level0` and `level1` are one conv each in
+every variant (levels[0] = levels[1] = 1, channels 16 and 32). So DD3D
+hands the trunk the frames themselves (`reads_frames`), and `base_layer`
+normalizes them.
+
 BottleneckX's grouped 3x3 is a grouped ConvNorm: under TPU.QUANT_INT8 it
 runs through ops/int8_conv.int8_conv_grouped, on the route its shape takes
 (C/g = planes / 32: 4 and 8 on `direct`, 16 and 32 on `mma`).
@@ -123,6 +131,9 @@ class Tree(nn.Module):
         if self.levels == 1:
             residual = self.project(bottom) if self.project is not None else bottom
             x1 = self.tree1(x, residual)
+            # Nothing reads them now: freed before tree2 and the root, where a
+            # serving forward's memory peaks once the stem is fused (level2).
+            del residual, bottom
             x2 = self.tree2(x1)
             return self.root(x2, x1, *children)
         x1 = self.tree1(x)
@@ -132,6 +143,8 @@ class Tree(nn.Module):
 
 class DLA(nn.Module):
     """DLA trunk; returns a dict of `level{i}` features (stride 2**i)."""
+
+    reads_frames = True  # its first module, `base_layer`, takes NormalizedFrames (ConvNorm.forward)
 
     def __init__(self, levels, channels, block=BasicBlock, residual_root: bool = False,
                  out_features=("level3", "level4", "level5"), norm: str = "BN", kernel_stem_weight_grad: bool = False):

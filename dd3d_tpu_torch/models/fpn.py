@@ -79,6 +79,7 @@ class FPN(nn.Module):
         if fuse_type not in ("sum", "avg"):
             raise ValueError(f"FE.FPN.FUSE_TYPE={fuse_type!r}")
         self.bottom_up = bottom_up
+        self.reads_frames = getattr(bottom_up, "reads_frames", False)  # models/dd3d.py DD3D.forward
         self.in_features = tuple(in_features)
         self.in_strides = dict(in_strides)
         self.out_channels = out_channels

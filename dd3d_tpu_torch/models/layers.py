@@ -33,6 +33,16 @@ Counterpart of dd3d_tpu/models/layers.py. `model.train()` and
   epilogue (`TowerConv.link_amax` says when), with the ReLU fused: no bf16
   tensor, ReLU or quantize launch between the two. The result is the
   unfused path's, bit for bit.
+- DLA's full-resolution stem convs (`base_layer` 7x7 3 -> 16, `level0` 3x3
+  16 -> 16, `level1` 3x3/2 16 -> 32) run through ops/stem_conv's CUDA
+  kernel, conv, bias and ReLU in one launch, where
+  `ConvNorm.takes_stem_kernel` says so in this call
+  (ops/stem_conv.stem_conv_engages: CUDA, eval without autograd, bf16, a
+  folded norm and a ReLU, the conv not quantizing and no calibration
+  capturing). A ConvNorm handed the uint8 frames themselves
+  (ops/stem_conv.NormalizedFrames; DLA's `base_layer`, models/dd3d.py)
+  normalizes them in the kernel's load, or, where the rule does not hold,
+  as DD3D.preprocess_image does before its own conv.
 """
 import contextlib
 import contextvars
@@ -48,6 +58,7 @@ from torch import nn
 
 from dd3d_tpu_torch.ops.conv_dw import Conv2dS1Same, check_kernel_size
 from dd3d_tpu_torch.ops.int8_conv import QuantizedActivation, int8_conv_dequant
+from dd3d_tpu_torch.ops.stem_conv import STEM_SHAPES, NormalizedFrames, stem_conv, stem_conv_engages
 from dd3d_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
@@ -418,7 +429,29 @@ class ConvNorm(FoldableConv):
         self.norm = make_norm(norm, out_channels)
         self.relu, self.swish = relu, swish
 
+    def takes_stem_kernel(self, x) -> bool:
+        """Whether this conv runs on `x` (a tensor or NormalizedFrames)
+        through the stem kernel in this call (ops/stem_conv.stem_conv_engages)."""
+        if (self.kernel_size, self.stride, x.shape[1], self.weight.shape[0]) not in STEM_SHAPES:
+            return False  # the rule's first test, before the quantization scope is read
+        spec = _QUANT.get()
+        foldable = self.norm is not None and self.norm.foldable
+        return stem_conv_engages(
+            device_type=x.device.type, training=self.training, grad=torch.is_grad_enabled(), foldable=foldable,
+            relu=self.relu and not self.swish, dtype=x.dtype, groups=self.groups, kernel_size=self.kernel_size,
+            stride=self.stride, in_channels=x.shape[1], out_channels=self.weight.shape[0],
+            frames=isinstance(x, NormalizedFrames), quantizes=self.quantizes(spec, foldable, x.shape[1]),
+            capture=spec.capture is not None)
+
     def forward(self, x):
+        if self.takes_stem_kernel(x):
+            spec = _QUANT.get()
+            if spec.enabled and self.quantizable:
+                _observe(spec, self.quant_path, x)  # the static-scale lookup, as on the F.conv2d path
+            weight, bias = self._folded(*self.norm.folded())
+            return stem_conv(x, weight.to(torch.bfloat16), bias.to(torch.bfloat16), self.stride)
+        if isinstance(x, NormalizedFrames):
+            x = x.normalized()  # DD3D.preprocess_image's tensor
         if self.norm is None:
             y = super().forward(x)
         elif self.norm.foldable:

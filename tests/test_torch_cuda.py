@@ -708,3 +708,187 @@ def test_jpeg_fixtures_and_remat_steps_on_card(card, monkeypatch):
             assert list(got) == list(want), policy
             for name in want:
                 assert torch.equal(got[name], want[name]), f"{policy}: {name}"
+
+
+# DLA's stem convs through csrc/stem_conv.cu: (name, kernel size, stride, C, O)
+STEM_CONVS = (("base_layer", 7, 1, 3, 16), ("level0", 3, 1, 16, 16), ("level1", 3, 2, 16, 32))
+KITTI_MEAN, KITTI_STD = (103.530, 116.280, 123.675), (57.375, 57.120, 58.395)
+
+
+def _stem_case(card, conv, b, h, w, seed):
+    """(x, weight, bias, stride) of one stem conv: uint8 frames as
+    NormalizedFrames (KITTI's mean and std) for base_layer, a bf16 NCHW
+    channels_last tensor for the others; He-scaled bf16 weights, bias
+    N(0, 0.3)."""
+    from dd3d_tpu_torch.ops.stem_conv import NormalizedFrames
+
+    _, k, stride, c, o = conv
+    gen = torch.Generator().manual_seed(seed)
+    if c == 3:
+        frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).to(card)
+        x = NormalizedFrames(frames, torch.tensor(KITTI_MEAN, device=card).view(1, 3, 1, 1),
+                             torch.tensor(KITTI_STD, device=card).view(1, 3, 1, 1), torch.bfloat16)
+    else:
+        x = torch.randn(b, h, w, c, generator=gen).to(card, torch.bfloat16).permute(0, 3, 1, 2)
+    weight = (torch.randn(o, c, k, k, generator=gen) * (2.0 / (c * k * k)) ** 0.5).to(card, torch.bfloat16)
+    bias = (torch.randn(o, generator=gen) * 0.3).to(card, torch.bfloat16)
+    return x, weight, bias, stride
+
+
+@pytest.mark.parametrize("conv", STEM_CONVS, ids=[c[0] for c in STEM_CONVS])
+@pytest.mark.parametrize("b,h,w", [(2, 375, 1242), (2, 384, 1280), (1, 896, 1664), (3, 7, 11), (1, 9, 130)])
+def test_stem_conv_kernel_matches_plain(card, conv, b, h, w):
+    """The kernel against `stem_conv_plain`: within one bf16 ulp for each
+    of the epilogue's two roundings, at the larger of the values rounded,
+    beyond the f32 sums' own order error (bench_stem.stem_conv_error: the
+    sums are taken in another order, as cuDNN's are), and equal bit for bit
+    at all but 1e-3 of the outputs, at KITTI's canvases, the nuScenes one
+    and ragged tiles; NHWC out, channels_last strides."""
+    from dd3d_tpu_torch.bench_stem import stem_conv_error
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
+
+    x, weight, bias, stride = _stem_case(card, conv, b, h, w, seed=h + w)
+    stem_conv.launches = 0
+    got = stem_conv(x, weight, bias, stride)
+    torch.cuda.synchronize()
+    assert stem_conv.launches == 1
+    assert got.shape == (b, conv[4], (h - 1) // stride + 1, (w - 1) // stride + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err = stem_conv_error(got, x, weight, bias, stride)
+    assert err["beyond"] == 0 and err["max_ulps"] <= 2.0 and err["equal_share"] >= 0.999, err
+
+
+def test_stem_conv_normalizes_as_preprocess_image_bit_for_bit(card):
+    """Through a centre-tap identity (outputs 0-2 +1, outputs 3-5 -1 on
+    channel c, bias 0) relu(n) - relu(-n) is the kernel's normalized frame
+    n, which must equal DD3D.preprocess_image's, every uint8 value on every
+    channel included. Then a corner tap: rows and columns the tap reads
+    outside the image give exactly 0, the normalized domain's zero (a
+    normalized uint8 0 would be -mean/std)."""
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
+
+    x, _, _, _ = _stem_case(card, STEM_CONVS[0], 2, 40, 300, seed=5)
+    x.frames[0, 5, :256] = torch.arange(256, dtype=torch.uint8, device=card)[:, None]
+    bias = torch.zeros(16, dtype=torch.bfloat16, device=card)
+    for r, s in ((3, 3), (0, 0)):
+        weight = torch.zeros(16, 3, 7, 7, dtype=torch.bfloat16, device=card)
+        for c in range(3):
+            weight[c, c, r, s], weight[3 + c, c, r, s] = 1, -1
+        got = stem_conv(x, weight, bias, 1)
+        n = (got[:, :3] - got[:, 3:6]).float()
+        want = x.normalized().float()
+        if (r, s) == (3, 3):
+            assert torch.equal(n, want)
+        else:  # output (i, j) reads input (i - 3, j - 3)
+            assert torch.equal(n[:, :, 3:, 3:], want[:, :, :-3, :-3])
+            assert not n[:, :, :3].any() and not n[:, :, :, :3].any()
+        assert not got[:, 6:].any()
+
+
+def test_stem_conv_on_runs_of_images_past_two_to_the_31(card):
+    """level0 on 70 images of 1024x1920x16, 2.2e9 elements a tensor: two
+    launches of 35 images, and the images at the run boundary and the ends
+    equal to a launch of their own."""
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
+
+    torch.cuda.empty_cache()
+    _, weight, bias, _ = _stem_case(card, STEM_CONVS[1], 1, 8, 8, seed=3)
+    x = torch.empty(70, 1024, 1920, 16, dtype=torch.bfloat16, device=card)
+    x.normal_(generator=torch.Generator(device=card).manual_seed(4))
+    x = x.permute(0, 3, 1, 2)
+    stem_conv.launches = 0
+    got = stem_conv(x, weight, bias, 1)
+    assert stem_conv.launches == 2
+    for i in (0, 34, 35, 69):
+        assert torch.equal(got[i:i + 1], stem_conv(x[i:i + 1], weight, bias, 1)), i
+    del x, got
+    torch.cuda.empty_cache()
+
+
+def _stem_model(card, dtype="bfloat16"):
+    from dd3d_tpu_torch.configs import get_experiment_cfg
+    from dd3d_tpu_torch.models import build_model
+    from dd3d_tpu_torch.training.synthetic import seed_norm_statistics
+
+    cfg = get_experiment_cfg("dd3d_kitti_dla34")
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    model = seed_norm_statistics(build_model(cfg, generator=torch.Generator().manual_seed(0)),
+                                 torch.Generator().manual_seed(1))
+    return cfg, model.to(card)
+
+
+def test_stem_conv_launches_on_the_serving_path_and_nowhere_else(card):
+    """A bf16 DLA-34 serving forward launches the stem kernel 3 times; f32,
+    train mode, calibration capture and static int8 with every stem conv
+    quantized (QUANT_MIN_CH 3) launch it 0 times; QUANT_MIN_CH 16 leaves
+    base_layer alone in bf16, so 1."""
+    from dd3d_tpu_torch.models.calibrate import prepare_static_scales
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randint(0, 256, (2, 128, 256, 3), dtype=np.uint8)).to(card)
+    k = torch.from_numpy(KITTI_K).to(card).expand(2, 3, 3).contiguous()
+    cfg, model = _stem_model(card)
+    for case, run in (("bf16 serving", lambda: get_inference_fn(model, cfg)(images, k)),
+                      ("train mode", lambda: model.train()(images))):
+        stem_conv.launches = 0
+        run()
+        torch.cuda.synchronize()
+        assert stem_conv.launches == (3 if case == "bf16 serving" else 0), case
+    model.eval()
+    stem_conv.launches = 0
+    cfg8 = prepare_static_scales(cfg, model, [images], tag="stem_test")  # calibration captures
+    assert stem_conv.launches == 0
+    for min_ch, want in ((3, 0), (16, 1), (32, 3)):
+        cfg8.TPU.QUANT_MIN_CH = min_ch
+        stem_conv.launches = 0
+        get_inference_fn(model, cfg8)(images, k)
+        assert stem_conv.launches == want, min_ch
+    cfg32, model32 = _stem_model(card, "float32")
+    stem_conv.launches = 0
+    get_inference_fn(model32, cfg32)(images, k)
+    assert stem_conv.launches == 0
+
+
+def test_stem_conv_served_batch_against_the_cudnn_path(card, monkeypatch):
+    """A served bf16 batch at 384x1280 with the stem kernel, and the same
+    model with the rule turned off (cuDNN, bias add, ReLU), each against the
+    model's f32 forward (TF32 off): every head output and the detections'
+    sorted scores stray from f32 by no more than the bf16 cell's det_ratio
+    limit (2.2, benchmark/limits) times what the cuDNN path strays. The
+    stem's outputs differ from cuDNN's by bf16 rounding, which the ~40
+    layers after it carry on as they carry their own."""
+    from dd3d_tpu_torch.models import layers
+    from dd3d_tpu_torch.models.postprocess import get_inference_fn
+    from dd3d_tpu_torch.ops.stem_conv import stem_conv
+
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randint(0, 256, (4, 384, 1280, 3), dtype=np.uint8)).to(card)
+    k = torch.from_numpy(KITTI_K).to(card).expand(4, 3, 3).contiguous()
+
+    def served(cfg, model):
+        with torch.inference_mode():
+            heads = model(images)
+        det = get_inference_fn(model, cfg)(images, k)
+        return heads, {key: det[key].float().sort(dim=1, descending=True)[0] for key in ("scores", "scores_3d")}
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref_heads, ref_det = served(*_stem_model(card, "float32"))
+    cfg, model = _stem_model(card)
+    stem_conv.launches = 0
+    heads, det = served(cfg, model)
+    assert stem_conv.launches == 6
+    monkeypatch.setattr(layers, "stem_conv_engages", lambda **kw: False)
+    heads_c, det_c = served(cfg, model)
+    assert stem_conv.launches == 6
+
+    def worst(a, b):
+        return float((a.float() - b.float()).abs().max()) + 1e-6
+
+    for key in ref_heads:
+        for lvl, ref in enumerate(ref_heads[key]):
+            ratio = worst(heads[key][lvl], ref) / worst(heads_c[key][lvl], ref)
+            assert ratio <= 2.2, (key, lvl, ratio)
+    for key in ref_det:
+        assert worst(det[key], ref_det[key]) / worst(det_c[key], ref_det[key]) <= 2.2, key
