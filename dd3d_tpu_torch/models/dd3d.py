@@ -189,8 +189,9 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
     `suppress` replaces the NMS suppression (default: the kernel's wrapper,
     which runs the plain version on CPU tensors). With NuscenesDD3D's heads
     the detections also carry `attributes` (argmax) and `speeds`. With
-    DD3D.INFERENCE.DO_BEV_NMS a rotated BEV NMS follows (`_bev_nms_in_graph`;
-    `scan` replaces its suppression, default the CUDA scan's wrapper).
+    DD3D.INFERENCE.DO_BEV_NMS a rotated BEV NMS follows (`_bev_nms_in_graph`,
+    in the span `decode.bev_nms`; `scan` replaces its suppression, default
+    the CUDA scan's wrapper).
     """
     inf2d = cfg.DD3D.FCOS2D.INFERENCE
     box3d_on = cfg.MODEL.BOX3D_ON and ("quat" in outputs)
@@ -275,7 +276,8 @@ def dd3d_inference(cfg, outputs: Dict[str, List[torch.Tensor]], intrinsics: Opti
             for k in ("boxes3d_quat", "boxes3d_proj_ctr", "boxes3d_depth", "boxes3d_size", "conf3d"):
                 result[k] = merged_sorted[k]
     if box3d_on and cfg.DD3D.INFERENCE.DO_BEV_NMS:
-        result = _bev_nms_in_graph(cfg, result, intrinsics, scan=scan)
+        with annotate("decode.bev_nms"):
+            result = _bev_nms_in_graph(cfg, result, intrinsics, scan=scan)
     return result
 
 

@@ -27,7 +27,8 @@ def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False, group_
     (pose_quat (B, 4) camera -> global wxyz, pose_tvec (B, 3)), each run of
     `group_size` images is one sample of that many cameras: its detections
     go through one global BEV NMS (`ops/sample_bev_nms.py`, at most 500 a
-    sample) and carry `quat_global` / `tvec_global` (JAX
+    sample, in the span `serve.aggregate`) and carry `quat_global` /
+    `tvec_global` (JAX
     dd3d_tpu/models/postprocess.py:125-175; nuscenes_dd3d.py:448-465).
 
     The int8 settings (TPU.QUANT_*) are read from `cfg` once, into a
@@ -59,12 +60,13 @@ def get_inference_fn(model, cfg, suppress=None, int8_plain: bool = False, group_
                 def regroup(x):
                     return x.reshape((-1, g) + tuple(x.shape[1:]))
 
-                out = sample_bev_nms_in_graph(
-                    {k: regroup(v) for k, v in det.items()}, regroup(intrinsics),
-                    regroup(torch.as_tensor(pose_quat, device=device)),
-                    regroup(torch.as_tensor(pose_tvec, device=device)),
-                    iou_threshold=cfg.DD3D.INFERENCE.BEV_NMS_IOU_THRESH, max_dets=500, scan=scan)
-                det = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in out.items()}
+                with annotate("serve.aggregate"):
+                    out = sample_bev_nms_in_graph(
+                        {k: regroup(v) for k, v in det.items()}, regroup(intrinsics),
+                        regroup(torch.as_tensor(pose_quat, device=device)),
+                        regroup(torch.as_tensor(pose_tvec, device=device)),
+                        iou_threshold=cfg.DD3D.INFERENCE.BEV_NMS_IOU_THRESH, max_dets=500, scan=scan)
+                    det = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in out.items()}
             return det
 
     infer.quant = spec

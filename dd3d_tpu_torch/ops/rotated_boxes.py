@@ -11,7 +11,9 @@ of the clip is JAX's, in the same order, so f32 IoUs agree to rounding.
 
 `rotated_nms_padded` suppresses through `suppress(iou, valid, threshold)`,
 by default the CUDA scan's wrapper (ops/nms_kernel.greedy_nms_scan), which
-runs the plain `greedy_suppress` on CPU tensors.
+runs the plain `greedy_suppress` on CPU tensors. Under a profiler it opens
+the spans `bev.iou` (the sort, the gathers, the IoU and its class mask)
+and `bev.scan` (the suppression), under whichever span its caller holds.
 """
 import math
 
@@ -19,6 +21,7 @@ import torch
 
 from dd3d_tpu_torch.ops.nms import NEG_INF
 from dd3d_tpu_torch.ops.quaternion import matvec3
+from dd3d_tpu_torch.utils.profiling import annotate
 
 # Rotation camera -> vehicle (z->x fwd, x->-y right, y->-z down), then
 # vehicle -> BEV (bev_nms.py:27-47).
@@ -120,10 +123,18 @@ def _intersection_area(ca: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_rotated_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """(..., N, 5) x (..., M, 5) rotated boxes -> (..., N, M) IoU matrix, f32."""
+    """(..., N, 5) x (..., M, 5) rotated boxes -> (..., N, M) IoU matrix, f32.
+    Each pair is clipped about the midpoint of its two centres, as
+    detectron2's box_iou_rotated shifts it: in a global frame hundreds of
+    metres from the origin, the area's sum of products of absolute
+    coordinates would lose a small box's overlap to f32 rounding (IoU off by
+    up to 0.16 at 300 m)."""
     boxes_a, boxes_b = boxes_a.float(), boxes_b.float()
-    ca = _rotated_corners(boxes_a)[..., :, None, :, :]  # (..., N, 1, 4, 2)
-    cb = _rotated_corners(boxes_b)[..., None, :, :, :]  # (..., 1, M, 4, 2)
+    half = (boxes_a[..., :, None, :2] - boxes_b[..., None, :, :2]) / 2  # (..., N, M, 2)
+    local_a = torch.cat([torch.zeros_like(boxes_a[..., :2]), boxes_a[..., 2:]], dim=-1)
+    local_b = torch.cat([torch.zeros_like(boxes_b[..., :2]), boxes_b[..., 2:]], dim=-1)
+    ca = _rotated_corners(local_a)[..., :, None, :, :] + half[..., None, :]  # (..., N, M, 4, 2)
+    cb = _rotated_corners(local_b)[..., None, :, :, :] - half[..., None, :]
     inter = _intersection_area(ca, cb)
     area_a = boxes_a[..., 2] * boxes_a[..., 3]
     area_b = boxes_b[..., 2] * boxes_b[..., 3]
@@ -141,14 +152,16 @@ def rotated_nms_padded(boxes5: torch.Tensor, scores: torch.Tensor, classes: torc
     valid, threshold) -> keep` defaults to the CUDA scan's wrapper."""
     if suppress is None:
         from dd3d_tpu_torch.ops.nms_kernel import greedy_nms_scan as suppress
-    order = torch.argsort(-scores, dim=-1, stable=True)
-    boxes_s = torch.gather(boxes5, 1, order[..., None].expand(boxes5.shape))
-    scores_s = torch.gather(scores, 1, order)
-    classes_s = torch.gather(classes, 1, order)
-    valid = scores_s > NEG_INF / 2
-    iou = pairwise_rotated_iou(boxes_s, boxes_s)
-    iou = torch.where(classes_s[..., :, None] == classes_s[..., None, :], iou, 0.0)
-    keep = suppress(iou.contiguous(), valid.contiguous(), iou_threshold)
+    with annotate("bev.iou"):
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        boxes_s = torch.gather(boxes5, 1, order[..., None].expand(boxes5.shape))
+        scores_s = torch.gather(scores, 1, order)
+        classes_s = torch.gather(classes, 1, order)
+        valid = scores_s > NEG_INF / 2
+        iou = pairwise_rotated_iou(boxes_s, boxes_s)
+        iou = torch.where(classes_s[..., :, None] == classes_s[..., None, :], iou, 0.0)
+    with annotate("bev.scan"):
+        keep = suppress(iou.contiguous(), valid.contiguous(), iou_threshold)
     if max_outputs and max_outputs > 0:
         kept_rank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
         keep = keep & (kept_rank < max_outputs)

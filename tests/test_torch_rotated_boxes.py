@@ -4,8 +4,8 @@ the C++ rotated IoU (evaluators/native.rotated_iou_matrix), on the CPU:
 
 - `pairwise_rotated_iou` within 1e-5 absolute of JAX's and of the C++
   engine's (f64, radians) on seeded boxes that include identical, disjoint,
-  contained and 45-degree pairs; batched over images it equals the per-image
-  matrices;
+  contained and 45-degree pairs, also hundreds of metres from the origin;
+  batched over images it equals the per-image matrices;
 - the BEV conversion of 3D box corners within 1e-5 of JAX's;
 - `rotated_nms_padded`: the same order and keep mask as JAX's on seeded
   inputs with no IoU within 1e-4 of the threshold, pads (NEG_INF) and tied
@@ -77,6 +77,18 @@ def test_pairwise_rotated_iou_matches_jax_and_the_host_engine(seed):
     inter45 = 8.0 * (np.sqrt(2.0) - 1.0)  # the regular octagon of a square and its 45-degree turn
     assert self_iou[6, 7] == pytest.approx(inter45 / (8.0 - inter45), abs=IOU_ATOL)
     assert self_iou[8, 9] == pytest.approx(1.0, abs=IOU_ATOL)
+
+
+@pytest.mark.parametrize("offset", [100.0, 300.0])
+def test_pairwise_rotated_iou_far_from_the_origin(offset):
+    """The same boxes hundreds of metres out, as a sample's global frame puts
+    them: still within 1e-5 of the host engine's f64 IoU of those inputs."""
+    a, b = seeded_boxes(0, 40), seeded_boxes(10, 33)
+    a[:, :2] += np.float32([offset, -offset / 2])
+    b[:, :2] += np.float32([offset, -offset / 2])
+    got = prb.pairwise_rotated_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert (got > 0.05).sum() > 50  # pairs that overlap
+    np.testing.assert_allclose(got, native_iou(a, b), rtol=0, atol=IOU_ATOL)
 
 
 def test_pairwise_rotated_iou_batched_equals_per_image():

@@ -11,6 +11,10 @@ versions here).
 - Each row starts within 100 us of its `record_function` event in the same
   profile (the first span of a profile, which sets the profiler up, aside).
 - `trace()` clears the table on entry.
+- A nuScenes batch of one six-camera sample (dd3d_nusc_dla34 in f32,
+  `group_size=6`, with poses) opens `decode.bev_nms` under `serve.decode`
+  and `serve.aggregate` under `serve`, each around one rotated BEV NMS
+  whose `bev.iou` and `bev.scan` nest under it; a KITTI batch opens none.
 """
 from collections import Counter
 
@@ -152,4 +156,47 @@ def test_trace_clears_the_table(tmp_path):
     assert [r.name for r in profiling.spans()] == ["kept"]
     profiling.clear_spans()
     assert profiling.spans() == []
+
+
+BEV_SPANS = {"decode.bev_nms": "serve.decode", "serve.aggregate": "serve"}
+
+
+@pytest.fixture(scope="module")
+def nusc_server():
+    with torch_threads():
+        cfg = get_experiment_cfg("dd3d_nusc_dla34")
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        torch.manual_seed(0)
+        model = build_model(cfg)
+        images = (np.random.RandomState(1).rand(6, 128, 128, 3) * 255).astype(np.uint8)
+        intrinsics = np.tile(KITTI_K, (6, 1, 1))
+        quat = np.tile(np.float32([0.5, -0.5, 0.5, -0.5]), (6, 1))
+        tvec = np.float32(np.arange(18).reshape(6, 3))
+        infer = get_inference_fn(model, cfg, group_size=6)
+        infer(images, intrinsics, quat, tvec)
+        yield infer, images, intrinsics, quat, tvec
+
+
+def test_nuscenes_serving_records_the_bev_spans_under_their_parents(nusc_server):
+    infer, *args = nusc_server
+    profiling.clear_spans()
+    with torch_threads(), profile(activities=[ProfilerActivity.CPU]):
+        infer(*args)
+    rows = profiling.spans()
+    counts = Counter(r.name for r in rows)
+    assert counts["serve"] == 1 and all(counts[name] == 1 for name in BEV_SPANS)
+    assert counts["bev.iou"] == counts["bev.scan"] == 2
+    for r in rows:
+        parent = rows[r.parent] if r.parent >= 0 else None
+        if r.name in BEV_SPANS:
+            assert parent.name == BEV_SPANS[r.name], r
+        if r.name in ("bev.iou", "bev.scan"):
+            assert parent.name in BEV_SPANS and parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns, r
+    walks = Counter((rows[r.parent].name, r.name) for r in rows if r.name.startswith("bev."))
+    assert walks == Counter({(p, c): 1 for p in BEV_SPANS for c in ("bev.iou", "bev.scan")})
+
+
+def test_a_kitti_batch_opens_no_bev_span(server):
+    rows, _ = served_under_profiler(server)
+    assert rows and not {r.name for r in rows} & {*BEV_SPANS, "bev.iou", "bev.scan"}
 
